@@ -1,0 +1,124 @@
+"""Calling conversion — the guest↔host "ABI" bridge.
+
+Guest side ("emulated"): values are host numpy arrays.
+Host side ("native"):   values are torch tensors on the unit's
+:class:`torch.device`, dtype-cast to the host function's compute dtype and
+narrowed to 32-bit types (:func:`~repro_torch.core.opset.canonical_dtype`):
+float64 arrives as float32 and int64 as int32, the same placement rule the
+32-bit reference engine applies to every argument and global.
+
+A :class:`ConversionPlan` is the analogue of the paper's per-function stub
+metadata: the argument marshaling recipe (shapes/dtypes/device), the output
+un-marshaling recipe, and the *staged globals* (device-resident copies of
+the program constants the offloaded unit references — the paper's "global
+references propagated to the host side").
+
+Building a plan is deliberately real work (aval resolution and the device
+placement of every global).  The baseline scheme rebuilds it on every
+crossing; the GRT caches it (see :mod:`repro_torch.core.grt`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from .opset import AVal, canonical_dtype
+from .program import Program
+
+
+def aval_of(x) -> AVal:
+    a = np.asarray(x)
+    return AVal(tuple(a.shape), str(a.dtype))
+
+
+def signature_of(args: Sequence[Any]) -> tuple[AVal, ...]:
+    """Canonical entry-signature key: one AVal per positional argument.
+
+    This is the cache key of the staged API's signature-polymorphic plan
+    cache (:class:`repro_torch.core.api.CompiledHybrid`) — two argument lists
+    with the same shapes and dtypes share one offload plan and executor state.
+    """
+    return tuple(aval_of(a) for a in args)
+
+
+def place(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Guest array → tensor on ``device`` in its canonical 32-bit dtype."""
+    a = np.asarray(a)
+    dt = canonical_dtype(a.dtype)
+    # a contiguous, writable array is shared with the tensor as-is (no copy
+    # on the CPU); anything else gets one host copy first
+    a = np.require(a.astype(dt, copy=False), requirements=("C", "W"))
+    return torch.from_numpy(a).to(device)
+
+
+@dataclasses.dataclass
+class ConversionPlan:
+    fname: str
+    arg_avals: tuple[AVal, ...]
+    out_avals: tuple[AVal, ...]
+    global_names: tuple[str, ...]
+    staged_globals: tuple[torch.Tensor, ...]   # device tensors
+    device: torch.device
+    compute_dtype: str | None                  # cast floating args on entry
+
+    # -- marshaling ---------------------------------------------------------
+
+    def convert_in(self, args: Sequence[np.ndarray]) -> tuple[torch.Tensor, ...]:
+        """Guest → host: cast + place every argument on the unit's device."""
+        out = []
+        for a in args:
+            a = np.asarray(a)
+            if (
+                self.compute_dtype is not None
+                and np.issubdtype(a.dtype, np.floating)
+                and a.dtype != np.dtype(self.compute_dtype)
+            ):
+                a = a.astype(self.compute_dtype)
+            out.append(place(a, self.device))
+        return tuple(out)
+
+    def convert_out(self, outs: Sequence[torch.Tensor]) -> tuple[np.ndarray, ...]:
+        """Host → guest: gather to host memory (blocking: the copy waits for
+        the device stream).  Always a fresh array, never a view of a guest
+        input that the unit passed through (on the CPU a tensor and its
+        numpy array share memory)."""
+        return tuple(o.to("cpu", copy=True).numpy() for o in outs)
+
+
+def stage_globals(program: Program, names: Sequence[str], device: torch.device) -> tuple:
+    """Place every referenced program constant on ``device`` (the GRT caches this)."""
+    return tuple(place(program.constants[n], device) for n in names)
+
+
+def build_plan(
+    program: Program,
+    fname: str,
+    arg_avals: tuple[AVal, ...],
+    out_avals: tuple[AVal, ...],
+    global_names: tuple[str, ...],
+    *,
+    device: torch.device,
+    compute_dtype: str | None = None,
+) -> ConversionPlan:
+    """Construct the full calling-conversion recipe for one offload unit.
+
+    This is the work GRT amortizes: aval validation and the device staging
+    of globals both happen here.
+    """
+    # validate avals (the paper's "correct parameter delivery" requirement)
+    for i, a in enumerate(arg_avals):
+        if any(d < 0 for d in a.shape):
+            raise ValueError(f"{fname}: bad aval for arg {i}: {a}")
+    staged = stage_globals(program, global_names, device)
+    return ConversionPlan(
+        fname=fname,
+        arg_avals=tuple(arg_avals),
+        out_avals=tuple(out_avals),
+        global_names=tuple(global_names),
+        staged_globals=staged,
+        device=device,
+        compute_dtype=compute_dtype,
+    )

@@ -1,0 +1,137 @@
+"""Block-sparse paged decode attention: the CUDA kernel and its plain version.
+
+``paged_decode_attention_kernel`` launches ``csrc/paged_decode_attention.cu``
+(hand-written for Hopper, ``sm_90a``), which replaces the TPU kernel
+``repro.kernels.decode_attention.paged_decode_attention_kernel``.  Each
+stream b walks its block table in logical order, visits page j only while
+``j*ps < lengths[b]``, and folds the optional fresh ``kn/vn`` row in last
+at position ``lengths[b]``; without a fresh row an empty stream yields exact
+zeros.  One thread block per stream and a fixed page order keep row b of a
+batched launch bitwise equal to a solo launch of row b.  The kernel is
+memory-bound (live KV bytes over 3.35 TB/s); see the source for its design.
+
+``paged_decode_attention_plain`` is the same function in plain PyTorch — a
+gather of each stream's live pages, then a two-pass softmax.  It serves CPU
+tensors (the tests) and is the yardstick the kernel is checked against on
+the card.  :func:`repro_torch.kernels.ops.paged_decode_attention` picks
+between the two by the tensors' device.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import build
+
+_SOURCE = "paged_decode_attention"
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, tables, lengths,
+                                 kn=None, vn=None):
+    """Plain PyTorch paged decode attention (any device, float32 math).
+
+    q: (B, d); k_pages, v_pages: (P, ps, d); tables: (B, npages) int32;
+    lengths: (B,) int32; kn, vn: optional (B, d) fresh rows attended at
+    logical position ``lengths[b]``.
+    """
+    B, d = q.shape
+    ps = k_pages.shape[1]
+    f32 = torch.float32
+    out = torch.zeros((B, d), dtype=f32, device=q.device)
+    for b, n in enumerate(lengths.tolist()):
+        used = -(-n // ps)                      # live pages of stream b
+        live = tables[b, :used].to(torch.long)
+        k = torch.index_select(k_pages, 0, live).reshape(used * ps, d)[:n].to(f32)
+        v = torch.index_select(v_pages, 0, live).reshape(used * ps, d)[:n].to(f32)
+        if kn is not None:
+            k = torch.cat([k, kn[b:b + 1].to(f32)])
+            v = torch.cat([v, vn[b:b + 1].to(f32)])
+        if k.shape[0] == 0:
+            continue    # nothing valid: exact zeros
+        s = (k @ q[b].to(f32)) / math.sqrt(d)
+        p = torch.exp(s - s.max())
+        p = p / p.sum()
+        out[b] = p @ v
+    return out.to(q.dtype)
+
+
+def _check(name, t, dtype, shape, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the kernel runs on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load(_SOURCE)
+    fn = lib.paged_decode_attention_f32
+    if fn.restype is not ctypes.c_int:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def paged_decode_attention_kernel(q, k_pages, v_pages, tables, lengths,
+                                  kn=None, vn=None):
+    """Launch the CUDA paged decode attention kernel on ``q``'s device.
+
+    Same arguments as :func:`paged_decode_attention_plain`; every tensor must
+    be float32 (tables and lengths int32), contiguous, and on one CUDA
+    device, or this raises.  Launches on the current stream and does not
+    synchronise.  ``paged_decode_attention_kernel.launches`` counts launches.
+    """
+    device = q.device
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got q on {device}")
+    if q.dim() != 2:
+        raise ValueError(f"q must be (B, d), got shape {tuple(q.shape)}")
+    B, d = q.shape
+    if k_pages.dim() != 3:
+        raise ValueError(f"k_pages must be (P, ps, d), got {tuple(k_pages.shape)}")
+    P, ps = k_pages.shape[:2]
+    if tables.dim() != 2:
+        raise ValueError(f"tables must be (B, npages), got {tuple(tables.shape)}")
+    npages = tables.shape[1]
+    f32, i32 = torch.float32, torch.int32
+    _check("q", q, f32, (B, d), device)
+    _check("k_pages", k_pages, f32, (P, ps, d), device)
+    _check("v_pages", v_pages, f32, (P, ps, d), device)
+    _check("tables", tables, i32, (B, npages), device)
+    _check("lengths", lengths, i32, (B,), device)
+    if (kn is None) != (vn is None):
+        raise ValueError("kn and vn go together: pass both or neither")
+    if kn is not None:
+        _check("kn", kn, f32, (B, d), device)
+        _check("vn", vn, f32, (B, d), device)
+    if ps < 1 or d < 1:
+        raise ValueError(f"page size and width must be positive, got ps={ps}, d={d}")
+    smem = 4 * (2 * d + max(ps, 8) + ps)
+    if smem > 227 * 1024:
+        raise ValueError(f"d={d}, ps={ps} needs {smem} bytes of shared memory "
+                         f"per block, above the card's 227 KB")
+    out = torch.empty((B, d), dtype=f32, device=device)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _library().paged_decode_attention_f32(
+            ptr(q), ptr(kn), ptr(vn), ptr(k_pages), ptr(v_pages),
+            ptr(tables), ptr(lengths), ptr(out),
+            B, d, ps, npages, int(kn is not None),
+            ctypes.c_float(1.0 / math.sqrt(d)), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"paged_decode_attention kernel launch failed: "
+                           f"CUDA error {err}")
+    paged_decode_attention_kernel.launches += 1
+    return out
+
+
+paged_decode_attention_kernel.launches = 0

@@ -1,0 +1,252 @@
+"""Model → Program IR lowering for the port: the decode-loop LMs.
+
+The exported programs are framework-free IR; the port carries its own copy
+of each exporter so it imports nothing of the JAX package.  Each exporter
+draws the same numpy random stream in the same order as its counterpart in
+the reference package, so the same ``seed`` gives bitwise-equal constants;
+:func:`load_reference_constants` carries another program's weights across.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+
+from ..core.program import Program, ProgramBuilder
+
+
+def export_attn_decode_lm(
+    vocab: int = 32,
+    d_model: int = 16,
+    max_context: int = 32,
+    *,
+    with_host_check: bool = True,
+    seed: int = 0,
+) -> Program:
+    """Export a single-head causal-attention LM as a **decode-loop program**
+    whose per-stream KV state *grows with context* — the paged-state workload
+    of :class:`~repro_torch.serve.DecodeScheduler` (see
+    :class:`~repro_torch.serve.StateSpec`).
+
+    Two roots, padded to the program's fixed ``max_context`` (``S``) so every
+    step call keeps one entry signature:
+
+    * entry ``prefill(tokens)`` — tokens ``(B, T)`` int32 →
+      ``(logits (B, V), K (B, S, D), V (B, S, D), len (B,))``: causal
+      self-attention over the whole prompt; K/V are zero-padded from ``T``
+      up to ``S`` and ``len`` records the filled prefix (= ``T``).
+    * ``decode_step(K, V, len, token)`` — writes the new token's k/v row at
+      position ``len`` (a ``where`` select, so every already-written row
+      passes through **bitwise unchanged** — what makes paged storage of
+      old rows exact), attends over positions ``< len + 1``, and returns
+      ``(logits, K', V', len + 1)``.
+    * ``prefill_suffix(K, V, len, tokens)`` — the **prefix-sharing prefill**
+      (see :class:`~repro_torch.serve.DecodeScheduler`'s ``prefill_suffix``):
+      consumes K/V whose first ``len`` positions are already cached (mapped
+      from shared pages) plus the full token row, and merges with a
+      ``where`` select over ``pos < len`` — cached rows pass through
+      **bitwise unchanged** (shared pages stay bitwise-stable), while
+      positions ``>= len`` take freshly computed rows.  The recomputation
+      routes through the *same* ``encode`` function as ``prefill`` — the
+      same offload unit at the same signature — so a prefix-shared stream's
+      logits and suffix K/V rows are bit-identical to the ones its own solo
+      prefill would have produced.  (In this fixed-shape IR nothing gets
+      cheaper by skipping positions — every call runs at padded shapes —
+      so what sharing buys is *page storage*: the prefix rows are never
+      re-stored, and the serving layer maps them read-only.)
+    * ``paged_decode_step(Kp, Vp, tables, len, token)`` — the
+      **block-sparse** step root: consumes the page-pool backing buffers
+      ``(P, page_size, D)`` and per-stream block tables directly (no dense
+      padded K/V at the crossing), attends via the ``paged_attention`` op —
+      the CUDA paged kernel on the card — over live pages plus the fresh
+      token's k/v row, and returns ``(logits, k_row, v_row)`` for the
+      scheduler to append host-side.  Per-step attention FLOPs scale with
+      live pages instead of ``max_context``.
+
+    All roots route through the shared ``head`` function (one offload unit
+    via ``planned.for_entry``), every op is row-independent on axis 0, and
+    ``with_host_check`` keeps the paper's printf case in every root so each
+    prefill/step genuinely pays guest→host crossings.
+
+    Masked cache positions (``>= len``) contribute exactly nothing: both
+    the prefill's ``pad_to`` and the step's select keep them at 0.0, and
+    the attention mask sends their scores to -1e30 before the softmax — so
+    a scheduler that reconstructs K/V from pages plus a zero template feeds
+    the step bit-identical inputs to solo decoding.
+    """
+    rng = np.random.default_rng(seed)
+    D, S = d_model, int(max_context)
+    W = lambda *s: (rng.standard_normal(s) / np.sqrt(s[0])).astype(np.float32)
+
+    pb = ProgramBuilder("attn-decode-lm")
+    pb.constant("E", W(vocab, D))             # embedding table
+    pb.constant("Wq", W(D, D))
+    pb.constant("Wk", W(D, D))
+    pb.constant("Wv", W(D, D))
+    pb.constant("Wp", W(D, D))                # attention output projection
+    pb.constant("Wo", W(D, vocab))            # LM head
+    pb.constant("pos", np.arange(S, dtype=np.int32))
+    pb.constant("one_i", np.array(1, np.int32))
+    pb.constant("scale", np.array(1.0 / np.sqrt(D), np.float32))
+    pb.constant("neg_inf", np.array(-1e30, np.float32))
+
+    # head(h) -> logits: shared by prefill and decode_step (one offload unit)
+    head = pb.function("head", ["h"])
+    head.use_global("Wo")
+    lg = head.emit("matmul", "h", "Wo")
+    head.build([lg])
+
+    # encode(tokens) -> (h_last, K, V, len): the prefill backbone
+    enc = pb.function("encode", ["tokens"])
+    for w in ("E", "Wq", "Wk", "Wv", "Wp", "pos", "one_i"):
+        enc.use_global(w)
+    e = enc.emit("embed", "E", "tokens")                      # (B, T, D)
+    q = enc.emit("matmul", e, "Wq")
+    k = enc.emit("matmul", e, "Wk")
+    v = enc.emit("matmul", e, "Wv")
+    a = enc.emit("sdpa",
+                 enc.emit("expand_dims", q, axis=1),
+                 enc.emit("expand_dims", k, axis=1),
+                 enc.emit("expand_dims", v, axis=1), causal=True)
+    a = enc.emit("squeeze", a, axis=1)                        # (B, T, D)
+    h = enc.emit("tanh", enc.emit("add", enc.emit("matmul", a, "Wp"), e))
+    # len = T for every row, derived in-program so the entry stays unary
+    ones = enc.emit("cast", enc.emit("eq", "tokens", "tokens"), dtype="int32")
+    ln = enc.emit("reduce_sum", ones, axis=(1,))              # (B,) = T
+    # select the last prompt position via a one-hot matmul over the padded
+    # context axis (slice starts are static; T is not)
+    last = enc.emit("expand_dims", enc.emit("sub", ln, "one_i"), axis=1)
+    oh = enc.emit("cast", enc.emit("eq", "pos", last), dtype="float32")
+    hp = enc.emit("pad_to", h, axis=1, target=S)              # (B, S, D)
+    h_last = enc.emit("squeeze",
+                      enc.emit("matmul", enc.emit("expand_dims", oh, axis=1), hp),
+                      axis=1)                                 # (B, D)
+    kp = enc.emit("pad_to", k, axis=1, target=S)
+    vp = enc.emit("pad_to", v, axis=1, target=S)
+    enc.build([h_last, kp, vp, ln])
+
+    # attend(K, V, len, token) -> (h, K', V', len'): one decode step
+    at = pb.function("attend", ["K", "V", "len", "token"])
+    for w in ("E", "Wq", "Wk", "Wv", "Wp", "pos", "one_i", "scale", "neg_inf"):
+        at.use_global(w)
+    e = at.emit("embed", "E", "token")                        # (B, D)
+    q = at.emit("matmul", e, "Wq")
+    kn = at.emit("matmul", e, "Wk")
+    vn = at.emit("matmul", e, "Wv")
+    # write k/v at position `len` with a select: rows != len pass through
+    # bitwise untouched (no *1 + 0 arithmetic), so old cache rows never
+    # change after they are written — the paged-state exactness hook
+    wcol = at.emit("expand_dims",
+                   at.emit("eq", "pos", at.emit("expand_dims", "len", axis=1)),
+                   axis=2)                                    # (B, S, 1) bool
+    K2 = at.emit("where", wcol, at.emit("expand_dims", kn, axis=1), "K")
+    V2 = at.emit("where", wcol, at.emit("expand_dims", vn, axis=1), "V")
+    ln2 = at.emit("add", "len", "one_i")                      # (B,)
+    # causal mask: attend to the filled prefix incl. the new row (< len')
+    mask = at.emit("expand_dims",
+                   at.emit("lt", "pos", at.emit("expand_dims", ln2, axis=1)),
+                   axis=1)                                    # (B, 1, S) bool
+    s = at.emit("mul",
+                at.emit("matmul",
+                        at.emit("expand_dims", q, axis=1),
+                        at.emit("transpose", K2, perm=(0, 2, 1))),
+                "scale")                                      # (B, 1, S)
+    s = at.emit("where", mask, s, "neg_inf")
+    p = at.emit("softmax", s, axis=-1)
+    a = at.emit("squeeze", at.emit("matmul", p, V2), axis=1)  # (B, D)
+    h = at.emit("tanh", at.emit("add", at.emit("matmul", a, "Wp"), e))
+    at.build([h, K2, V2, ln2])
+
+    # prefill(tokens) -> (logits, K, V, len): program entry
+    pf = pb.function("prefill", ["tokens"])
+    h, kp, vp, ln = pf.call("encode", "tokens")
+    if with_host_check:
+        h = pf.emit("host_assert_finite", h, tag="attn-lm.prefill")
+    lg = pf.call("head", h)
+    pf.build([lg, kp, vp, ln])
+
+    # decode_step(K, V, len, token) -> (logits, K', V', len'): per-token root
+    st = pb.function("decode_step", ["K", "V", "len", "token"])
+    h, K2, V2, ln2 = st.call("attend", "K", "V", "len", "token")
+    if with_host_check:
+        h = st.emit("host_assert_finite", h, tag="attn-lm.step")
+    lg = st.call("head", h)
+    st.build([lg, K2, V2, ln2])
+
+    # prefill_suffix(K, V, len, tokens) -> (logits, K', V', len'): the
+    # prefix-sharing prefill root.  Same encode/head calls as `prefill` (one
+    # offload unit each, shared through the plan's unit cache), then a select
+    # that keeps the first `len` cached positions bitwise and takes the
+    # recomputed rows elsewhere — `where` is pure selection, so the merge is
+    # exact however the engine routes it (offloaded or emulated).
+    sf = pb.function("prefill_suffix", ["K", "V", "len", "tokens"])
+    sf.use_global("pos")
+    h, kn, vn, ln = sf.call("encode", "tokens")
+    if with_host_check:
+        h = sf.emit("host_assert_finite", h, tag="attn-lm.suffix")
+    lg = sf.call("head", h)
+    keep = sf.emit("expand_dims",
+                   sf.emit("lt", "pos", sf.emit("expand_dims", "len", axis=1)),
+                   axis=2)                                    # (B, S, 1) bool
+    K2 = sf.emit("where", keep, "K", kn)
+    V2 = sf.emit("where", keep, "V", vn)
+    sf.build([lg, K2, V2, ln])
+
+    # paged_attend(Kp, Vp, tables, len, token) -> (h, kn, vn): the
+    # block-sparse decode backbone.  Kp/Vp are the scheduler's page-pool
+    # backing buffers (P, page_size, D) — NOT per-stream dense state —
+    # tables (B, NP) int32 maps each stream's logical pages to physical
+    # ones, and the `paged_attention` op (the CUDA kernel on the card)
+    # attends over live pages plus the fresh kn/vn row at position `len`.
+    # The fresh rows are *returned* instead of written: the scheduler
+    # appends them into the paged store host-side, so no dense K/V is ever
+    # re-materialized at the crossing.
+    pa = pb.function("paged_attend", ["Kp", "Vp", "tables", "len", "token"])
+    for w in ("E", "Wq", "Wk", "Wv", "Wp"):
+        pa.use_global(w)
+    e = pa.emit("embed", "E", "token")                        # (B, D)
+    q = pa.emit("matmul", e, "Wq")
+    kn = pa.emit("matmul", e, "Wk")
+    vn = pa.emit("matmul", e, "Wv")
+    a = pa.emit("paged_attention", q, kn, vn, "Kp", "Vp", "tables", "len")
+    h = pa.emit("tanh", pa.emit("add", pa.emit("matmul", a, "Wp"), e))
+    pa.build([h, kn, vn])
+
+    # paged_decode_step(Kp, Vp, tables, len, token) -> (logits, kn, vn):
+    # the per-token root of the paged-kernel scheduler mode
+    pg = pb.function("paged_decode_step", ["Kp", "Vp", "tables", "len",
+                                           "token"])
+    h, kn, vn = pg.call("paged_attend", "Kp", "Vp", "tables", "len", "token")
+    if with_host_check:
+        h = pg.emit("host_assert_finite", h, tag="attn-lm.paged-step")
+    lg = pg.call("head", h)
+    pg.build([lg, kn, vn])
+
+    return pb.build("prefill")
+
+
+def load_reference_constants(program: Program,
+                             constants: Mapping[str, np.ndarray]) -> Program:
+    """Install ``constants`` (e.g. the reference program's
+    ``Program.constants``) as ``program``'s weights, in place.
+
+    Names, shapes and dtypes must match ``program``'s own constants exactly,
+    so a program exported with other widths (or another exporter) is refused
+    rather than silently mixed.  Returns ``program``.
+    """
+    mine = program.constants
+    if set(constants) != set(mine):
+        missing = sorted(set(mine) - set(constants))
+        extra = sorted(set(constants) - set(mine))
+        raise ValueError(
+            f"constant names differ: missing {missing}, unexpected {extra}")
+    staged = {}
+    for name, value in constants.items():
+        value = np.asarray(value)
+        if value.shape != mine[name].shape or value.dtype != mine[name].dtype:
+            raise ValueError(
+                f"constant {name!r}: got {value.dtype}{list(value.shape)}, "
+                f"program has {mine[name].dtype}{list(mine[name].shape)}")
+        staged[name] = np.array(value)
+    mine.update(staged)
+    return program

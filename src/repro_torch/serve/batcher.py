@@ -1,0 +1,745 @@
+"""Decode-state batching: the slot map and paged KV-cache state.
+
+The decode scheduler pads every prefill and step call to a fixed
+``capacity`` of rows (:class:`SlotMap`, :func:`pad_rows`), and keeps each
+stream's growing context rows in fixed-size pages (:class:`StateSpec`,
+:class:`PagePool`, :class:`BlockTable`, :class:`PagedKVState`), recycled
+the instant a stream retires.
+
+Exactness contract: a stream decoded inside any batch is *bit-identical* to
+decoding it alone — every op treats axis-0 rows independently, filler rows
+replicate the last real row, and pages reproduce exactly the rows a solo
+loop would have threaded.  (Request-level bucketing, ``BucketLadder`` and
+``coalesce``, comes with the port's request-level server.)
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import math
+from collections import OrderedDict
+from typing import Mapping, Sequence
+
+import numpy as np
+
+from .. import obs
+
+
+def pad_rows(a: np.ndarray, target: int) -> np.ndarray:
+    """Grow axis 0 to ``target`` rows by replicating the last row (filler
+    stays in-distribution numerically; callers slice it away afterwards)."""
+    if a.shape[0] >= target:
+        return a
+    return np.concatenate([a, np.repeat(a[-1:], target - a.shape[0], axis=0)], axis=0)
+
+
+class SlotMap:
+    """Fixed-capacity slot assignment for in-flight decode streams.
+
+    The continuous batcher's physical batch is a persistent array of
+    ``capacity`` rows; each live stream owns one slot (row index) from
+    admission to retirement.  Freed slots are reusable immediately — the
+    very next admission pass can hand them out, so a retired stream never
+    occupies a row in any later step.
+
+    Row ``capacity`` is fixed on purpose: fused kernels are only
+    bitwise-reproducible at a fixed shape, and within one shape every row
+    is a pure function of that row's inputs.  Padding each step to the same
+    ``capacity`` therefore makes any stream's tokens independent of its
+    batch-mates — the bit-exactness contract of
+    :class:`~repro_torch.serve.DecodeScheduler`.
+
+    Not thread-safe; owned by the scheduler's decode loop.
+    """
+
+    def __init__(self, capacity: int):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1: {capacity}")
+        self._slots: list = [None] * capacity
+
+    @property
+    def capacity(self) -> int:
+        return len(self._slots)
+
+    @property
+    def free(self) -> int:
+        return sum(1 for s in self._slots if s is None)
+
+    @property
+    def live(self) -> int:
+        return len(self._slots) - self.free
+
+    def admit(self, item) -> int:
+        """Place ``item`` in the lowest free slot; returns the slot index."""
+        for i, s in enumerate(self._slots):
+            if s is None:
+                self._slots[i] = item
+                return i
+        raise RuntimeError("SlotMap full")
+
+    def retire(self, slot: int):
+        """Free ``slot`` (reusable by the next admit) and return its item."""
+        item = self._slots[slot]
+        if item is None:
+            raise KeyError(f"slot {slot} is already free")
+        self._slots[slot] = None
+        return item
+
+    def occupied(self) -> list[tuple[int, object]]:
+        """Live ``(slot, item)`` pairs in slot order."""
+        return [(i, s) for i, s in enumerate(self._slots) if s is not None]
+
+
+# ---------------------------------------------------------------------------
+# paged, growing per-stream decode state (the KV-cache layer)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class StateSpec:
+    """Declarative state contract of a :class:`~repro_torch.serve.DecodeScheduler`.
+
+    The default (no growing arrays) is the fixed-size-row contract of the
+    recurrent decode LM: every state array is ``(capacity, ...)`` and is
+    scattered/kept whole.  ``growing`` generalizes it to **paged, growing
+    per-stream KV state**: it maps a state index (position in the
+    ``(logits, *state)`` tuple, 0-based over the state arrays only) to the
+    batched array's *context axis* — the axis that holds one row per cache
+    position and fills by one each step (axis 0 is always the stream axis,
+    so growing axes are ``>= 1``).
+
+    Growing arrays are stored in a :class:`PagePool` of fixed-size pages
+    (``page_size`` positions each) with a :class:`BlockTable` per slot, and
+    re-materialized to the fixed ``(capacity, max_context, ...)`` padded
+    shape before every step call — one entry signature forever, and pages
+    are recycled the moment a stream retires.
+
+    ``max_context`` must equal the padded context extent the program was
+    exported with (e.g. ``export_attn_decode_lm(max_context=...)``); the
+    scheduler validates it against the first prefill's output shapes.
+    ``pages`` sizes the pool; the default ``capacity × ceil(max_context /
+    page_size)`` can satisfy any admissible load.  Admission is
+    conservative: a stream is only admitted when its worst-case page count
+    (``ceil((prompt_len + max_new_tokens - 1) / page_size)``) fits beside
+    the worst cases of every live stream, so mid-flight growth can never
+    fail.
+
+    ``share_prefixes`` enables **copy-on-write prefix sharing**: a newly
+    admitted stream whose prompt shares a page-aligned prefix with a live
+    or recently-retired stream *of the same prompt length* maps those full
+    pages read-only instead of re-storing them (the same-length restriction
+    is the exactness contract — cached rows are only guaranteed bitwise
+    stable within one prefill signature; see ``docs/serving.md``).  Requires
+    a suffix-capable prefill entry on the scheduler
+    (``DecodeScheduler(prefill_suffix=...)``).  ``prefix_cache_entries``
+    bounds the prefix index: retired streams' page-aligned prefixes stay
+    reusable until evicted LRU (one prompt registers ``prompt_len //
+    page_size`` entries; retained pages are reclaimed automatically if the
+    pool runs short, and are dropped at scheduler close, so the zero-leak
+    identity holds at drain).
+    """
+
+    growing: Mapping[int, int] = dataclasses.field(default_factory=dict)
+    max_context: int | None = None
+    page_size: int = 16
+    pages: int | None = None
+    share_prefixes: bool = False
+    prefix_cache_entries: int = 64
+
+    def __post_init__(self):
+        growing = dict(self.growing)
+        for idx, axis in growing.items():
+            if idx < 0:
+                raise ValueError(f"growing state index must be >= 0: {idx}")
+            if axis < 1:
+                raise ValueError(
+                    f"growing axis must be >= 1 (axis 0 is the stream axis): "
+                    f"state {idx} declared axis {axis}"
+                )
+        if growing and self.max_context is None:
+            raise ValueError("StateSpec with growing arrays needs max_context")
+        if self.page_size < 1:
+            raise ValueError(f"page_size must be >= 1: {self.page_size}")
+        if self.pages is not None and self.pages < 1:
+            raise ValueError(f"pages must be >= 1: {self.pages}")
+        if self.share_prefixes and not growing:
+            raise ValueError(
+                "share_prefixes=True needs growing state arrays (prefix "
+                "sharing maps KV pages; a fixed-row state has none)")
+        if self.prefix_cache_entries < 1:
+            raise ValueError(
+                f"prefix_cache_entries must be >= 1: {self.prefix_cache_entries}")
+        object.__setattr__(self, "growing", growing)
+
+    @property
+    def paged(self) -> bool:
+        return bool(self.growing)
+
+    def _require_paged(self, what: str) -> None:
+        if not self.paged:
+            raise ValueError(f"{what} is undefined for a fixed-row StateSpec "
+                             f"(no growing arrays declared)")
+
+    @property
+    def pages_per_stream(self) -> int:
+        """Worst-case pages one stream can hold (a full context)."""
+        self._require_paged("pages_per_stream")
+        return math.ceil(self.max_context / self.page_size)
+
+    def pages_needed(self, context_len: int) -> int:
+        """Pages covering ``context_len`` filled positions."""
+        return math.ceil(context_len / self.page_size)
+
+    def pool_pages(self, capacity: int) -> int:
+        """Pool size: explicit ``pages`` or the can't-fail default."""
+        self._require_paged("pool_pages")
+        return self.pages if self.pages is not None else (
+            capacity * self.pages_per_stream)
+
+
+class PagePool:
+    """Fixed-size, reference-counted page allocator with leak accounting.
+
+    Pages are just indices into per-array backing buffers (see
+    :class:`PagedKVState`); the pool owns which are free.  A page starts at
+    refcount 1 when allocated; :meth:`retain` lets several owners — slots
+    whose block tables alias a shared prompt prefix, or retained prefix-index
+    entries — hold the same physical page, and :meth:`release` only frees it
+    when the last reference drops.  ``allocs`` / ``frees`` count *physical*
+    events, so the leak identity ``allocs - frees == in_use`` is unchanged by
+    sharing; ``refs_outstanding`` must also be 0 at close (zero refcount
+    leaks).  These feed the :class:`~repro_torch.serve.DecodeReport` page counters.
+
+    Not thread-safe; owned by the scheduler's decode loop.
+    """
+
+    def __init__(self, pages: int, page_size: int):
+        if pages < 1 or page_size < 1:
+            raise ValueError(
+                f"pages and page_size must be >= 1: {pages}, {page_size}")
+        self.pages = pages
+        self.page_size = page_size
+        self._free: list[int] = list(range(pages - 1, -1, -1))
+        self._refs: dict[int, int] = {}
+        self.allocs = 0
+        self.frees = 0
+        self.peak_in_use = 0
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def in_use(self) -> int:
+        """Physical pages allocated (shared pages count once)."""
+        return len(self._refs)
+
+    @property
+    def refs_outstanding(self) -> int:
+        """Total references held across all live pages (0 = nothing leaked)."""
+        return sum(self._refs.values())
+
+    def refcount(self, page: int) -> int:
+        """References on ``page`` (0 when free) — refcount > 1 means shared,
+        and a writer must copy-on-write before mutating it."""
+        return self._refs.get(page, 0)
+
+    def alloc(self) -> int:
+        if not self._free:
+            raise RuntimeError(
+                f"PagePool exhausted: all {self.pages} pages in use (size the "
+                f"pool for the worst case, or rely on the scheduler's "
+                f"conservative admission)"
+            )
+        page = self._free.pop()
+        self._refs[page] = 1
+        self.allocs += 1
+        self.peak_in_use = max(self.peak_in_use, len(self._refs))
+        return page
+
+    def retain(self, page: int) -> None:
+        """Add a reference to a live page (a share, not an allocation)."""
+        if page not in self._refs:
+            raise KeyError(f"page {page} is not allocated")
+        self._refs[page] += 1
+
+    def release(self, page: int) -> bool:
+        """Drop one reference; the physical page frees when the last drops.
+
+        Returns True when the page was *physically* freed (last reference),
+        False when other owners remain — callers keeping per-owner
+        accounting (see :class:`PagedKVState`) count only True returns."""
+        refs = self._refs.get(page)
+        if refs is None:
+            raise KeyError(f"page {page} is not allocated")
+        if refs > 1:
+            self._refs[page] = refs - 1
+            return False
+        del self._refs[page]
+        self._free.append(page)
+        self.frees += 1
+        return True
+
+    def free(self, page: int) -> None:
+        """Alias of :meth:`release` (the pre-refcount name, kept stable)."""
+        self.release(page)
+
+
+class BlockTable:
+    """Per-slot page lists: logical context position → physical page.
+
+    Slot ``s``'s position ``p`` lives in page ``pages(s)[p // page_size]``
+    at offset ``p % page_size``.  ``release`` hands the whole list back for
+    recycling the moment a stream retires.  Entries may *alias*: two slots
+    whose streams share a prompt prefix can point at the same physical page
+    (the :class:`PagePool` refcount tracks the aliases); ``replace`` swaps
+    one entry for a private copy when copy-on-write breaks the alias.
+
+    Not thread-safe; owned by the scheduler's decode loop.
+    """
+
+    def __init__(self, capacity: int):
+        self._tables: list[list[int]] = [[] for _ in range(capacity)]
+
+    def pages(self, slot: int) -> list[int]:
+        return self._tables[slot]
+
+    def append(self, slot: int, page: int) -> None:
+        self._tables[slot].append(page)
+
+    def replace(self, slot: int, index: int, page: int) -> None:
+        """Point entry ``index`` of ``slot`` at ``page`` (the CoW re-map)."""
+        self._tables[slot][index] = page
+
+    def release(self, slot: int) -> list[int]:
+        pages, self._tables[slot] = self._tables[slot], []
+        return pages
+
+
+class PagedKVState:
+    """Paged storage for the growing state arrays of a decode scheduler.
+
+    One :class:`PagePool` + :class:`BlockTable` pair serves every growing
+    array (K and V grow in lockstep, so one page id indexes each array's
+    backing buffer).  Backing buffers are allocated lazily from the first
+    prefill's output shapes: per growing array, ``(pool.pages, page_size,
+    *inner)`` with the declared context axis normalized to the page axis.
+
+    Exactness: :meth:`gather` rebuilds the fixed ``(capacity, max_context,
+    ...)`` step input from pages **over a zero template** — positions at or
+    beyond a stream's filled prefix read 0.0, exactly what the workload's
+    ``pad_to`` produced and its select-writes preserved — so the gathered
+    array is bit-identical to the state a solo loop would have threaded
+    through (:func:`~repro_torch.serve.decode_reference`).
+
+    **Prefix sharing + copy-on-write** (``StateSpec.share_prefixes``): the
+    state keeps a bounded LRU *prefix index* mapping ``(prompt_len,
+    token-prefix bytes)`` — page-aligned prefixes only — to the pages that
+    already hold those positions' K/V rows.  :meth:`match_and_pin` finds the
+    longest indexed prefix of a new prompt and pins its pages (a pool
+    reference, so no concurrent eviction can recycle them);
+    :meth:`admit` then maps the pinned pages into the new slot's block
+    table instead of re-storing their rows.  Shared pages are **read-only
+    by refcount**: any write routed through :meth:`_writable_page` — the
+    per-step append, or an admit whose shared prefix ends mid-page — first
+    copies a page whose refcount exceeds 1 and re-points only the writer's
+    table entry (``pages_cow_copied`` counts these).  Because decode only
+    ever writes the tail page and shared prefixes are page-aligned, the
+    common case performs **zero** copies.
+
+    Not thread-safe; owned by the scheduler's decode loop.
+    """
+
+    def __init__(self, capacity: int, spec: StateSpec):
+        if not spec.paged:
+            raise ValueError("PagedKVState needs a StateSpec with growing arrays")
+        self.capacity = int(capacity)
+        self.spec = spec
+        self.pool = PagePool(spec.pool_pages(capacity), spec.page_size)
+        # physical page accounting: allocs - frees is the pages this state
+        # holds in its pool
+        self.page_allocs = 0
+        self.page_frees = 0
+        self.page_peak_in_use = 0
+        self.table = BlockTable(capacity)
+        self.lengths = [0] * capacity          # filled context per slot
+        self._backing: dict[int, np.ndarray] = {}   # state idx -> pages buffer
+        self._dense_shape: dict[int, tuple] = {}    # state idx -> batched shape
+        self._dtype: dict[int, np.dtype] = {}
+        # prefix index: digest key -> (pages, prefix tokens), LRU-ordered.
+        # Every entry holds one pool reference per page, so indexed pages
+        # survive their producing stream's retirement (bounded retention);
+        # the stored tokens guard against digest collisions on lookup.
+        self._prefix: "OrderedDict[tuple, tuple[tuple[int, ...], np.ndarray]]" = (
+            OrderedDict())
+        self.prefix_hits = 0           # admissions that mapped a shared prefix
+        self.prefix_tokens_reused = 0  # positions covered by shared pages
+        self.pages_shared = 0          # cumulative shared-page mappings
+        self.cow_copies = 0            # copy-on-write page copies
+        self.bytes_saved = 0           # page-store bytes avoided by sharing
+
+    # -- lazy buffer setup ---------------------------------------------------
+
+    def ensure_buffers(self, idx: int, batched: np.ndarray) -> None:
+        """Size the backing buffer for state ``idx`` from a prefill output."""
+        if idx in self._backing:
+            return
+        axis = self.spec.growing[idx]
+        if batched.ndim <= axis:
+            raise ValueError(
+                f"growing state {idx} declared context axis {axis} but the "
+                f"program returned rank-{batched.ndim} {batched.shape}"
+            )
+        if batched.shape[axis] != self.spec.max_context:
+            raise ValueError(
+                f"growing state {idx} has context extent "
+                f"{batched.shape[axis]} on axis {axis}, but the StateSpec "
+                f"declares max_context={self.spec.max_context} — export the "
+                f"program and the spec with the same padded context"
+            )
+        inner = tuple(d for i, d in enumerate(batched.shape) if i not in (0, axis))
+        self._backing[idx] = np.zeros(
+            (self.pool.pages, self.spec.page_size) + inner, batched.dtype)
+        self._dense_shape[idx] = tuple(batched.shape)
+        self._dtype[idx] = batched.dtype
+
+    def _ctx_first(self, row: np.ndarray, idx: int) -> np.ndarray:
+        """View one stream's state row with the context axis leading."""
+        return np.moveaxis(row, self.spec.growing[idx] - 1, 0)
+
+    def _position_nbytes(self) -> int:
+        """Backing bytes one context position occupies across growing arrays."""
+        return int(sum(b[0, 0].nbytes for b in self._backing.values()))
+
+    # -- allocation + copy-on-write ------------------------------------------
+
+    def _alloc(self) -> int:
+        """Allocate a page, reclaiming retained prefix entries if short.
+
+        Retention must never turn an admissible allocation into a failure:
+        pages held only by the prefix index are evicted LRU until the pool
+        can serve the request (pages also mapped by live slots survive the
+        eviction — only the index's references drop)."""
+        while True:
+            try:
+                page = self.pool.alloc()
+                self.page_allocs += 1
+                self.page_peak_in_use = max(self.page_peak_in_use,
+                                            self.pages_in_use)
+                tr = obs.active()
+                if tr is not None:
+                    tr.event("page", obs.PAGE_ALLOC,
+                             args={"in_use": self.pool.in_use})
+                return page
+            except RuntimeError:
+                if not self._evict_one():
+                    raise
+
+    def _release(self, page: int) -> None:
+        """Drop one of this instance's references, tracking physical frees."""
+        if self.pool.release(page):
+            self.page_frees += 1
+
+    @property
+    def pages_in_use(self) -> int:
+        """Physical pages this instance currently holds in the pool."""
+        return self.page_allocs - self.page_frees
+
+    def _writable_page(self, slot: int, index: int) -> int:
+        """The page backing entry ``index`` of ``slot``, private to it.
+
+        Copy-on-write: a page with refcount > 1 is aliased by another slot
+        or by the prefix index, so the writer gets a fresh copy (all growing
+        arrays' buffers — one page id spans them all) and only its own table
+        entry is re-pointed; every other reader keeps observing the original
+        bytes."""
+        page = self.table.pages(slot)[index]
+        if self.pool.refcount(page) == 1:
+            return page
+        fresh = self._alloc()
+        for buf in self._backing.values():
+            buf[fresh][:] = buf[page]
+        self.table.replace(slot, index, fresh)
+        self._release(page)
+        self.cow_copies += 1
+        tr = obs.active()
+        if tr is not None:
+            tr.event("page", obs.PAGE_COW, args={"slot": slot})
+        return fresh
+
+    # -- the paged lifecycle -------------------------------------------------
+
+    def admit(
+        self,
+        slot: int,
+        rows: Mapping[int, np.ndarray],
+        length: int,
+        *,
+        shared_len: int = 0,
+        shared_pages: Sequence[int] = (),
+        pinned: bool = False,
+    ) -> None:
+        """Store a freshly-prefilled stream: map shared prefix pages, alloc
+        the rest, copy the uncached positions.
+
+        Callers run :meth:`ensure_buffers` on the batched prefill outputs
+        first (the backing buffers are sized from them).  ``shared_pages``
+        (from :meth:`match_and_pin`) cover positions ``[0, shared_len)`` and
+        are mapped read-only; ``pinned=True`` transfers the pin's pool
+        references into the block table instead of retaining again.  A
+        ``shared_len`` that ends mid-page triggers copy-on-write for the
+        boundary page before the suffix rows land in it.
+        """
+        ps = self.spec.page_size
+        assert not self.table.pages(slot), "slot admitted twice"
+        if shared_pages:
+            if not 0 < shared_len <= length:
+                raise ValueError(
+                    f"shared_len={shared_len} must be in (0, {length}]")
+            if math.ceil(shared_len / ps) != len(shared_pages):
+                raise ValueError(
+                    f"{len(shared_pages)} shared pages cannot cover "
+                    f"shared_len={shared_len} at page_size={ps}")
+            for page in shared_pages:
+                if not pinned:
+                    self.pool.retain(page)
+                self.table.append(slot, page)
+            self.prefix_hits += 1
+            self.pages_shared += len(shared_pages)
+            self.prefix_tokens_reused += shared_len
+            self.bytes_saved += shared_len * self._position_nbytes()
+        for _ in range(len(shared_pages), self.spec.pages_needed(length)):
+            self.table.append(slot, self._alloc())
+        for j in range(shared_len // ps, self.spec.pages_needed(length)):
+            lo = max(j * ps, shared_len)        # first position to write
+            hi = min((j + 1) * ps, length)
+            if hi <= lo:
+                continue
+            page = self._writable_page(slot, j)
+            for idx, row in rows.items():
+                src = self._ctx_first(np.asarray(row), idx)
+                buf = self._backing[idx]
+                buf[page][lo - j * ps:hi - j * ps] = src[lo:hi]
+                if hi == length:
+                    buf[page][hi - j * ps:] = 0
+        self.lengths[slot] = length
+
+    def append(self, slot: int, rows: Mapping[int, np.ndarray]) -> None:
+        """Append one context position (a step's newly written row).
+
+        Decode writes only the tail page; if that page is shared (possible
+        only when a shared prefix ended mid-page), copy-on-write detaches it
+        first so no other stream observes the write.
+        """
+        position = self.lengths[slot]
+        if position >= self.spec.max_context:
+            raise RuntimeError(
+                f"slot {slot} overflowed max_context={self.spec.max_context}")
+        self.append_row(slot, {
+            idx: self._ctx_first(np.asarray(row), idx)[position]
+            for idx, row in rows.items()})
+
+    def append_row(self, slot: int, rows: Mapping[int, np.ndarray]) -> None:
+        """Append one context position given *just* that position's values.
+
+        The paged-kernel step root returns the fresh k/v rows directly
+        (``(B, inner...)``) instead of a full dense context axis, so the
+        scheduler lands them here without materializing — or even holding —
+        a ``(max_context, inner...)`` row per stream.  Same page-allocation
+        and copy-on-write discipline as :meth:`append`.
+        """
+        ps = self.spec.page_size
+        position = self.lengths[slot]
+        if position >= self.spec.max_context:
+            raise RuntimeError(
+                f"slot {slot} overflowed max_context={self.spec.max_context}")
+        if position % ps == 0 and len(self.table.pages(slot)) <= position // ps:
+            self.table.append(slot, self._alloc())
+        page = self._writable_page(slot, position // ps)
+        for idx, row in rows.items():
+            self._backing[idx][page][position % ps] = np.asarray(row)
+        self.lengths[slot] = position + 1
+
+    def retire(self, slot: int) -> None:
+        """Drop the slot's references; unshared pages recycle immediately.
+
+        Pages also referenced by the prefix index (or by another slot's
+        block table) stay live — that is what lets a later stream reuse a
+        retired stream's prompt prefix."""
+        for page in self.table.release(slot):
+            self._release(page)
+        self.lengths[slot] = 0
+
+    # -- the prefix index (sharing policy) -----------------------------------
+
+    def prefix_keys(self, prompt: np.ndarray) -> list[tuple[int, tuple]]:
+        """``(shared_len, index key)`` per page-aligned prefix, ascending.
+
+        Keys are ``(prompt_len, page_count, running sha256)`` with the
+        digest extended page by page — hashing *every* prefix of one prompt
+        costs one linear pass over its bytes, not a quadratic re-hash per
+        length.  The dtype is folded in so equal values at different widths
+        never collide."""
+        length = int(prompt.shape[0])
+        ps = self.spec.page_size
+        digest = hashlib.sha256(str(prompt.dtype).encode())
+        keys = []
+        for j in range(1, length // ps + 1):
+            digest.update(prompt[(j - 1) * ps:j * ps].tobytes())
+            keys.append((j * ps, (length, j, digest.digest())))
+        return keys
+
+    def match_and_pin(
+        self,
+        prompt: np.ndarray,
+        keys: list[tuple[int, tuple]] | None = None,
+    ) -> tuple[int, tuple[int, ...]]:
+        """Longest indexed page-aligned prefix of ``prompt``; pins its pages.
+
+        Returns ``(shared_len, pages)`` — ``(0, ())`` when sharing is off or
+        nothing matches.  Matching is restricted to prefixes produced at the
+        *same prompt length*: one prefill signature means one compiled
+        executable, which is what makes the cached rows bitwise equal to the
+        rows the new stream's own prefill would have produced.  Candidate
+        hits are verified against the entry's stored tokens (a digest
+        collision degrades to a miss, never to wrong pages).  The returned
+        pages carry one pool reference each (the *pin*), so allocation
+        pressure between match and admit can never evict and recycle them;
+        pass them to :meth:`admit` with ``pinned=True`` (which adopts the
+        references) or return them via :meth:`unpin`.  ``keys`` (from
+        :meth:`prefix_keys`) skips re-hashing when the caller already
+        computed this prompt's keys for an earlier match attempt.
+        """
+        if not self.spec.share_prefixes:
+            return 0, ()
+        prompt = np.asarray(prompt)
+        if keys is None:
+            keys = self.prefix_keys(prompt)
+        for shared_len, key in reversed(keys):
+            entry = self._prefix.get(key)
+            if entry is None:
+                continue
+            pages, tokens = entry
+            if not np.array_equal(tokens, prompt[:shared_len]):
+                continue
+            self._prefix.move_to_end(key)
+            for page in pages:
+                self.pool.retain(page)
+            return shared_len, pages
+        return 0, ()
+
+    def unpin(self, pages: Sequence[int]) -> None:
+        """Return the references :meth:`match_and_pin` took (failure paths)."""
+        for page in pages:
+            self._release(page)
+
+    def register_prefix(self, slot: int, prompt: np.ndarray) -> None:
+        """Publish the slot's page-aligned prompt prefixes for later reuse.
+
+        One index entry per full-page prefix length (each holding pool
+        references on its pages), so a later prompt sharing any page-aligned
+        amount of this prompt can map it.  The index is LRU-bounded by
+        ``StateSpec.prefix_cache_entries`` — note one prompt registers
+        ``prompt_len // page_size`` entries; eviction only drops the
+        index's references, never a live slot's.
+        """
+        if not self.spec.share_prefixes:
+            return
+        prompt = np.asarray(prompt)
+        pages = self.table.pages(slot)
+        for shared_len, key in self.prefix_keys(prompt):
+            if key in self._prefix:
+                self._prefix.move_to_end(key)
+                continue
+            entry = tuple(pages[:key[1]])
+            for page in entry:
+                self.pool.retain(page)
+            self._prefix[key] = (entry, np.array(prompt[:shared_len]))
+        while len(self._prefix) > self.spec.prefix_cache_entries:
+            self._evict_one()
+
+    def _evict_one(self) -> bool:
+        """Drop the least-recently-used prefix entry; True if one existed."""
+        if not self._prefix:
+            return False
+        _, (pages, _tokens) = self._prefix.popitem(last=False)
+        for page in pages:
+            self._release(page)
+        tr = obs.active()
+        if tr is not None:
+            tr.event("page", obs.PAGE_EVICT, args={"pages": len(pages)})
+        return True
+
+    def clear_prefix_index(self) -> None:
+        """Release every retained prefix (scheduler close: zero-leak drain)."""
+        while self._evict_one():
+            pass
+
+    def gather(self, idx: int) -> np.ndarray:
+        """Materialize state ``idx`` at its fixed padded batched shape."""
+        ps = self.spec.page_size
+        dense = np.zeros(self._dense_shape[idx], self._dtype[idx])
+        buf = self._backing[idx]
+        for slot in range(self.capacity):
+            dst = self._ctx_first(dense[slot], idx)
+            length = self.lengths[slot]
+            for j, page in enumerate(self.table.pages(slot)):
+                extent = min(ps, length - j * ps)
+                if extent > 0:
+                    dst[j * ps:j * ps + extent] = buf[page][:extent]
+        return dense
+
+    def gather_pages(
+        self,
+        idx: int,
+        row_pages: Sequence[tuple[Sequence[int], int]],
+    ) -> np.ndarray:
+        """Materialize state ``idx`` from explicit per-row page lists.
+
+        ``row_pages`` gives ``(pages, length)`` per batch row (shorter than
+        capacity is fine; missing rows stay zero).  This is the admission
+        companion of :meth:`gather`: the suffix-capable prefill consumes the
+        *matched prefix* pages of streams that are not in any slot yet, so
+        the rows are addressed by pending-batch position, not by slot.
+        """
+        ps = self.spec.page_size
+        dense = np.zeros(self._dense_shape[idx], self._dtype[idx])
+        buf = self._backing[idx]
+        for row, (pages, length) in enumerate(row_pages):
+            dst = self._ctx_first(dense[row], idx)
+            for j, page in enumerate(pages):
+                extent = min(ps, length - j * ps)
+                if extent > 0:
+                    dst[j * ps:j * ps + extent] = buf[page][:extent]
+        return dense
+
+    def backing(self, idx: int) -> np.ndarray:
+        """State ``idx``'s pool backing buffer, ``(pages, page_size, inner)``.
+
+        This IS the array the paged-kernel step consumes — handed to the
+        crossing as-is, zero-copy, instead of a dense per-stream gather.
+        """
+        return self._backing[idx]
+
+    def table_array(self) -> np.ndarray:
+        """Block tables as one dense ``(capacity, pages_per_stream)`` int32.
+
+        Row ``slot``'s first ``ceil(lengths[slot]/page_size)`` entries are
+        that stream's physical page ids in logical order; dead entries are
+        clamped to page 0 so the kernel's prefetch-driven DMA always reads
+        a real page (its contribution is masked out by the live length).
+        """
+        arr = np.zeros((self.capacity, self.spec.pages_per_stream), np.int32)
+        for slot in range(self.capacity):
+            pages = self.table.pages(slot)
+            if pages:
+                arr[slot, :len(pages)] = pages
+        return arr
+
+    def lengths_array(self) -> np.ndarray:
+        """Live context lengths as a dense ``(capacity,)`` int32 vector."""
+        return np.asarray(self.lengths, np.int32)
+
+    def valid_positions(self) -> int:
+        """Filled context positions across live slots (cache occupancy)."""
+        return sum(self.lengths)

@@ -1,0 +1,371 @@
+"""Serving-side instrumentation: what the decode scheduler did, aggregated.
+
+Where :class:`~repro_torch.core.stats.ExecutionReport` describes one entry call,
+:class:`DecodeReport` describes the token-level continuous-batching
+scheduler across calls: tokens per crossing, per-step occupancy, admission
+waits, page-pool and paged-kernel counters.  (The request-level, cluster and
+multi-model reports come with those runtimes in later slices of the port.)
+
+Ratio metrics can be undefined before any qualifying work ran (e.g.
+``tokens_per_crossing`` before the first crossing).  The numeric properties
+return ``nan`` — never a misleading 0.0 — and every human-oriented renderer
+(``__str__``, :meth:`DecodeReport.table`) prints such values as ``"n/a"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import threading
+
+from ..core.stats import ExecutionReport
+from ..obs.histogram import HistogramSet
+
+
+def _fmt(x: float, spec: str = ".2f") -> str:
+    """Render a ratio metric for logs: ``nan`` (undefined yet) → ``"n/a"``."""
+    return "n/a" if isinstance(x, float) and math.isnan(x) else format(x, spec)
+
+
+def _render_rows(rows: list[tuple[str, str]]) -> str:
+    """Width-aligned key/value table shared by the ``table()`` renderers."""
+    width = max(len(k) for k, _ in rows)
+    return "\n".join(f"{k:<{width}}  {v}" for k, v in rows)
+
+
+class _OwnerFoldingStats:
+    """Shared accumulator core: a lock, plain counters, and per-owner
+    incremental folding of :class:`ExecutionReport`\\ s (O(producers) state,
+    preserving ``replans``' per-owner cumulative-max semantics — see
+    ``ExecutionReport.merge``)."""
+
+    def __init__(self, **counters):
+        self._lock = threading.Lock()
+        self._merged_by_owner: dict[int | None, ExecutionReport] = {}
+        self._r: dict = counters
+
+    def _fold(self, report: ExecutionReport) -> None:
+        cur = self._merged_by_owner.get(report.owner)
+        self._merged_by_owner[report.owner] = (
+            report if cur is None else cur.merge(report)
+        )
+
+    def _merged_execution(self) -> ExecutionReport:
+        # caller holds self._lock
+        per_owner = list(self._merged_by_owner.values())
+        return (per_owner[0].merge(*per_owner[1:])
+                if per_owner else ExecutionReport(calls=0))
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeReport:
+    """Immutable snapshot of a :class:`~repro_torch.serve.DecodeScheduler`'s counters.
+
+    The serving-economics headline here is :attr:`tokens_per_crossing`: a
+    solo decode loop pays one crossing-set per token; the continuous batcher
+    pays one per *step*, shared by every live stream, so tokens/crossing
+    scales with occupancy.  ``execution`` merges the per-call
+    :class:`~repro_torch.core.stats.ExecutionReport` of every scheduler-issued
+    entry call (prefills, steps, and warmups), reconciling with the core
+    engine's accounting.
+    """
+
+    streams: int = 0                    # decode streams completed
+    tokens: int = 0                     # tokens emitted across all streams
+    step_tokens: int = 0                # tokens emitted by step calls only
+    steps: int = 0                      # batched decode-step entry calls
+    prefills: int = 0                   # batched prefill entry calls
+    warm_calls: int = 0                 # warmup calls (excluded from crossings)
+    live_rows: int = 0                  # real stream-rows summed over steps
+    slot_rows: int = 0                  # capacity rows summed over steps
+    admitted: int = 0                   # streams admitted (prefilled) so far
+    crossings: int = 0                  # guest→host crossings serving streams
+                                        # (prefills + steps; warmups appear
+                                        # only in `execution`)
+    state_bytes: int = 0                # decode-state bytes marshalled across
+                                        # serving calls (prefill outputs +
+                                        # step inputs, at padded shapes)
+    admit_wait_total: float = 0.0       # seconds from submit() to prefill
+    admit_wait_max: float = 0.0
+    failures: int = 0                   # streams resolved with an exception
+    # paged KV-cache counters (all 0 for fixed-row state contracts)
+    page_size: int = 0                  # positions per page
+    page_capacity: int = 0              # pool size in pages
+    pages_in_use: int = 0               # at snapshot; 0 after close = no leaks
+    pages_peak: int = 0                 # high-water concurrent pages
+    page_allocs: int = 0
+    page_frees: int = 0                 # allocs - frees == pages_in_use
+    cache_rows_valid: int = 0           # filled KV positions summed over steps
+    cache_rows_allocated: int = 0       # page-held positions summed over steps
+    # prefix-sharing counters (all 0 unless StateSpec.share_prefixes)
+    prefix_hits: int = 0                # admissions that mapped a shared prefix
+    prefix_tokens_reused: int = 0       # prompt positions served from shared
+                                        # pages instead of being re-stored
+    pages_shared: int = 0               # cumulative shared-page mappings
+    pages_cow_copied: int = 0           # copy-on-write page copies (0 in the
+                                        # common page-aligned case)
+    state_bytes_saved: int = 0          # page-store bytes sharing avoided
+    # paged-kernel counters (all 0 unless the scheduler runs a paged_step
+    # root — the block-sparse Pallas attention path)
+    kernel_steps: int = 0               # steps served by the paged kernel
+    pages_visited: int = 0              # live pages the kernel attended,
+                                        # summed over kernel steps
+    pages_skipped: int = 0              # dead table slots skipped; visited +
+                                        # skipped == slots × table width
+    execution: ExecutionReport = dataclasses.field(
+        default_factory=lambda: ExecutionReport(calls=0)
+    )
+    # wall-time distribution of the scheduler's own phases, keyed
+    # ("prefill"|"prefill_suffix"|"step", "") — per-(unit, signature)
+    # crossing latency lives on execution.latency (see repro_torch.obs)
+    latency: HistogramSet = dataclasses.field(default_factory=HistogramSet)
+
+    @property
+    def tokens_per_crossing(self) -> float:
+        """Tokens emitted per guest→host crossing (NaN until any crossing).
+
+        The reciprocal of the paper's fixed-cost-per-token: higher is
+        better, and it grows with the number of concurrently live streams
+        because every step's crossing-set is shared by the whole batch.
+        """
+        if self.crossings == 0:
+            return math.nan
+        return self.tokens / self.crossings
+
+    @property
+    def tokens_per_step(self) -> float:
+        """Mean tokens produced by one batched step call (NaN before any;
+        prefill-emitted tokens are excluded — they count in ``tokens``)."""
+        if self.steps == 0:
+            return math.nan
+        return self.step_tokens / self.steps
+
+    @property
+    def step_occupancy(self) -> float:
+        """Fraction of stepped slot-rows holding live streams (1.0 = full).
+        NaN until any step ran."""
+        if self.slot_rows == 0:
+            return math.nan
+        return self.live_rows / self.slot_rows
+
+    @property
+    def state_bytes_per_crossing(self) -> float:
+        """Decode-state bytes marshalled per guest→host crossing (NaN until
+        any crossing) — the per-crossing channel load the paper's fixed-cost
+        analysis prices.  Paged state keeps this *flat in stream count*:
+        every step re-materializes the same fixed padded shape however the
+        cache is occupied."""
+        if self.crossings == 0:
+            return math.nan
+        return self.state_bytes / self.crossings
+
+    @property
+    def cache_occupancy(self) -> float:
+        """Fraction of page-held KV positions actually filled (1.0 = no
+        intra-page waste).  NaN until any paged step ran; page-size 1 pins
+        it at 1.0, larger pages trade waste for fewer allocations.  With
+        prefix sharing the numerator counts *logical* filled positions while
+        the denominator counts *physical* page rows, so values above 1.0
+        quantify deduplication: several streams' prefixes resident in one
+        set of pages."""
+        if self.cache_rows_allocated == 0:
+            return math.nan
+        return self.cache_rows_valid / self.cache_rows_allocated
+
+    @property
+    def page_occupancy(self) -> float:
+        """Fraction of the pool's pages in use at snapshot (NaN when the
+        scheduler has no paged state)."""
+        if self.page_capacity == 0:
+            return math.nan
+        return self.pages_in_use / self.page_capacity
+
+    @property
+    def unique_state_bytes_per_crossing(self) -> float:
+        """Sharing-adjusted channel+storage load per crossing: marshalled
+        state bytes minus the page-store bytes prefix sharing avoided
+        (``state_bytes_saved``).  Equals :attr:`state_bytes_per_crossing`
+        when sharing is off; strictly below it when prefixes were reused.
+        NaN until any crossing."""
+        if self.crossings == 0:
+            return math.nan
+        return (self.state_bytes - self.state_bytes_saved) / self.crossings
+
+    @property
+    def page_visit_fraction(self) -> float:
+        """Fraction of stepped block-table slots the paged kernel actually
+        attended (NaN until any kernel step ran).  The dense step's
+        equivalent is always 1.0 — it reads every padded position — so
+        ``1 - page_visit_fraction`` is the fraction of attention work the
+        block-sparse walk eliminated on this traffic."""
+        total = self.pages_visited + self.pages_skipped
+        if total == 0:
+            return math.nan
+        return self.pages_visited / total
+
+    @property
+    def mean_admit_wait(self) -> float:
+        return self.admit_wait_total / max(1, self.admitted)
+
+    def as_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["execution"] = self.execution.as_dict()
+        d["latency"] = self.latency.as_dict()
+        d["page_visit_fraction"] = self.page_visit_fraction
+        d["tokens_per_crossing"] = self.tokens_per_crossing
+        d["tokens_per_step"] = self.tokens_per_step
+        d["step_occupancy"] = self.step_occupancy
+        d["state_bytes_per_crossing"] = self.state_bytes_per_crossing
+        d["unique_state_bytes_per_crossing"] = self.unique_state_bytes_per_crossing
+        d["cache_occupancy"] = self.cache_occupancy
+        d["page_occupancy"] = self.page_occupancy
+        d["mean_admit_wait"] = self.mean_admit_wait
+        return d
+
+    def __str__(self) -> str:
+        return (
+            f"DecodeReport(streams={self.streams}, tokens={self.tokens}, "
+            f"steps={self.steps}, prefills={self.prefills}, "
+            f"tokens/crossing={_fmt(self.tokens_per_crossing)}, "
+            f"occupancy={_fmt(self.step_occupancy)}, "
+            f"mean_admit_wait={self.mean_admit_wait * 1e3:.2f}ms)"
+        )
+
+    def table(self) -> str:
+        """Multi-line, aligned rendering for demos/benchmark output."""
+        rows = [
+            ("streams", str(self.streams)),
+            ("tokens", str(self.tokens)),
+            ("step calls", str(self.steps)),
+            ("prefill calls", str(self.prefills)),
+            ("crossings", str(self.crossings)),
+            ("tokens/crossing", _fmt(self.tokens_per_crossing)),
+            ("tokens/step", _fmt(self.tokens_per_step)),
+            ("step occupancy", _fmt(self.step_occupancy)),
+            ("state bytes/crossing", _fmt(self.state_bytes_per_crossing, ".0f")),
+            ("mean admit wait", f"{self.mean_admit_wait * 1e3:.2f} ms"),
+        ]
+        if self.page_capacity:
+            rows += [
+                ("pages in use", f"{self.pages_in_use}/{self.page_capacity} "
+                                 f"(peak {self.pages_peak}, "
+                                 f"size {self.page_size})"),
+                ("cache occupancy", _fmt(self.cache_occupancy)),
+            ]
+        if self.prefix_hits or self.pages_shared:
+            rows += [
+                ("prefix hits", str(self.prefix_hits)),
+                ("prefix tokens reused", str(self.prefix_tokens_reused)),
+                ("pages shared / cow", f"{self.pages_shared} / "
+                                       f"{self.pages_cow_copied}"),
+                ("state bytes saved", str(self.state_bytes_saved)),
+            ]
+        if self.kernel_steps:
+            rows += [
+                ("kernel steps", str(self.kernel_steps)),
+                ("pages visited / skipped", f"{self.pages_visited} / "
+                                            f"{self.pages_skipped}"),
+                ("page visit fraction", _fmt(self.page_visit_fraction)),
+            ]
+        return _render_rows(rows)
+
+
+class DecodeStats(_OwnerFoldingStats):
+    """Lock-guarded accumulator behind ``DecodeScheduler.report()``.
+
+    The decode loop records from its scheduler thread while ``snapshot()``
+    may run on any caller thread.  ``tokens`` counts *emitted* tokens — the
+    scheduler reports how many samples actually succeeded per call, so a
+    stream killed by a poisoned sampler never inflates the token counters.
+    """
+
+    def __init__(self):
+        super().__init__(
+            streams=0, tokens=0, step_tokens=0, steps=0, prefills=0,
+            warm_calls=0, live_rows=0, slot_rows=0, admitted=0, crossings=0,
+            state_bytes=0, admit_wait_total=0.0, admit_wait_max=0.0,
+            failures=0, page_size=0, page_capacity=0, pages_in_use=0,
+            pages_peak=0, page_allocs=0, page_frees=0, cache_rows_valid=0,
+            cache_rows_allocated=0, prefix_hits=0, prefix_tokens_reused=0,
+            pages_shared=0, pages_cow_copied=0, state_bytes_saved=0,
+            kernel_steps=0, pages_visited=0, pages_skipped=0,
+        )
+        # scheduler-phase wall-time distribution (DecodeReport.latency)
+        self._hist = HistogramSet()
+
+    def record_prefill(self, *, n_streams: int, tokens: int,
+                       waits: list[float],
+                       report: ExecutionReport,
+                       state_bytes: int = 0,
+                       phase: str = "prefill") -> None:
+        with self._lock:
+            r = self._r
+            r["prefills"] += 1
+            r["admitted"] += n_streams
+            r["tokens"] += tokens
+            r["crossings"] += report.guest_to_host
+            r["state_bytes"] += state_bytes
+            r["admit_wait_total"] += sum(waits)
+            r["admit_wait_max"] = max(r["admit_wait_max"], *waits, 0.0)
+            self._hist.record((phase, ""), int(report.wall_seconds * 1e9))
+            self._fold(report)
+
+    def record_step(self, *, live: int, slots: int, tokens: int,
+                    report: ExecutionReport,
+                    state_bytes: int = 0,
+                    cache_valid: int = 0, cache_alloc: int = 0,
+                    pages_visited: int = 0, pages_skipped: int = 0,
+                    kernel_step: bool = False) -> None:
+        with self._lock:
+            r = self._r
+            r["steps"] += 1
+            r["tokens"] += tokens
+            r["step_tokens"] += tokens
+            r["live_rows"] += live
+            r["slot_rows"] += slots
+            r["crossings"] += report.guest_to_host
+            r["state_bytes"] += state_bytes
+            r["cache_rows_valid"] += cache_valid
+            r["cache_rows_allocated"] += cache_alloc
+            if kernel_step:
+                r["kernel_steps"] += 1
+                r["pages_visited"] += pages_visited
+                r["pages_skipped"] += pages_skipped
+            self._hist.record(("step", ""), int(report.wall_seconds * 1e9))
+            self._fold(report)
+
+    def record_pool(self, *, page_size: int, page_capacity: int,
+                    in_use: int, peak: int, allocs: int, frees: int,
+                    prefix_hits: int = 0, prefix_tokens_reused: int = 0,
+                    pages_shared: int = 0, pages_cow_copied: int = 0,
+                    state_bytes_saved: int = 0) -> None:
+        """Absolute pool counters (the loop owns the pool; these mirror it)."""
+        with self._lock:
+            r = self._r
+            r["page_size"] = page_size
+            r["page_capacity"] = page_capacity
+            r["pages_in_use"] = in_use
+            r["pages_peak"] = peak
+            r["page_allocs"] = allocs
+            r["page_frees"] = frees
+            r["prefix_hits"] = prefix_hits
+            r["prefix_tokens_reused"] = prefix_tokens_reused
+            r["pages_shared"] = pages_shared
+            r["pages_cow_copied"] = pages_cow_copied
+            r["state_bytes_saved"] = state_bytes_saved
+
+    def record_retire(self, *, failed: bool = False) -> None:
+        with self._lock:
+            self._r["streams"] += 1
+            if failed:
+                self._r["failures"] += 1
+
+    def record_warm(self, report: ExecutionReport | None) -> None:
+        with self._lock:
+            self._r["warm_calls"] += 1
+            if report is not None:
+                self._fold(report)
+
+    def snapshot(self) -> DecodeReport:
+        with self._lock:
+            return DecodeReport(execution=self._merged_execution(),
+                                latency=self._hist.copy(), **self._r)

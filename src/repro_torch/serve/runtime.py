@@ -1,0 +1,1107 @@
+"""Token-level continuous batching over one PlannedProgram (the port).
+
+A decode loop pays the paper's fixed guest→host crossing cost once per
+**token**: every step is a tiny entry call.  :class:`DecodeScheduler` treats
+the decode loop itself as the persistent iteration and re-forms the batch
+every step, so all live streams share one crossing-set per token position;
+with a paged :class:`~repro_torch.serve.StateSpec` and ``paged_step=...``
+each step goes through the block-sparse paged-attention CUDA kernel.
+
+    planned = mixed.trace(export_attn_decode_lm()).plan("tech-gfp")
+    with DecodeScheduler(planned, step="decode_step",
+                         paged_step="paged_decode_step", capacity=8,
+                         state=StateSpec(growing={0: 1, 1: 1},
+                                         max_context=32, page_size=4)) as s:
+        tokens = s.decode(prompt, max_new_tokens=16)
+
+The offload units run on CUDA unless ``backend="cpu"`` is passed (the
+tests do).  The page pools stay numpy on the host and cross at every step,
+as in the reference.  Request-level serving (``MixedServer``) and
+multi-model co-serving come with later slices of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+from concurrent.futures import Future, InvalidStateError
+from typing import Callable
+
+import numpy as np
+
+from .. import obs
+from ..core.api import CompiledHybrid, PlannedProgram
+from .batcher import (
+    PagedKVState,
+    SlotMap,
+    StateSpec,
+    pad_rows,
+)
+from .reports import DecodeReport, DecodeStats
+
+
+_CLOSE = object()
+
+
+def _resolve(fut: Future, *, result=None, exception=None) -> None:
+    """Deliver a batch outcome, tolerating callers who cancelled meanwhile.
+
+    A cancelled batch-mate must never prevent the other requests in the
+    batch from resolving (``set_result`` on a cancelled Future raises), and
+    error paths may legitimately re-visit futures that already resolved.
+    """
+    if fut.done():
+        return
+    try:
+        if not fut.set_running_or_notify_cancel():
+            return                           # caller cancelled while queued
+        if exception is not None:
+            fut.set_exception(exception)
+        else:
+            fut.set_result(result)
+    except (InvalidStateError, RuntimeError):
+        # resolved concurrently; set_running_or_notify_cancel raises a plain
+        # RuntimeError (not InvalidStateError) on a non-pending future
+        pass
+
+
+
+# ---------------------------------------------------------------------------
+# token-level continuous batching
+# ---------------------------------------------------------------------------
+
+
+def greedy_sample(logits_row: np.ndarray) -> int:
+    """Default token sampler: deterministic argmax over the logits row."""
+    return int(np.argmax(np.asarray(logits_row)))
+
+
+class DecodeStream:
+    """Handle for one submitted decode request (returned by
+    :meth:`DecodeScheduler.submit`).
+
+    ``future`` resolves to the generated tokens as a 1-D int32 array of
+    length ≤ ``max_new_tokens`` (shorter only if ``eos`` was sampled); use
+    :meth:`result` / :meth:`done` as conveniences.  After admission the
+    scheduler fills the scheduling facts — ``slot`` (the physical batch row
+    the stream occupied), ``admitted_step`` (the first step index it joined)
+    and, at retirement, ``retired_step`` (the step that produced its last
+    token; ``admitted_step - 1`` for streams that finished at their prefill
+    and never stepped).  They are written by the decode loop before the
+    future resolves, so reading them after ``result()`` returns is race-free.
+    """
+
+    def __init__(self, prompt: np.ndarray, max_new_tokens: int, eos: int | None):
+        self.prompt = prompt
+        self.max_new_tokens = max_new_tokens
+        self.eos = eos
+        self.future: Future = Future()
+        self.submitted = time.perf_counter()
+        self.slot: int | None = None
+        self.admitted_step: int | None = None
+        self.retired_step: int | None = None
+        self._generated: list[int] = []
+
+    def result(self, timeout: float | None = None) -> np.ndarray:
+        """Block for the stream's generated tokens (1-D int32)."""
+        return self.future.result(timeout)
+
+    def done(self) -> bool:
+        return self.future.done()
+
+
+@dataclasses.dataclass
+class _PendingStream:
+    stream: DecodeStream
+
+    @property
+    def sig(self) -> tuple:
+        p = self.stream.prompt
+        return (p.shape, str(p.dtype))
+
+
+class DecodeScheduler:
+    """Continuous (in-flight) batching for autoregressive decode loops.
+
+    Where request-level serving amortizes the paper's fixed guest→host
+    crossing cost across *requests*, a decode loop pays that cost once per
+    **token**: every step is a tiny entry call, and serving N streams
+    request-style costs N crossing-sets per token position.  This scheduler
+    treats the decode loop itself as the persistent iteration and re-forms
+    the batch **every step**:
+
+    * new streams join mid-flight at their prefill boundary — admissions
+      are grouped into one batched prefill entry call per prompt shape;
+    * each step issues exactly ONE batched entry crossing for all live
+      streams (the per-token unit is planned once and re-entered);
+    * finished streams retire immediately — their slot is handed to the
+      next admission, never padded along until the slowest stream ends.
+
+    **Program contract.**  ``planned`` is a decode-loop program planned at
+    its prefill entry: ``prefill(prompts) -> (logits, *state)`` with
+    ``prompts`` carrying one prompt per row.  ``step`` names a function of
+    the same program with ``step(*state, tokens) -> (logits, *state)``,
+    where every array carries streams on axis 0 and every op is
+    row-independent (batch-parallel).  The step plan is derived via
+    :meth:`~repro_torch.core.api.PlannedProgram.for_entry`, so prefill and step
+    share one offload-unit cache (functions reachable from both — e.g. the
+    LM head — compile once).
+
+    **State contract.**  By default every state array is a fixed-size row
+    per stream (the recurrent-LM shape).  A :class:`~repro_torch.serve.StateSpec`
+    with ``growing`` entries generalizes this to **paged KV-cache state**:
+    the marked arrays carry one row per *context position* (padded in the
+    program to the spec's fixed ``max_context``, so the step signature
+    never changes), and the scheduler keeps each stream's filled prefix in
+    fixed-size pages (:class:`~repro_torch.serve.PagePool` +
+    :class:`~repro_torch.serve.BlockTable`) — admitted at the prefill boundary,
+    grown by one position per step, recycled the instant the stream
+    retires.  Admission is conservatively gated on worst-case page demand
+    (``ceil((prompt_len + max_new_tokens - 1) / page_size)``), so a stream
+    that was admitted can always grow to its end.  Bit-exactness is
+    unchanged: gathers rebuild the padded state over a zero template,
+    reproducing exactly the array a solo loop would have threaded (see
+    :class:`~repro_torch.serve.batcher.PagedKVState`).
+
+    **Prefix sharing** (``StateSpec(share_prefixes=True)`` +
+    ``prefill_suffix=...``): a newly admitted stream whose prompt shares a
+    page-aligned prefix with a live or recently-retired stream *of the same
+    prompt length* maps those full pages read-only (copy-on-write protects
+    them from any later write) instead of re-storing them, and its
+    admission rides the suffix-capable prefill root — same arg structure as
+    ``step`` but with a ``(B, T)`` token batch: growing state inputs carry
+    the cached prefix rows, the non-growing length vector carries each
+    row's cached length.  Because the suffix root recomputes through the
+    *same offload units* as the plain prefill and merges with a pure
+    ``where`` select, a prefix-shared stream's tokens stay bit-identical to
+    :func:`decode_reference`.  What sharing buys is pages:
+    ``pages_in_use``/``pages_peak`` drop under many-streams-same-system-
+    prompt traffic (``prefix_hits``, ``prefix_tokens_reused``,
+    ``pages_shared``, ``state_bytes_saved`` in the report).  Admission
+    gating stays conservative (full worst case per stream), so sharing
+    never turns an admissible load into an overflow.
+
+    **Paged-kernel stepping** (``paged_step=...``, requires a paged
+    ``StateSpec``): the named root replaces the dense step with the
+    block-sparse paged-attention path — ``paged_step(*pool buffers,
+    tables, lengths, tokens) -> (logits, *fresh rows)``.  Each step's
+    crossing receives the page-pool backing buffers and a dense block-table
+    array *directly* (the gather/append re-materialization of dense K/V
+    disappears entirely), the kernel inside visits only live pages
+    (``pages_visited``/``pages_skipped``/``kernel_steps`` in the report),
+    and the returned per-stream k/v rows are appended into pages
+    host-side.  Tokens stay bit-identical to
+    :func:`paged_decode_reference` — same kernel, same fixed shapes, and
+    the page walk is physical-page-id invariant — and match
+    :func:`decode_reference` on the workloads the smoke gates pin down.
+
+    **Bit-exactness.**  Every prefill and step call is padded to the fixed
+    ``capacity`` rows (see :class:`~repro_torch.serve.batcher.SlotMap`): at one
+    fixed shape, each row of a batch-parallel program is a pure function of
+    that row's inputs, so a stream's tokens are bit-identical to decoding
+    it alone (:func:`decode_reference`) no matter when it was admitted or
+    who its batch-mates were.  This is deliberately stronger than reusing
+    the request-level bucket ladder, whose varying shapes are only
+    bitwise-stable for kernels that happen to reduce identically per shape.
+
+    **Threading.**  ``submit``/``report``/``warm``/``close`` may be called
+    from any thread; one daemon decode-loop thread owns the slot map and
+    state buffers.  The compiled hybrids underneath are the thread-safe
+    substrate from :mod:`repro_torch.core.api`.
+
+        planned = mixed.trace(export_decode_lm()).plan("tech-gfp")
+        with DecodeScheduler(planned, step="decode_step", capacity=8) as sched:
+            streams = [sched.submit(prompt, max_new_tokens=16)
+                       for prompt in prompts]
+            tokens = [s.result() for s in streams]
+            print(sched.report())            # tokens/crossing, occupancy, ...
+    """
+
+    def __init__(
+        self,
+        planned: PlannedProgram,
+        *,
+        step: str,
+        capacity: int = 8,
+        sample: Callable[[np.ndarray], int] | None = None,
+        eos: int | None = None,
+        admit_delay: float = 0.0,
+        max_pending: int = 4096,
+        backend: str | None = None,
+        start: bool = True,
+        state: StateSpec | None = None,
+        prefill_suffix: str | None = None,
+        paged_step: str | None = None,
+        tracer: "obs.Tracer | None" = None,
+    ):
+        # explicit tracer wins; otherwise each phase consults the process
+        # tracer (obs.active()) at call time, so installing one later works
+        self._tracer = tracer
+        self.planned = planned
+        self.step_planned = planned.for_entry(step)
+        self.prefill = planned.compile(backend=backend)
+        self.step = self.step_planned.compile(backend=backend)
+        program = planned.analysis.program
+        entry_args = program.functions[program.entry].args
+        if len(entry_args) != 1:
+            raise ValueError(
+                f"prefill entry {program.entry!r} must take exactly one "
+                f"argument (the prompt batch), got {len(entry_args)}"
+            )
+        n_returns = len(program.functions[program.entry].returns)
+        if n_returns < 2:
+            raise ValueError(
+                f"prefill entry {program.entry!r} must return (logits, "
+                f"*state), got {n_returns} return(s)"
+            )
+        self._n_state = n_returns - 1
+        step_fn = self.step_planned.analysis.program.functions[step]
+        if len(step_fn.args) != self._n_state + 1:
+            raise ValueError(
+                f"step {step!r} must take ({self._n_state} state arrays + "
+                f"tokens), got {len(step_fn.args)} args"
+            )
+        if len(step_fn.returns) != n_returns:
+            raise ValueError(
+                f"step {step!r} must return (logits, *state) like the "
+                f"prefill entry, got {len(step_fn.returns)} return(s)"
+            )
+        self.capacity = int(capacity)
+        self.state_spec = state or StateSpec()
+        for idx in self.state_spec.growing:
+            if idx >= self._n_state:
+                raise ValueError(
+                    f"StateSpec marks state {idx} as growing but the program "
+                    f"returns only {self._n_state} state array(s)"
+                )
+        # paged growing-state storage; None for fixed-row state contracts.
+        # Admission gates each stream's worst case against the whole pool.
+        self._paged = (PagedKVState(self.capacity, self.state_spec)
+                       if self.state_spec.paged else None)
+        self._pool_pages = (self._paged.pool.pages if self._paged is not None
+                            else 0)
+        self._pages_committed = 0      # worst-case pages of live streams
+        self._paged_dirty = True       # membership changed since last gather
+        # the prefix-sharing prefill: a root with the step's arg structure
+        # but a (B, T) token batch — `prefill_suffix(*state, tokens) ->
+        # (logits, *state)` — whose growing-state inputs carry the cached
+        # prefix rows and whose non-growing state input carries the per-row
+        # cached length.  Shares the offload-unit cache with prefill/step.
+        self._suffix: CompiledHybrid | None = None
+        if prefill_suffix is not None:
+            if self._paged is None:
+                raise ValueError(
+                    "prefill_suffix needs a paged StateSpec (growing arrays) "
+                    "— prefix sharing maps KV pages")
+            if prefill_suffix not in program.functions:
+                raise KeyError(
+                    f"unknown prefill_suffix function {prefill_suffix!r}; "
+                    f"program defines {sorted(program.functions)}")
+            sfx = program.functions[prefill_suffix]
+            if len(sfx.args) != self._n_state + 1:
+                raise ValueError(
+                    f"prefill_suffix {prefill_suffix!r} must take "
+                    f"({self._n_state} state arrays + tokens), got "
+                    f"{len(sfx.args)} args")
+            if len(sfx.returns) != n_returns:
+                raise ValueError(
+                    f"prefill_suffix {prefill_suffix!r} must return (logits, "
+                    f"*state) like the prefill entry, got "
+                    f"{len(sfx.returns)} return(s)")
+            self.suffix_planned = planned.for_entry(prefill_suffix)
+            self._suffix = self.suffix_planned.compile(backend=backend)
+        # the block-sparse paged-kernel step: `paged_step(*pool buffers,
+        # tables, lengths, tokens) -> (logits, *fresh rows)` — consumes the
+        # page-pool backing buffers and block tables directly (no dense
+        # gather at the crossing) and returns each stream's newly computed
+        # context rows for the scheduler to append host-side.
+        self._paged_step: CompiledHybrid | None = None
+        if paged_step is not None:
+            if self._paged is None:
+                raise ValueError(
+                    "paged_step needs a paged StateSpec (growing arrays) — "
+                    "the kernel walks KV pages")
+            if paged_step not in program.functions:
+                raise KeyError(
+                    f"unknown paged_step function {paged_step!r}; "
+                    f"program defines {sorted(program.functions)}")
+            n_growing = len(self.state_spec.growing)
+            pfn = program.functions[paged_step]
+            if len(pfn.args) != n_growing + 3:
+                raise ValueError(
+                    f"paged_step {paged_step!r} must take ({n_growing} pool "
+                    f"buffers + tables + lengths + tokens), got "
+                    f"{len(pfn.args)} args")
+            if len(pfn.returns) != n_growing + 1:
+                raise ValueError(
+                    f"paged_step {paged_step!r} must return (logits, "
+                    f"{n_growing} fresh state rows), got "
+                    f"{len(pfn.returns)} return(s)")
+            self.paged_step_planned = planned.for_entry(paged_step)
+            self._paged_step = self.paged_step_planned.compile(backend=backend)
+        if self.state_spec.share_prefixes and self._suffix is None:
+            raise ValueError(
+                "StateSpec(share_prefixes=True) needs a suffix-capable "
+                "prefill entry: pass DecodeScheduler(prefill_suffix=...)")
+        if self._suffix is not None and not self.state_spec.share_prefixes:
+            raise ValueError(
+                "prefill_suffix without StateSpec(share_prefixes=True) "
+                "would compile but never run — enable sharing on the state "
+                "spec or drop the argument")
+        self.sample = sample or greedy_sample
+        self.eos = eos
+        # Grace period after an idle wake-up before the first admission, so
+        # a burst of submissions coalesces into one batched prefill (the
+        # decode-side analogue of request batching's max_batch_delay).  Never
+        # applied while steps are running — mid-flight admission stays eager.
+        self.admit_delay = float(admit_delay)
+
+        self._stats = DecodeStats()
+        # same backpressure contract as request-level serving: submit() blocks once
+        # this many streams are outstanding (queued, pending, or live);
+        # capacity releases as each stream's future resolves
+        self._capacity_sem = threading.BoundedSemaphore(max_pending)
+        self._slots = SlotMap(self.capacity)
+        self._state: list[np.ndarray] | None = None   # (capacity, ...) each
+        self._state_writable = False   # may _prefill_group scatter in place?
+        self._tokens: np.ndarray | None = None        # (capacity,) int32
+        self._step_idx = 0
+        self._pending: list[_PendingStream] = []
+        self._queue: queue.Queue = queue.Queue()
+        self._closed = False
+        self._started = False
+        self._submit_lock = threading.Lock()
+        self._loop_thread = threading.Thread(
+            target=self._loop, name="mixed-decode-loop", daemon=True
+        )
+        if start:
+            self.start()
+
+    # -- client surface -----------------------------------------------------
+
+    def start(self) -> None:
+        """Start the decode loop (idempotent).
+
+        Constructed with ``start=False``, the scheduler queues submissions
+        without admitting them until ``start()`` — the deterministic way to
+        make a whole burst join in one batched prefill (``admit_delay`` is
+        the best-effort, timing-based alternative for live traffic).
+        """
+        with self._submit_lock:
+            if self._started:
+                return
+            self._started = True
+            # start under the lock: a concurrent close() that sees
+            # _started must also see a started thread, or its join()
+            # would raise "cannot join thread before it is started"
+            self._loop_thread.start()
+
+    def submit(
+        self,
+        prompt,
+        max_new_tokens: int,
+        *,
+        eos: int | None = None,
+    ) -> DecodeStream:
+        """Enqueue one decode stream; returns its :class:`DecodeStream`.
+
+        ``prompt`` is a 1-D integer token array; the stream emits
+        ``max_new_tokens`` tokens (the first sampled from the prefill
+        logits) unless ``eos`` (default: the scheduler's) is sampled first,
+        which is emitted and ends the stream.  Admission happens at the
+        next step boundary with a free slot, FIFO per prompt shape.
+        """
+        prompt = np.asarray(prompt)
+        if prompt.ndim != 1:
+            raise ValueError(f"prompt must be 1-D tokens, got shape {prompt.shape}")
+        # validate here, not deep in the engine: a zero-length or float
+        # prompt would otherwise surface as an opaque shape/dtype error
+        # mid-loop and fail its whole admission group
+        if prompt.shape[0] == 0:
+            raise ValueError("prompt must not be empty (zero-length tokens)")
+        if not np.issubdtype(prompt.dtype, np.integer):
+            raise ValueError(
+                f"prompt must be integer tokens, got dtype {prompt.dtype}")
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1: {max_new_tokens}")
+        spec = self.state_spec
+        if spec.paged:
+            # the last KV row a stream can write is prompt_len + max_new - 2
+            # (each step caches the *input* token; the final sampled token
+            # never enters the cache), so the context high-water mark is
+            # prompt_len + max_new_tokens - 1
+            worst_ctx = prompt.shape[0] + max_new_tokens - 1
+            if worst_ctx > spec.max_context:
+                raise ValueError(
+                    f"prompt_len + max_new_tokens - 1 = {worst_ctx} exceeds "
+                    f"the state contract's max_context={spec.max_context}"
+                )
+            if spec.pages_needed(worst_ctx) > self._pool_pages:
+                raise ValueError(
+                    f"stream needs {spec.pages_needed(worst_ctx)} pages at "
+                    f"worst case but this scheduler's page pool holds only "
+                    f"{self._pool_pages}"
+                )
+        stream = DecodeStream(prompt, int(max_new_tokens),
+                              self.eos if eos is None else eos)
+        # blocking backpressure, taken OUTSIDE the submit lock so stalled
+        # submitters never hold it against start()/close()
+        self._capacity_sem.acquire()
+        with self._submit_lock:
+            if self._closed:
+                self._capacity_sem.release()
+                raise RuntimeError("DecodeScheduler is closed")
+            stream.future.add_done_callback(
+                lambda _: self._capacity_sem.release())
+            self._queue.put(_PendingStream(stream))
+        return stream
+
+    def decode(self, prompt, max_new_tokens: int, *,
+               eos: int | None = None,
+               timeout: float | None = None) -> np.ndarray:
+        """Blocking convenience: ``submit(...).result(timeout)``."""
+        return self.submit(prompt, max_new_tokens, eos=eos).result(timeout)
+
+    def warm(self, prompt_len: int, *, dtype=np.int32) -> None:
+        """Pre-compile the prefill (for ``prompt_len``) and step signatures.
+
+        One dummy padded call each, so the first real stream never blocks
+        on a first-signature unit build.  Warm calls are counted in ``report().warm_calls`` and in
+        ``execution``, but never in ``crossings`` — tokens/crossing reflects
+        serving traffic only.
+        """
+        prompts = np.zeros((self.capacity, int(prompt_len)), dtype)
+        outs, rep = self.prefill.call_reported(prompts)
+        self._stats.record_warm(rep)
+        state = [np.asarray(o) for o in outs[1:]]
+        tokens = np.zeros((self.capacity,), np.int32)
+        _, rep = self.step.call_reported(*state, tokens)
+        self._stats.record_warm(rep)
+        if self._suffix is not None:
+            _, rep = self._suffix.call_reported(*state, prompts)
+            self._stats.record_warm(rep)
+        if self._paged_step is not None:
+            spec = self.state_spec
+            pools = []
+            for k in sorted(spec.growing):
+                axis = spec.growing[k]
+                s = state[k]
+                inner = tuple(d for i, d in enumerate(s.shape)
+                              if i not in (0, axis))
+                pools.append(np.zeros(
+                    (spec.pool_pages(self.capacity), spec.page_size) + inner,
+                    s.dtype))
+            tables = np.zeros((self.capacity, spec.pages_per_stream), np.int32)
+            lengths = np.zeros((self.capacity,), np.int32)
+            _, rep = self._paged_step.call_reported(
+                *pools, tables, lengths, tokens)
+            self._stats.record_warm(rep)
+
+    def report(self) -> DecodeReport:
+        """Snapshot of the decode counters (see :class:`DecodeReport`)."""
+        return self._stats.snapshot()
+
+    def close(self) -> None:
+        """Stop accepting, decode every admitted/queued stream to completion,
+        then join the loop thread.
+
+        Safe (and meaningful) to call from several threads at once: *every*
+        caller joins the loop thread, so "close() returned" always implies
+        "drained".  The early-return-on-``_closed`` shortcut would let a
+        second closer return while the first is still waiting on the join —
+        the exact race this guards against.
+        """
+        self.start()    # a never-started scheduler still drains its queue
+        with self._submit_lock:
+            if not self._closed:
+                self._closed = True
+                self._queue.put(_CLOSE)
+        self._loop_thread.join()
+
+    def __enter__(self) -> "DecodeScheduler":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- the decode loop (scheduler thread) ---------------------------------
+
+    def _loop(self) -> None:
+        closing = False
+        while True:
+            try:
+                closing = self._drain(block=not closing
+                                      and self._slots.live == 0
+                                      and not self._pending) or closing
+                self._admit()
+                if self._slots.live:
+                    self._step_all()
+                elif closing and not self._pending:
+                    if self._paged is not None:
+                        # drop retained prefix entries: "close() returned"
+                        # implies the zero-leak identity (in_use == 0,
+                        # refs_outstanding == 0), retention notwithstanding
+                        self._paged.clear_prefix_index()
+                        self._record_pool()
+                    return
+                elif not self._pending:
+                    continue    # nothing live; block for work at the top
+            except Exception as e:  # noqa: BLE001 — the loop must outlive any
+                # one poisoned stream: fail everything in flight and keep
+                # serving (stranded futures would hang clients forever)
+                self._fail_all(e)
+
+    def _fail_all(self, e: BaseException) -> None:
+        """Fail every live and pending stream with ``e`` and keep serving.
+
+        Records everything before resolving any future: a client waking
+        from ``result()`` must see current counters.
+        """
+        failed: list[DecodeStream] = []
+        for slot, stream in self._slots.occupied():
+            self._release_slot(stream)
+            self._stats.record_retire(failed=True)
+            failed.append(stream)
+        for p in self._pending:
+            self._stats.record_retire(failed=True)
+            failed.append(p.stream)
+        self._pending = []
+        self._record_pool()
+        for stream in failed:
+            _resolve(stream.future, exception=e)
+
+    def _drain(self, block: bool) -> bool:
+        """Move queued submissions into the pending list; True once closed."""
+        closing = False
+        if block:
+            item = self._queue.get()
+            if item is _CLOSE:
+                closing = True
+            else:
+                self._pending.append(item)
+                if self.admit_delay > 0:
+                    time.sleep(self.admit_delay)   # let the burst coalesce
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                return closing
+            if item is _CLOSE:
+                closing = True
+            else:
+                self._pending.append(item)
+
+    # -- admission (the prefill boundary) -----------------------------------
+
+    def _admit(self) -> None:
+        while self._pending and self._slots.free:
+            lead = self._pending[0]
+            budget = self._page_budget()
+            blocked = False         # keep FIFO: no queue-jumping past a
+            group: list[_PendingStream] = []    # page-starved stream
+            rest: list[_PendingStream] = []
+            for p in self._pending:
+                need = self._pages_worst(p.stream)
+                if (not blocked and len(group) < self._slots.free
+                        and p.sig == lead.sig):
+                    if need <= budget:
+                        group.append(p)
+                        budget -= need
+                        continue
+                    blocked = True
+                rest.append(p)
+            if not group:
+                return              # head-of-line stream waits for pages
+            self._pending = rest
+            self._prefill_group([p.stream for p in group])
+
+    # -- paged-state accounting (no-ops for fixed-row state) -----------------
+
+    def _pages_worst(self, stream: DecodeStream) -> int:
+        """Conservative page demand: the stream decoded to max_new_tokens."""
+        if self._paged is None:
+            return 0
+        return self.state_spec.pages_needed(
+            stream.prompt.shape[0] + stream.max_new_tokens - 1)
+
+    def _page_budget(self) -> int:
+        """Quota pages not spoken for by any live stream's worst case."""
+        if self._paged is None:
+            return 0
+        return self._pool_pages - self._pages_committed
+
+    def _release_slot(self, stream: DecodeStream) -> None:
+        """Free the stream's slot and recycle its pages + reservation."""
+        self._slots.retire(stream.slot)
+        if self._paged is not None:
+            self._paged.retire(stream.slot)
+            self._pages_committed -= self._pages_worst(stream)
+            self._paged_dirty = True
+
+    def _record_pool(self) -> None:
+        if self._paged is not None:
+            paged, pool = self._paged, self._paged.pool
+            self._stats.record_pool(
+                page_size=pool.page_size, page_capacity=self._pool_pages,
+                in_use=paged.pages_in_use, peak=paged.page_peak_in_use,
+                allocs=paged.page_allocs, frees=paged.page_frees,
+                prefix_hits=paged.prefix_hits,
+                prefix_tokens_reused=paged.prefix_tokens_reused,
+                pages_shared=paged.pages_shared,
+                pages_cow_copied=paged.cow_copies,
+                state_bytes_saved=paged.bytes_saved)
+
+    @staticmethod
+    def _state_nbytes(arrays) -> int:
+        return int(sum(np.asarray(a).nbytes for a in arrays))
+
+    def _suffix_args(
+        self,
+        n_rows: int,
+        pins: dict[int, tuple[int, tuple[int, ...]]],
+    ) -> list[np.ndarray]:
+        """State inputs for the suffix-capable prefill call.
+
+        Growing arrays carry each pending row's cached prefix, gathered from
+        its pinned pages over the zero template (rows without a match stay
+        all-zero); every non-growing state array carries the per-row cached
+        length — the suffix entry's contract is therefore ``(growing K/V
+        arrays..., length vector, tokens)``, which the scheduler validates
+        against the stored state shapes here.
+        """
+        growing = self.state_spec.growing
+        row_pages = [(pins[i][1], pins[i][0]) if i in pins else ((), 0)
+                     for i in range(n_rows)]
+        args: list[np.ndarray] = []
+        for k in range(self._n_state):
+            if k in growing:
+                args.append(self._paged.gather_pages(k, row_pages))
+                continue
+            ref = self._state[k]
+            if ref is None or ref.ndim != 1:
+                raise ValueError(
+                    f"prefix sharing requires every non-growing state array "
+                    f"to be the per-stream (capacity,) length vector; state "
+                    f"{k} has shape "
+                    f"{None if ref is None else ref.shape}")
+            vec = np.zeros((self.capacity,), ref.dtype)
+            for i, (shared_len, _) in pins.items():
+                vec[i] = shared_len
+            args.append(vec)
+        return args
+
+    def _obs(self) -> "obs.Tracer | None":
+        return self._tracer if self._tracer is not None else obs.active()
+
+    def _prefill_group(self, streams: list[DecodeStream]) -> None:
+        waits = [time.perf_counter() - s.submitted for s in streams]
+        tr = self._obs()
+        if tr is not None:
+            for s, w in zip(streams, waits):
+                # submitted is perf_counter seconds — the same monotonic
+                # clock as span timestamps, so the wait renders in place
+                tr.add("admit", obs.ADMIT_WAIT,
+                       int(s.submitted * 1e9), int(w * 1e9))
+        admitted: list[DecodeStream] = []
+        # resolutions are deferred until all counters are recorded: a client
+        # waking from result() may immediately call report() and must see
+        # the step/pool state that produced its tokens
+        resolutions: list[tuple] = []
+        sharing = self._suffix is not None and self.state_spec.share_prefixes
+        # pre-call prefix matches, keyed by pending-row index.  Pinned pages
+        # hold a pool reference each, so allocation pressure between match
+        # and admit (eviction of retained entries) can never recycle them;
+        # admit(pinned=True) adopts the references, the except path returns
+        # whatever was never consumed.
+        pins: dict[int, tuple[int, tuple[int, ...]]] = {}
+        try:
+            prompts = pad_rows(np.stack([s.prompt for s in streams]),
+                               self.capacity)
+            suffix_state: list[np.ndarray] | None = None
+            keys_by_row: dict[int, list] = {}
+            if sharing and self._state is not None:
+                for i, s in enumerate(streams):
+                    # hash each prompt's prefixes once; the admit-time
+                    # re-match below reuses the keys instead of re-hashing
+                    keys_by_row[i] = self._paged.prefix_keys(s.prompt)
+                    shared_len, pages = self._paged.match_and_pin(
+                        s.prompt, keys=keys_by_row[i])
+                    if shared_len:
+                        pins[i] = (shared_len, pages)
+            phase = "prefill_suffix" if pins else "prefill"
+            t0 = tr.now() if tr is not None else 0
+            if pins:
+                # one batched suffix-capable prefill serves the whole group:
+                # matched rows consume their cached prefix (len > 0), the
+                # rest recompute from len 0 — bit-identical to the plain
+                # prefill row-for-row, because both roots route through the
+                # same encode/head offload units
+                suffix_state = self._suffix_args(len(streams), pins)
+                outs, report = self._suffix.call_reported(
+                    *suffix_state, prompts)
+            else:
+                outs, report = self.prefill.call_reported(prompts)
+            if tr is not None:
+                tr.add(phase, obs.PREFILL, t0, tr.now() - t0,
+                       args={"streams": len(streams)})
+            logits = np.asarray(outs[0])
+            state = [np.asarray(o) for o in outs[1:]]
+            growing = self.state_spec.growing
+            if self._state is None:
+                # first admission fixes the persistent (capacity, ...)
+                # buffers; free rows hold stale-but-finite values and are
+                # never read back.  Growing arrays live in pages instead —
+                # no dense buffer.
+                self._state = [None if k in growing else np.array(s)
+                               for k, s in enumerate(state)]
+                self._state_writable = True
+                self._tokens = np.zeros((self.capacity,), np.int32)
+            elif not self._state_writable:
+                # the steady decode path adopts step outputs without
+                # copying (see _step_all); unit outputs may alias their inputs,
+                # so the admission boundary — the only writer — copies the
+                # fixed-row arrays once before scattering into them
+                self._state = [v if k in growing else np.array(v)
+                               for k, v in enumerate(self._state)]
+                self._state_writable = True
+            if self._paged is not None:
+                for k in growing:
+                    self._paged.ensure_buffers(k, state[k])
+                self._paged_dirty = True
+            prompt_len = streams[0].prompt.shape[0]
+            emitted = 0
+            for i, stream in enumerate(streams):
+                slot = self._slots.admit(stream)
+                stream.slot = slot
+                stream.admitted_step = self._step_idx
+                admitted.append(stream)
+                if self._paged is not None:
+                    # commit BEFORE admit: if admit dies mid-allocation the
+                    # handler's _release_slot decrement stays balanced
+                    self._pages_committed += self._pages_worst(stream)
+                    shared_len, pages = pins.pop(i, (0, ()))
+                    if sharing and not shared_len:
+                        # intra-group sharing: an earlier stream of this very
+                        # group may have just registered the common prefix —
+                        # its stored rows are bitwise this row's own rows
+                        # (same batched call), so mapping them is exact
+                        shared_len, pages = self._paged.match_and_pin(
+                            stream.prompt, keys=keys_by_row.get(i))
+                    self._paged.admit(slot, {k: state[k][i] for k in growing},
+                                      prompt_len, shared_len=shared_len,
+                                      shared_pages=pages, pinned=True)
+                    if sharing:
+                        self._paged.register_prefix(slot, stream.prompt)
+                for k, s in enumerate(state):
+                    if k not in growing:
+                        self._state[k][slot] = s[i]
+                if not self._emit(stream, logits[i], at_prefill=True,
+                                  resolutions=resolutions):
+                    self._tokens[stream.slot] = stream._generated[-1]
+                emitted += len(stream._generated)  # 0 if the sampler failed
+            state_bytes = self._state_nbytes(outs[1:])
+            if suffix_state is not None:
+                # the suffix path also marshals the cached state *into* the
+                # call — count it: state_bytes prices the crossing channel
+                state_bytes += self._state_nbytes(suffix_state)
+            self._stats.record_prefill(n_streams=len(streams), tokens=emitted,
+                                       waits=waits, report=report,
+                                       state_bytes=state_bytes, phase=phase)
+            self._record_pool()
+        except Exception as e:  # noqa: BLE001 — fail this whole group (the
+            # streams left _pending already, so nobody else can resolve
+            # them) but keep serving; release anything partially admitted
+            for _i, (_len, pages) in pins.items():
+                # consumed pins were popped at admit; these streams never
+                # admitted, so hand their references back to the pool
+                self._paged.unpin(pages)
+            pins.clear()
+            for stream in streams:
+                if any(stream is s for s, _, _ in resolutions):
+                    continue           # retired at its own prefill emit
+                if stream in admitted:
+                    self._release_slot(stream)
+                self._stats.record_retire(failed=True)
+                resolutions.append((stream, None, e))
+            self._record_pool()
+        finally:
+            # even if the handler itself dies, queued outcomes must reach
+            # their clients — a dropped resolution is a hung result()
+            for stream, result, exc in resolutions:
+                _resolve(stream.future, result=result, exception=exc)
+
+    # -- stepping ------------------------------------------------------------
+
+    def _step_all(self) -> None:
+        if self._paged_step is not None:
+            return self._step_all_paged()
+        live = self._slots.occupied()
+        growing = self.state_spec.growing
+        if self._paged is not None:
+            if self._paged_dirty:
+                # membership changed since the last step: re-materialize
+                # growing arrays from pages at the one fixed padded shape
+                # (zero template beyond each filled prefix — bit-identical
+                # to the array a solo loop would have threaded)
+                state_args = [
+                    self._paged.gather(k) if k in growing else self._state[k]
+                    for k in range(self._n_state)
+                ]
+                self._paged_dirty = False
+            else:
+                # unchanged membership: the previous step's own outputs are
+                # already bit-identical to a gather for every live row
+                # (select-writes + zero padding), so skip the page copies
+                state_args = list(self._state)
+            cache_valid = self._paged.valid_positions()
+            cache_alloc = self._paged.pool.in_use * self.state_spec.page_size
+        else:
+            state_args = self._state
+            cache_valid = cache_alloc = 0
+        tr = self._obs()
+        t0 = tr.now() if tr is not None else 0
+        try:
+            outs, report = self.step.call_reported(*state_args, self._tokens)
+            if tr is not None:
+                tr.add("step", obs.STEP, t0, tr.now() - t0,
+                       args={"live": len(live)})
+        except Exception as e:  # noqa: BLE001 — a poisoned step fails its
+            # streams (stranded futures would hang clients) but not the
+            # loop; record everything before resolving (see _prefill_group)
+            self._step_idx += 1
+            for slot, stream in live:
+                self._release_slot(stream)
+                stream.retired_step = self._step_idx - 1
+                self._stats.record_retire(failed=True)
+            self._record_pool()
+            for slot, stream in live:
+                _resolve(stream.future, exception=e)
+            return
+        self._step_idx += 1
+        logits = np.asarray(outs[0])
+        state = [np.asarray(o) for o in outs[1:]]
+        # Adopt the step outputs as-is — the steady decode path copies
+        # nothing.  Unit outputs may alias other arrays, but the decode loop
+        # only ever writes state at the admission boundary, which copies the
+        # fixed-row arrays first (_state_writable); a fixed-size-state model
+        # (StateSpec(growing={})) therefore streams step-to-step with zero
+        # per-step state duplication and zero page traffic.
+        self._state = state
+        self._state_writable = False
+        emitted = 0
+        resolutions: list[tuple] = []
+        try:
+            for slot, stream in live:
+                if self._paged is not None:
+                    # the step wrote exactly one new context row per stream
+                    # (a select: rows below the write position pass through
+                    # bitwise unchanged) — page only the appended position
+                    self._paged.append(slot,
+                                       {k: state[k][slot] for k in growing})
+                before = len(stream._generated)
+                if not self._emit(stream, logits[slot], at_prefill=False,
+                                  resolutions=resolutions):
+                    self._tokens[slot] = stream._generated[-1]
+                emitted += len(stream._generated) - before  # 0 on sampler fail
+            self._stats.record_step(
+                live=len(live), slots=self.capacity, tokens=emitted,
+                report=report,
+                state_bytes=(self._state_nbytes(state_args)
+                             + int(self._tokens.nbytes)),
+                cache_valid=cache_valid, cache_alloc=cache_alloc)
+            self._record_pool()
+        finally:
+            # a later slot's append/record may raise (handled by _loop);
+            # outcomes already queued must still reach their clients — a
+            # dropped resolution is a hung result()
+            for stream, result, exc in resolutions:
+                _resolve(stream.future, result=result, exception=exc)
+
+    def _step_all_paged(self) -> None:
+        """One batched step through the block-sparse paged-kernel root.
+
+        The crossing consumes the page-pool backing buffers, the dense
+        block-table array, and the length vector *directly* — no dense
+        ``(capacity, max_context, ...)`` gather is ever materialized, and
+        the step returns only each stream's fresh context rows, which are
+        appended into pages host-side.  Inside the kernel, dead table slots
+        are skipped outright, so attention FLOPs scale with the live pages
+        counted here (``pages_visited``).
+        """
+        live = self._slots.occupied()
+        growing = sorted(self.state_spec.growing)
+        paged = self._paged
+        pools = [paged.backing(k) for k in growing]
+        tables = paged.table_array()
+        lengths = paged.lengths_array()
+        ps = self.state_spec.page_size
+        visited = int(sum(-(-int(n) // ps) for n in lengths))
+        skipped = int(tables.size) - visited
+        cache_valid = paged.valid_positions()
+        cache_alloc = paged.pool.in_use * ps
+        tr = self._obs()
+        t0 = tr.now() if tr is not None else 0
+        try:
+            outs, report = self._paged_step.call_reported(
+                *pools, tables, lengths, self._tokens)
+            if tr is not None:
+                tr.add("step", obs.STEP, t0, tr.now() - t0,
+                       args={"live": len(live), "pages_visited": visited})
+        except Exception as e:  # noqa: BLE001 — same contract as _step_all:
+            # a poisoned step fails its streams but never the loop
+            self._step_idx += 1
+            for slot, stream in live:
+                self._release_slot(stream)
+                stream.retired_step = self._step_idx - 1
+                self._stats.record_retire(failed=True)
+            self._record_pool()
+            for slot, stream in live:
+                _resolve(stream.future, exception=e)
+            return
+        self._step_idx += 1
+        logits = np.asarray(outs[0])
+        rows = [np.asarray(o) for o in outs[1:]]
+        emitted = 0
+        resolutions: list[tuple] = []
+        try:
+            for slot, stream in live:
+                # land the fresh k/v rows in pages; copy-on-write detaches a
+                # shared tail page exactly as the dense append path would
+                paged.append_row(slot, {k: rows[j][slot]
+                                        for j, k in enumerate(growing)})
+                before = len(stream._generated)
+                if not self._emit(stream, logits[slot], at_prefill=False,
+                                  resolutions=resolutions):
+                    self._tokens[slot] = stream._generated[-1]
+                emitted += len(stream._generated) - before
+            self._stats.record_step(
+                live=len(live), slots=self.capacity, tokens=emitted,
+                report=report,
+                state_bytes=(self._state_nbytes(pools) + int(tables.nbytes)
+                             + int(lengths.nbytes)
+                             + int(self._tokens.nbytes)),
+                cache_valid=cache_valid, cache_alloc=cache_alloc,
+                pages_visited=visited, pages_skipped=skipped,
+                kernel_step=True)
+            self._record_pool()
+        finally:
+            for stream, result, exc in resolutions:
+                _resolve(stream.future, result=result, exception=exc)
+
+    def _emit(self, stream: DecodeStream, logits_row: np.ndarray,
+              *, at_prefill: bool, resolutions: list[tuple]) -> bool:
+        """Sample one token for ``stream``; retire it if finished or failed.
+
+        Returns True when the stream retired (its slot is already free).
+        The future is not resolved here — the outcome is queued on
+        ``resolutions`` and delivered by the caller after the call's
+        counters are recorded, so a client waking from ``result()`` never
+        reads a report that predates its own tokens."""
+        try:
+            token = int(self.sample(logits_row))
+        except Exception as e:  # noqa: BLE001 — a failing sampler kills only
+            # its own stream; batch-mates decode on
+            self._retire(stream, at_prefill)
+            self._stats.record_retire(failed=True)
+            resolutions.append((stream, None, e))
+            return True
+        stream._generated.append(token)
+        done = (len(stream._generated) >= stream.max_new_tokens
+                or (stream.eos is not None and token == stream.eos))
+        if done:
+            self._retire(stream, at_prefill)
+            self._stats.record_retire()
+            resolutions.append((stream,
+                                np.array(stream._generated, np.int32), None))
+        return done
+
+    def _retire(self, stream: DecodeStream, at_prefill: bool) -> None:
+        """Free the stream's slot (and pages) immediately — reusable by the
+        very next admission pass, so a retired stream never pads a later
+        step and never holds cache it can no longer use."""
+        self._release_slot(stream)
+        stream.retired_step = (stream.admitted_step - 1 if at_prefill
+                               else self._step_idx - 1)
+
+
+def decode_reference(
+    prefill: CompiledHybrid,
+    step: CompiledHybrid,
+    prompt,
+    max_new_tokens: int,
+    *,
+    capacity: int,
+    sample: Callable[[np.ndarray], int] | None = None,
+    eos: int | None = None,
+) -> np.ndarray:
+    """Solo-decode ``prompt`` with the scheduler's exact padded recipe.
+
+    This is the bit-exactness oracle for :class:`DecodeScheduler`: it pads
+    the single stream to the same fixed ``capacity`` rows, so every kernel
+    runs at the same shape the scheduler uses and the produced tokens are
+    bit-identical to the same stream decoded inside any batch.  Use the
+    ``capacity`` the scheduler was built with.
+    """
+    sample = sample or greedy_sample
+    prompt = np.asarray(prompt)
+    outs = prefill(pad_rows(prompt[None, :], capacity))
+    logits, state = np.asarray(outs[0]), [np.asarray(o) for o in outs[1:]]
+    generated = [int(sample(logits[0]))]
+    tokens = np.zeros((capacity,), np.int32)
+    while (len(generated) < max_new_tokens
+           and not (eos is not None and generated[-1] == eos)):
+        tokens = np.array(tokens)
+        tokens[0] = generated[-1]
+        outs = step(*state, tokens)
+        logits, state = np.asarray(outs[0]), [np.asarray(o) for o in outs[1:]]
+        generated.append(int(sample(logits[0])))
+    return np.array(generated, np.int32)
+
+
+def paged_decode_reference(
+    prefill: CompiledHybrid,
+    paged_step: CompiledHybrid,
+    prompt,
+    max_new_tokens: int,
+    *,
+    capacity: int,
+    state: StateSpec,
+    sample: Callable[[np.ndarray], int] | None = None,
+    eos: int | None = None,
+) -> np.ndarray:
+    """Solo-decode ``prompt`` through the block-sparse paged-kernel step.
+
+    The paged-kernel analogue of :func:`decode_reference`: one stream,
+    padded to the scheduler's ``capacity`` rows, driven through its own
+    :class:`~repro_torch.serve.batcher.PagedKVState` at the scheduler's exact
+    fixed shapes — pool ``(pool_pages, page_size, ...)`` buffers, a dense
+    ``(capacity, pages_per_stream)`` block table, a ``(capacity,)`` length
+    vector.  Because each kernel grid row depends only on its own query,
+    table row, and the pages they name — and the logical page walk order is
+    fixed — the tokens are bit-identical to the same stream decoded inside
+    any scheduler batch, whatever *physical* page ids either run allocated.
+    Use the ``capacity`` and ``state`` spec the scheduler was built with.
+    """
+    sample = sample or greedy_sample
+    prompt = np.asarray(prompt)
+    growing = sorted(state.growing)
+    paged = PagedKVState(capacity, state)
+    outs = prefill(pad_rows(prompt[None, :], capacity))
+    logits, st = np.asarray(outs[0]), [np.asarray(o) for o in outs[1:]]
+    for k in growing:
+        paged.ensure_buffers(k, st[k])
+    paged.admit(0, {k: st[k][0] for k in growing}, int(prompt.shape[0]))
+    generated = [int(sample(logits[0]))]
+    tokens = np.zeros((capacity,), np.int32)
+    while (len(generated) < max_new_tokens
+           and not (eos is not None and generated[-1] == eos)):
+        tokens = np.array(tokens)
+        tokens[0] = generated[-1]
+        outs = paged_step(*[paged.backing(k) for k in growing],
+                          paged.table_array(), paged.lengths_array(), tokens)
+        logits = np.asarray(outs[0])
+        rows = [np.asarray(o) for o in outs[1:]]
+        paged.append_row(0, {k: rows[j][0] for j, k in enumerate(growing)})
+        generated.append(int(sample(logits[0])))
+    return np.array(generated, np.int32)
