@@ -21,8 +21,10 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    the card (capacity 8, page size 16, max_context 2048, a 1024-page pool):
    8 streams of 128-token prompts decoding 16..64 tokens.  Gates: the
    shortest and longest stream equal ``paged_decode_reference`` bitwise,
-   every step went through the kernel (the launch count covers it), the
-   page-visit accounting covers the table walk, the pool drains leak-free.
+   every step went through the kernel and every batched prefill through the
+   flash kernel (the launch counts cover them), the page-visit accounting
+   covers the table walk, the pool drains leak-free.  The batched prefill is
+   timed with the flash kernel and with its plain version in its place.
    The longest stream's solo reference run is profiled (device time by
    operation per step, and the device's idle share).  Then the kernel's time
    at the step shape against its bound, the plain version's time, and the
@@ -30,6 +32,30 @@ Phases (any failure exits non-zero; the result lines print only at the end):
 4. A small input checked by the repo's own means: the 4-stream
    ``decode_paged_kernel`` workload on the card gives the tokens of the same
    run on the CPU and the counters recorded in ``BENCH_serve.json``.
+5. The dense kernels (RMSNorm, flash attention, flash-decode) against their
+   plain versions on the card: the reference's kernel cases
+   (``tests/test_kernels.py``) plus every shape the dense, mixed and paged
+   paths and their float32 gates give the kernels, float32 at
+   2e-5 (RMSNorm 1e-5) and bfloat16 at 2e-2; decode with pos < 0 gives exact
+   zeros; row b of a batched flash launch is bitwise equal to a solo launch;
+   a causal ``sdpa`` op with T != S is refused on the card.
+6. The dense standard path at full size: ``launch.serve.greedy_generate`` on
+   SmolLM-360M (all 32 layers and widths, bf16 compute, tp=1, random weights
+   from a seeded generator): 8 prompts of 512 tokens, 32 new tokens each.
+   Gates: 32 flash + 65 RMSNorm launches per prefill and 32 decode + 65
+   RMSNorm launches per step; timed tokens equal greedy_generate's; on a
+   float32 copy of the config, prefill + one decode step equals the
+   teacher-forcing logits at 5e-3.  A profiler window splits the prefill's
+   and a decode step's device time by operation.
+7. The dense mixed path at full size: ``export_dense_forward`` (float32,
+   batch 2, seq 256, host check, tp=1): ``native`` is refused, ``tech-gfp``
+   on the card gives the model's logits (2e-3/2e-4), on the card and on a
+   CPU copy of the weights (the plain versions), and the RMSNorm and flash
+   kernels ran.
+8. The dense kernels' times at the path's shapes (and the flash kernel at
+   the attn LM's d=960 prefill) against their bounds,
+   their plain versions and the one PyTorch call that computes the same
+   function (timed for comparison only; the port never calls it).
 
 The last lines are a ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  The script needs the repo's
@@ -57,8 +83,32 @@ MAX_NEW = tuple(int(n) for n in np.linspace(16, 64, CAPACITY))
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
+H100_BF16_FLOPS = 989e12         # bf16 tensor cores, dense
 
-KERNEL_SOURCES = ("paged_decode_attention",)
+KERNEL_SOURCES = ("paged_decode_attention", "rmsnorm", "flash_attention",
+                  "decode_attention")
+
+# the dense path: SmolLM-360M at full size (src/repro_torch/configs/smollm_360m.py)
+DENSE_ARCH, DENSE_B, DENSE_PROMPT, DENSE_NEW = "smollm-360m", 8, 512, 32
+MIXED_B, MIXED_SEQ = 2, 256
+# the reference's kernel cases (tests/test_kernels.py) and this path's shapes
+ATTN_CASES = [  # (B, Hq, Hkv, T, S, d, causal)
+    (1, 2, 2, 128, 128, 32, True), (2, 4, 2, 128, 128, 64, True),
+    (1, 8, 2, 64, 64, 16, True), (2, 2, 1, 96, 96, 32, False),
+    (1, 2, 2, 256, 256, 128, True),
+    (DENSE_B, 15, 5, DENSE_PROMPT, DENSE_PROMPT, 64, True),   # SmolLM-360M prefill
+    (DENSE_B, 15, 5, DENSE_PROMPT + 1, DENSE_PROMPT + 1, 64, True),  # its teacher forcing
+    (MIXED_B, 15, 5, MIXED_SEQ, MIXED_SEQ, 64, True),         # the mixed path
+    (CAPACITY, 1, 1, PROMPT, PROMPT, D_MODEL, True),   # the attn LM's prefill
+]
+DECODE_CASES = [  # (B, Hq, Hkv, S, d, pos)
+    (1, 2, 2, 256, 32, 255), (2, 4, 1, 512, 64, 300), (1, 8, 2, 128, 16, 64),
+    (DENSE_B, 15, 5, DENSE_PROMPT + DENSE_NEW + 1, 64, DENSE_PROMPT + DENSE_NEW // 2),
+    (DENSE_B, 15, 5, DENSE_PROMPT + 4, 64, DENSE_PROMPT),     # the float32 copy's step
+]
+RMS_SHAPES = [(8, 64), (3, 5, 128), (256, 32),
+              (DENSE_B * DENSE_PROMPT, 960), (DENSE_B, 960),
+              (DENSE_B, DENSE_PROMPT + 1, 960), (MIXED_B, MIXED_SEQ, 960)]
 
 
 def log(msg: str) -> None:
@@ -178,9 +228,6 @@ def phase_kernel(torch) -> float:
 
 def phase_main(torch) -> dict:
     from repro_torch import mixed, obs
-    from repro_torch.kernels.decode_attention import (
-        paged_decode_attention_kernel as kernel,
-    )
     from repro_torch.models.programs import export_attn_decode_lm
     from repro_torch.serve import (
         DecodeScheduler,
@@ -213,12 +260,12 @@ def phase_main(torch) -> dict:
         log(f"# warm: {time.perf_counter() - t0:.2f} s")
         torch.cuda.reset_peak_memory_stats()
         streams = [sched.submit(p, n) for p, n in zip(prompts, MAX_NEW)]
-        kernel.launches = 0                        # counts of this run only
+        _reset_counts()                            # counts of this run only
         t0 = time.perf_counter()
         sched.start()
         outs = [s.result(timeout=900) for s in streams]
         wall = time.perf_counter() - t0
-        launches = kernel.launches
+        launches = _counts()
     rep = sched.report()
     peak = torch.cuda.max_memory_allocated()
 
@@ -241,7 +288,11 @@ def phase_main(torch) -> dict:
           f"longest stream differs from its solo paged reference:\n"
           f"{outs[longest]}\n{ref}")
     check(rep.kernel_steps == rep.steps > 0, (rep.kernel_steps, rep.steps))
-    check(launches >= rep.kernel_steps, (launches, rep.kernel_steps))
+    check(launches["paged_decode_attention"] >= rep.kernel_steps,
+          (launches, rep.kernel_steps))
+    # the prefill's sdpa op runs the flash kernel, once per batched prefill
+    check(launches["flash_attention"] == rep.prefills > 0, (launches, rep.prefills))
+    check(launches["rmsnorm"] == launches["decode_attention"] == 0, launches)
     walk = rep.kernel_steps * CAPACITY * spec.pages_per_stream
     check(rep.pages_visited + rep.pages_skipped == walk, rep.table())
     check(0 < rep.pages_visited, rep.table())
@@ -254,18 +305,62 @@ def phase_main(torch) -> dict:
         f"{rep.tokens / wall:.1f} tokens/s; {rep.steps} steps, step p50 "
         f"{step_p50:.3f} ms; crossings {rep.crossings}, tokens/crossing "
         f"{rep.tokens_per_crossing:.4f}; kernel launches {launches} "
-        f"(kernel_steps {rep.kernel_steps}); pages visited "
-        f"{rep.pages_visited} of {walk}; max_memory_allocated "
+        f"(kernel_steps {rep.kernel_steps}, prefills {rep.prefills}); pages "
+        f"visited {rep.pages_visited} of {walk}; max_memory_allocated "
         f"{peak / 2**20:.1f} MiB")
+    prefill_routes(torch, sched.prefill, np.stack(prompts))
     pools = [sched._paged.backing(k) for k in sorted(spec.growing)]
-    return {"launches": launches, "pools": pools,
+    return {"launches": launches["paged_decode_attention"], "pools": pools,
             "lengths": [PROMPT + n // 2 for n in MAX_NEW]}
 
 
-def profile_steps(torch, fn, steps: int):
+PREFILL_REPS = 10
+
+
+def prefill_routes(torch, prefill, prompts) -> None:
+    """The attn LM's batched prefill (8 x 128 tokens) on the host clock,
+    with its ``sdpa`` op on the flash kernel (as shipped) and with the
+    kernel's plain version in its place (plain PyTorch, the route the op
+    took before the kernel existed), interleaved; medians of
+    ``PREFILL_REPS`` calls each.  Launches made here are not the path's."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    def plain(q, k, v, *, causal=True, scale=None):
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+
+    saved, shipped = _counts(), ops.flash_attention
+    times = {"kernel": [], "plain": []}
+    logits = {}
+    try:
+        for i in range(2 + PREFILL_REPS):          # two warm-up rounds
+            for route, fn in (("kernel", shipped), ("plain", plain)):
+                ops.flash_attention = fn
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = prefill(prompts)
+                logits[route] = np.asarray(out[0])
+                torch.cuda.synchronize()
+                if i >= 2:
+                    times[route].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        ops.flash_attention = shipped
+        for fn, n in zip(_launch_counts().values(), saved.values()):
+            fn.launches = n
+    np.testing.assert_allclose(logits["kernel"], logits["plain"], rtol=2e-4, atol=2e-5)
+    med = {r: float(np.median(t)) for r, t in times.items()}
+    log(f"# attn-LM prefill ({prompts.shape[0]} x {prompts.shape[1]} tokens, "
+        f"sdpa q (8,1,128,960) f32): {med['kernel']:.3f} ms with the flash "
+        f"kernel, {med['plain']:.3f} ms with its plain version (medians of "
+        f"{PREFILL_REPS}, host clock; min {min(times['kernel']):.3f} / "
+        f"{min(times['plain']):.3f}); logits agree (2e-4/2e-5)")
+
+
+def profile_steps(torch, fn, steps: int,
+                  label: str = "solo steps + prefill at the serving shape"):
     """Run ``fn`` under the torch profiler and print where the device time
-    of its ``steps`` decode steps goes: device busy time by operation, per
-    step, and the device's idle share of the window's wall time."""
+    of its ``steps`` steps goes: device busy time by operation, per step,
+    and the device's idle share of the window's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -290,7 +385,7 @@ def profile_steps(torch, fn, steps: int):
     if not rows:
         log("# profile: the profiler recorded no device time (not measured)")
         return out
-    log(f"# profile of {steps} solo steps + prefill at the serving shape: "
+    log(f"# profile of {steps} {label}: "
         f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
         f"{1 - busy_ms / wall_ms:.3f}; per step, by device time:")
     for ms, count, name in rows[:8]:
@@ -298,22 +393,58 @@ def profile_steps(torch, fn, steps: int):
     return out
 
 
-def time_ms(torch, fn, reps: int, flush) -> float:
+def l2_flush_buffer(torch):
+    """1 GiB to zero before each timed call: it evicts the 50 MB L2."""
+    return torch.empty(2**30 // 4, dtype=torch.float32, device="cuda")
+
+
+TIME_CHUNK = 20                  # reps enqueued behind one spin kernel
+
+
+def time_ms(torch, fn, reps: int, flush, *, syncs: bool = False) -> float:
     """Mean device time of ``fn`` over ``reps`` calls, L2 flushed before
     each one (the serving step finds the cache cold: the pools were just
-    copied in), measured with CUDA events around each call."""
+    copied in), measured with CUDA events around each call.
+
+    The events must time the device's work, not the host's enqueue of it:
+    a call whose Python wrapper takes longer than the device's work would
+    otherwise be timed at the wrapper's speed.  So each chunk of reps is
+    enqueued behind a spin kernel (``torch.cuda._sleep``) that holds the
+    stream until the host has enqueued the whole chunk; if the spin ended
+    first, the chunk is discarded and run again behind a spin four times as
+    long.  Chunks stay short so the enqueue never blocks on a full launch
+    queue.  A function that waits for the device itself (``syncs``, such as
+    the paged plain version's host loop over the lengths) cannot be queued
+    behind a spin: its events then include the host's time between its
+    launches, which is what such a function costs."""
     for _ in range(3):
         fn()
-    total = 0.0
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
+    torch.cuda.synchronize()
+    cycles, total, done = 2 * 10**7, 0.0, 0
+    while done < reps:
+        n = min(TIME_CHUNK, reps - done)
+        if not syncs:
+            torch.cuda._sleep(cycles)
+        held = torch.cuda.Event()
+        held.record()
+        pairs = []
+        for _ in range(n):
+            flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        waited = not syncs and held.query()     # the spin ended before the enqueue
+        torch.cuda.synchronize()
+        if waited:
+            cycles *= 4
+            check(cycles < 2**35, "the host never got ahead of a spin kernel "
+                  "(does the timed function synchronise?)")
+            continue
+        total += sum(start.elapsed_time(end) for start, end in pairs)
+        done += n
     return total / reps
 
 
@@ -345,10 +476,10 @@ def phase_timing(torch, main: dict) -> dict:
     err = (got - want).abs().max().item()
     torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
 
-    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
+    flush = l2_flush_buffer(torch)
     before = kernel.launches
     kernel_ms = time_ms(torch, lambda: kernel(*args), 200, flush)
-    plain_ms = time_ms(torch, lambda: plain(*args), 20, flush)
+    plain_ms = time_ms(torch, lambda: plain(*args), 20, flush, syncs=True)
     kernel.launches = before            # timing launches are not the path's
 
     live_rows = int(lengths.sum())
@@ -433,6 +564,402 @@ def phase_small(torch) -> None:
         f"BENCH_serve.json decode_paged_kernel {got}")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the dense kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _randn(torch, shape, dtype, seed, dev):
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(x).to(dev, dtype)
+
+
+def phase_dense_kernels(torch) -> dict:
+    from repro_torch.core.opset import REGISTRY
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_kernel, decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_kernel, flash_attention_plain)
+    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+
+    dev = torch.device("cuda")
+    worst = {"flash_attention": 0.0, "decode_attention": 0.0, "rmsnorm": 0.0}
+    cases = 0
+
+    def compare(name, got, want, dtype, f32_tol):
+        nonlocal cases
+        torch.cuda.synchronize()
+        tol = 2e-2 if dtype == torch.bfloat16 else f32_tol
+        err = (got.float() - want.float()).abs().max().item() if got.numel() else 0.0
+        if dtype == torch.float32:
+            worst[name] = max(worst[name], err)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        cases += 1
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Hq, Hkv, T, S, d, causal in ATTN_CASES:
+            q = _randn(torch, (B, Hq, T, d), dtype, 0, dev)
+            k = _randn(torch, (B, Hkv, S, d), dtype, 1, dev)
+            v = _randn(torch, (B, Hkv, S, d), dtype, 2, dev)
+            got = flash_attention_kernel(q, k, v, causal=causal)
+            compare("flash_attention", got, flash_attention_plain(q, k, v, causal=causal),
+                    dtype, TOL)
+            for b in range(B):
+                solo = flash_attention_kernel(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                              causal=causal)
+                check(torch.equal(solo[0], got[b]),
+                      f"flash: batched row {b} != solo {(B, Hq, Hkv, T, S, d, dtype)}")
+            # the model's (B, T, H, d) projections, passed as transposed views
+            tv = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+            check(torch.equal(flash_attention_kernel(*tv, causal=causal), got),
+                  "flash: strided views differ from contiguous inputs")
+            check(torch.equal(flash_attention_kernel(q, k, tv[2], causal=causal), got),
+                  "flash: v with other strides than k differs")
+        for qd, kd in ((dtype, dtype), (torch.bfloat16, torch.float32)):
+            for B, Hq, Hkv, S, d, pos in DECODE_CASES:
+                q = _randn(torch, (B, Hq, 1, d), qd, 3, dev)
+                ck = _randn(torch, (B, S, Hkv, d), kd, 4, dev)   # the model's layout
+                cv = _randn(torch, (B, S, Hkv, d), kd, 5, dev)
+                for p in (pos, -1):
+                    pt = torch.tensor([p], dtype=torch.int32, device=dev)
+                    args = (q, ck.transpose(1, 2), cv.transpose(1, 2), pt)
+                    got = decode_attention_kernel(*args)
+                    compare("decode_attention", got, decode_attention_plain(*args),
+                            torch.bfloat16 if torch.bfloat16 in (qd, kd) else qd, TOL)
+                    if p < 0:
+                        check(torch.all(got == 0.0), "decode: pos < 0 not exact zeros")
+        for shape in RMS_SHAPES:
+            x = _randn(torch, shape, dtype, 6, dev)
+            w = _randn(torch, shape[-1:], torch.float32, 7, dev)
+            compare("rmsnorm", rmsnorm_kernel(x, w), rmsnorm_plain(x, w), dtype, 1e-5)
+
+    sdpa = REGISTRY["sdpa"].torch_fn
+    q = _randn(torch, (1, 2, 4, 16), torch.float32, 8, dev)
+    k = _randn(torch, (1, 2, 6, 16), torch.float32, 9, dev)
+    try:
+        sdpa({"causal": True}, q, k, k)
+    except ValueError as exc:
+        check("T=4 != S=6" in str(exc), f"unexpected refusal: {exc}")
+    else:
+        check(False, "a causal sdpa with T != S ran on the card")
+    sdpa({"causal": False}, q, k, k)               # non-causal T != S is fine
+    torch.cuda.synchronize()
+    log(f"# dense kernels vs plain: {cases} cases, max |err| in float32 "
+        f"{worst}; pos<0 exact zeros, flash batched==solo bitwise, strided "
+        f"views, causal sdpa T!=S refused: ok")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the dense standard path at full size
+# ---------------------------------------------------------------------------
+
+def _launch_counts():
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_kernel, paged_decode_attention_kernel)
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.rmsnorm import rmsnorm_kernel
+    return {"rmsnorm": rmsnorm_kernel, "flash_attention": flash_attention_kernel,
+            "decode_attention": decode_attention_kernel,
+            "paged_decode_attention": paged_decode_attention_kernel}
+
+
+def _reset_counts():
+    for fn in _launch_counts().values():
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    return {name: fn.launches for name, fn in _launch_counts().items()}
+
+
+def phase_dense_standard(torch) -> dict:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import api
+
+    dev = torch.device("cuda")
+    cfg = get_config(DENSE_ARCH)
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    params = api.init(cfg, torch.Generator(device=dev).manual_seed(SEED), tp=1, device=dev)
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in _tensors(params))
+    log(f"# dense path: {cfg.name} ({L} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}q/{cfg.n_kv_heads}kv heads, vocab {cfg.vocab}, "
+        f"{cfg.compute_dtype} compute), {nparams / 1e6:.1f} M params "
+        f"({nparams * 4 / 1e9:.2f} GB f32), init {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED + 3)
+    prompt = rng.integers(0, cfg.vocab, (DENSE_B, DENSE_PROMPT), dtype=np.int32)
+    greedy_generate(cfg, params, prompt[:, :16], steps=2, tp=1)     # warm-up
+    torch.cuda.synchronize()
+
+    # the main path, counted: greedy_generate as a user calls it
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    tokens = greedy_generate(cfg, params, prompt, steps=DENSE_NEW, tp=1)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(tokens.shape == (DENSE_B, DENSE_NEW + 1) and tokens.dtype == np.int32,
+          (tokens.shape, tokens.dtype))
+    check(np.all((0 <= tokens) & (tokens < cfg.vocab)), "token out of range")
+    want = {"rmsnorm": (2 * L + 1) * (DENSE_NEW + 1), "flash_attention": L,
+            "decode_attention": L * DENSE_NEW, "paged_decode_attention": 0}
+    check(launches == want, f"launches {launches} != {want}")
+
+    # the same steps timed one by one, with their launch counts
+    cache = api.init_cache(cfg, DENSE_B, DENSE_PROMPT + DENSE_NEW + 1, tp=1, device=dev)
+    prefill, decode = make_prefill_step(cfg, tp=1), make_decode_step(cfg, tp=1)
+    before = _counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": torch.as_tensor(prompt, device=dev)}, cache)
+    tok = torch.argmax(logits[..., :cfg.vocab], dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    delta = {k: v - before[k] for k, v in _counts().items()}
+    check(delta == {"rmsnorm": 2 * L + 1, "flash_attention": L, "decode_attention": 0,
+                    "paged_decode_attention": 0}, f"prefill launches {delta}")
+    step_ms, out = [], [tok]
+    for _ in range(DENSE_NEW):
+        before = _counts()
+        t0 = time.perf_counter()
+        logits, cache = decode(params, cache, {"token": tok})
+        tok = torch.argmax(logits[..., :cfg.vocab], dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        delta = {k: v - before[k] for k, v in _counts().items()}
+        check(delta == {"rmsnorm": 2 * L + 1, "flash_attention": 0, "decode_attention": L,
+                        "paged_decode_attention": 0}, f"decode-step launches {delta}")
+        out.append(tok)
+    timed = torch.cat(out, dim=1).cpu().numpy()
+    check(np.array_equal(timed, tokens), "timed steps' tokens != greedy_generate's")
+    p50 = float(np.median(step_ms))
+    log(f"# dense standard path: {DENSE_B} x {DENSE_PROMPT}-token prompts, "
+        f"{DENSE_NEW} new tokens each: greedy_generate {wall * 1e3:.1f} ms = "
+        f"{DENSE_B * (DENSE_NEW + 1) / wall:.1f} tokens/s; prefill {prefill_ms:.2f} ms, "
+        f"decode step p50 {p50:.3f} ms (min {min(step_ms):.3f}, max "
+        f"{max(step_ms):.3f}) = {DENSE_B / p50 * 1e3:.1f} tokens/s in decode; "
+        f"launches {launches}; max_memory_allocated {peak / 2**20:.1f} MiB; "
+        f"KV cache {cache['k'].numel() * 8 / 1e6:.1f} MB f32")
+
+    # where the time goes: one prefill, then 8 decode steps
+    cache = api.init_cache(cfg, DENSE_B, DENSE_PROMPT + DENSE_NEW + 1, tp=1, device=dev)
+    toks = torch.as_tensor(prompt, device=dev)
+    profile_steps(torch, lambda: prefill(params, {"tokens": toks}, cache), 1,
+                  "dense prefill (8 x 512 tokens, 32 layers)")
+    n = min(8, DENSE_NEW)
+    profile_steps(torch, lambda: [decode(params, cache, {"token": tok}) for _ in range(n)],
+                  n, f"dense decode steps (batch {DENSE_B}, cache {DENSE_PROMPT}.."
+                  f"{DENSE_PROMPT + n})")
+
+    # the reference's serving contract at full size: prefill + one decode
+    # step equal the teacher-forcing logits (tests/test_models.py, 5e-3)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    full = api.logits(cfg32, params, {"tokens": timed_prompt(prompt, timed)}, tp=1)[:, -1]
+    cache = api.init_cache(cfg32, DENSE_B, DENSE_PROMPT + 4, tp=1, device=dev)
+    _, cache = api.prefill(cfg32, params, {"tokens": prompt}, cache, tp=1)
+    got, _ = api.decode(cfg32, params, cache, {"token": timed[:, :1]}, tp=1)
+    err = (got[:, 0] - full).abs().max().item()
+    torch.testing.assert_close(got[:, 0], full, rtol=5e-3, atol=5e-3)
+    log(f"# dense float32 copy: prefill + decode == teacher forcing, max |err| "
+        f"{err:.3e} (tol 5e-3)")
+    return {"launches": launches, "params": params, "cfg": cfg}
+
+
+def timed_prompt(prompt, tokens):
+    """The prompt followed by the first generated token: (B, T + 1)."""
+    return np.concatenate([prompt, tokens[:, :1]], axis=1)
+
+
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _tensors(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tensors(v)
+        else:
+            yield v
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the dense mixed path at full size
+# ---------------------------------------------------------------------------
+
+def phase_dense_mixed(torch, dense: dict) -> None:
+    import dataclasses
+
+    from repro_torch import mixed
+    from repro_torch.core import NativeInfeasibleError
+    from repro_torch.models import api
+    from repro_torch.models.programs import export_dense_forward
+
+    cfg32 = dataclasses.replace(dense["cfg"], compute_dtype="float32")
+    params = dense["params"]
+    t0 = time.perf_counter()
+    prog, (tokens,) = export_dense_forward(cfg32, params, batch=MIXED_B, seq=MIXED_SEQ,
+                                           with_host_check=True, tp=1)
+    traced = mixed.trace(prog)
+    try:
+        traced.plan("native")
+    except NativeInfeasibleError:
+        pass
+    else:
+        check(False, "native planned despite the host check")
+    hybrid = traced.plan("tech-gfp").compile()
+    log(f"# dense mixed path: export + trace + plan {time.perf_counter() - t0:.2f} s "
+        f"({len(prog.functions)} functions, {len(prog.constants)} constants)")
+    _reset_counts()
+    t0 = time.perf_counter()
+    (logits, mx), rep = hybrid.call_reported(tokens)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = _counts()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        hybrid(tokens)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    want = api.logits(cfg32, params, {"tokens": tokens}, tp=1).cpu().numpy()
+    err = float(np.abs(logits - want).max())
+    np.testing.assert_allclose(logits, want, rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(mx, want.max(axis=2), rtol=2e-3, atol=2e-4)
+    # the same model on a CPU copy of the weights runs the kernels' plain
+    # versions: a check of the card's result that no kernel takes part in
+    t0 = time.perf_counter()
+    on_cpu = api.logits(cfg32, _tree_map(lambda t: t.cpu(), params),
+                        {"tokens": tokens}, tp=1).numpy()
+    cpu_s = time.perf_counter() - t0
+    err_cpu = float(np.abs(logits - on_cpu).max())
+    np.testing.assert_allclose(logits, on_cpu, rtol=2e-3, atol=2e-4)
+    L = cfg32.n_layers
+    check(launches == {"rmsnorm": 2 * L + 1, "flash_attention": L, "decode_attention": 0,
+                       "paged_decode_attention": 0}, f"mixed path launches {launches}")
+    cov = hybrid.plan_for(tokens).coverage
+    log(f"# dense mixed path (tech-gfp, batch {MIXED_B} x {MIXED_SEQ}): logits == "
+        f"api.logits, max |err| {err:.3e} (2e-3/2e-4); crossings guest->host "
+        f"{rep.guest_to_host}, host->guest {rep.host_to_guest}, conversion builds "
+        f"{rep.conversion_builds}, compiles {rep.compiles}; coverage "
+        f"{cov.as_dict()}; launches {launches}; first call {first_ms:.1f} ms, "
+        f"then {', '.join(f'{w:.1f}' for w in walls)} ms per call")
+    log(f"# dense mixed path == api.logits on a CPU copy of the weights (plain "
+        f"versions, {cpu_s:.1f} s): max |err| {err_cpu:.3e} (2e-3/2e-4)")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the dense kernels' times
+# ---------------------------------------------------------------------------
+
+def _bound(nbytes, flops, peak):
+    by_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    by_ops = flops / peak * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def phase_dense_timing(torch, dense: dict) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_kernel, decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_kernel, flash_attention_plain)
+    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    flush = l2_flush_buffer(torch)
+    saved = _counts()
+    out = {}
+
+    # flash: the prefill's attention, (8,15,512,64) against (8,5,512,64), bf16
+    B, Hq, Hkv, T, d = DENSE_B, 15, 5, DENSE_PROMPT, 64
+    q = _randn(torch, (B, Hq, T, d), bf16, 10, dev)
+    k = _randn(torch, (B, Hkv, T, d), bf16, 11, dev)
+    v = _randn(torch, (B, Hkv, T, d), bf16, 12, dev)
+    err = (flash_attention_kernel(q, k, v) - flash_attention_plain(q, k, v)).abs().max().item()
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * B * Hq * d * (T * (T + 1) // 2)
+    bound, by = _bound(nbytes, flops, H100_BF16_FLOPS)
+    out["flash_attention"] = dict(
+        ms=time_ms(torch, lambda: flash_attention_kernel(q, k, v), 50, flush),
+        plain_ms=time_ms(torch, lambda: flash_attention_plain(q, k, v), 20, flush),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 50, flush),
+        bound_ms=bound, bound_by=by, max_abs_err=err,
+        shape=f"q {tuple(q.shape)} k,v {tuple(k.shape)} bf16 causal",
+        work=f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP")
+
+    # flash at the attn LM's prefill (configuration 1): one head of d = 960,
+    # float32, q, k, v (8,1,128,960); the kernel's d = 960 tile
+    qa, ka, va = (_randn(torch, (CAPACITY, 1, PROMPT, D_MODEL), f32, s, dev)
+                  for s in (18, 19, 20))
+    err = (flash_attention_kernel(qa, ka, va) - flash_attention_plain(qa, ka, va)).abs().max().item()
+    nbytes = 4 * 4 * qa.numel()
+    flops = 4 * CAPACITY * D_MODEL * (PROMPT * (PROMPT + 1) // 2)
+    bound, by = _bound(nbytes, flops, H100_FP32_FLOPS)
+    out["flash_attention@attn-lm"] = dict(
+        ms=time_ms(torch, lambda: flash_attention_kernel(qa, ka, va), 50, flush),
+        plain_ms=time_ms(torch, lambda: flash_attention_plain(qa, ka, va), 20, flush),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qa, ka, va, is_causal=True), 50, flush),
+        bound_ms=bound, bound_by=by, max_abs_err=err,
+        shape=f"q,k,v {tuple(qa.shape)} f32 causal",
+        work=f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP")
+
+    # decode: one step's attention, q (8,15,1,64) bf16 against the model's
+    # (8,545,5,64) float32 cache, at the middle step of the 32 (pos 528)
+    S, pos = DENSE_PROMPT + DENSE_NEW + 1, DENSE_PROMPT + DENSE_NEW // 2
+    q1 = _randn(torch, (B, Hq, 1, d), bf16, 13, dev)
+    ck = _randn(torch, (B, S, Hkv, d), f32, 14, dev)
+    cv = _randn(torch, (B, S, Hkv, d), f32, 15, dev)
+    kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+    pt = torch.tensor([pos], dtype=torch.int32, device=dev)
+    err = (decode_attention_kernel(q1, kt, vt, pt).float()
+           - decode_attention_plain(q1, kt, vt, pt).float()).abs().max().item()
+    visible = pos + 1
+    nbytes = 2 * 2 * q1.numel() + 2 * B * Hkv * visible * d * 4 + 4
+    flops = 4 * B * Hq * visible * d
+    bound, by = _bound(nbytes, flops, H100_FP32_FLOPS)
+    mask = (torch.arange(S, device=dev) <= pos)[None, None, None, :]
+    q1f = q1.to(f32)
+    out["decode_attention"] = dict(
+        ms=time_ms(torch, lambda: decode_attention_kernel(q1, kt, vt, pt), 200, flush),
+        plain_ms=time_ms(torch, lambda: decode_attention_plain(q1, kt, vt, pt), 50, flush),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q1f, kt, vt, attn_mask=mask, enable_gqa=True), 200, flush),
+        bound_ms=bound, bound_by=by, max_abs_err=err,
+        shape=f"q {tuple(q1.shape)} bf16, cache {tuple(ck.shape)} f32, pos {pos}",
+        work=f"{nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP")
+
+    # rmsnorm: the prefill's rows (4096, 960) bf16; the decode step's (8, 960)
+    for rows, key in ((B * DENSE_PROMPT, "rmsnorm"), (B, "rmsnorm@decode")):
+        x = _randn(torch, (rows, 960), bf16, 16, dev)
+        w = _randn(torch, (960,), f32, 17, dev)
+        wb = w.to(bf16)
+        err = (rmsnorm_kernel(x, w).float() - rmsnorm_plain(x, w).float()).abs().max().item()
+        nbytes = 2 * 2 * x.numel() + 4 * w.numel()
+        bound, by = _bound(nbytes, 4 * x.numel(), H100_FP32_FLOPS)
+        out[key] = dict(
+            ms=time_ms(torch, lambda: rmsnorm_kernel(x, w), 200, flush),
+            plain_ms=time_ms(torch, lambda: rmsnorm_plain(x, w), 50, flush),
+            library_ms=time_ms(torch, lambda: F.rms_norm(x, (960,), wb, 1e-6), 200, flush),
+            bound_ms=bound, bound_by=by, max_abs_err=err,
+            shape=f"x ({rows}, 960) bf16, w f32", work=f"{nbytes / 1e6:.3f} MB")
+
+    for fn, n in zip(_launch_counts().values(), saved.values()):
+        fn.launches = n                     # timing launches are not the path's
+    for name, r in out.items():
+        log(f"# {name} at {r['shape']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}: {r['work']}), plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, |err| {r['max_abs_err']:.3e}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -451,9 +978,13 @@ def main() -> int:
     t_all = time.perf_counter()
     phase_build(torch)
     err = phase_kernel(torch)
+    dense_err = phase_dense_kernels(torch)
     main_run = phase_main(torch)
     timing = phase_timing(torch, main_run)
     phase_small(torch)
+    dense = phase_dense_standard(torch)
+    phase_dense_mixed(torch, dense)
+    dense_timing = phase_dense_timing(torch, dense)
     log(f"# all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     kernels = [{
@@ -470,6 +1001,24 @@ def main() -> int:
         "library_ms": None,
         "ok": True,
     }]
+    for name, replaces in (("decode_attention", "src/repro/kernels/decode_attention.py:34"),
+                           ("flash_attention", "src/repro/kernels/flash_attention.py:25"),
+                           ("rmsnorm", "src/repro/kernels/rmsnorm.py:11")):
+        t = dense_timing[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": dense["launches"][name],
+            "max_abs_err": max(dense_err[name], t["max_abs_err"]),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "ok": True,
+        })
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops
+
 
 @dataclasses.dataclass(frozen=True)
 class AVal:
@@ -470,6 +472,11 @@ def _np_rmsnorm(params, x, w):
 
 def _torch_rmsnorm(params, x, w):
     eps = params.get("eps", 1e-6)
+    if x.device.type == "cuda":
+        # The RMSNorm kernel casts x to float32 before the multiply; this op
+        # multiplies the uncast x.  Inside a unit x is float32 (the canonical
+        # 32-bit dtypes), where the two are the same formula.
+        return (ops.rmsnorm(x.contiguous(), w, eps=eps),)
     var = torch.mean(torch.square(x.to(torch.float32)), dim=-1, keepdim=True)
     return ((x * torch.rsqrt(var + eps) * w).to(x.dtype),)
 
@@ -590,10 +597,19 @@ def _np_sdpa(params, q, k, v):
 
 
 def _torch_sdpa(params, q, k, v):
-    # plain torch, as the reference's host body is plain array code (no kernel)
     causal = params.get("causal", True)
     B, Hq, T, D = q.shape
     Hk = k.shape[1]
+    if q.device.type == "cuda":
+        # The flash kernel masks kpos <= qpos (top-left); this op masks
+        # tril(k=S-T) (bottom-right).  They agree only when T == S or when
+        # not causal, so anything else is refused rather than run plain.
+        if causal and T != k.shape[2]:
+            raise ValueError(
+                f"causal sdpa with T={T} != S={k.shape[2]} has no kernel on the "
+                f"card: the flash kernel's causal mask is top-left aligned")
+        return (ops.flash_attention(*(_last_axis_dense(t) for t in (q, k, v)),
+                                    causal=causal, scale=params.get("scale")),)
     if Hq != Hk:
         k = torch.repeat_interleave(k, Hq // Hk, dim=1)
         v = torch.repeat_interleave(v, Hq // Hk, dim=1)
@@ -605,6 +621,10 @@ def _torch_sdpa(params, q, k, v):
         s = torch.where(mask, s, torch.tensor(-1e30, dtype=torch.float32, device=q.device))
     p = torch.softmax(s, dim=-1)
     return (torch.matmul(p, v.to(torch.float32)).to(q.dtype),)
+
+
+def _last_axis_dense(t):
+    return t if t.shape[-1] <= 1 or t.stride(-1) == 1 else t.contiguous()
 
 
 register(

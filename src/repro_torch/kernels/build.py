@@ -2,8 +2,9 @@
 
 Each source compiles, at first use, into a shared library with a plain C
 interface under ``src/repro_torch/_build/`` (listed in ``.gitignore``) and is
-loaded with :mod:`ctypes`.  The library name carries a hash of its source
-and flags, so an edited kernel is rebuilt and a stale one is never loaded.
+loaded with :mod:`ctypes`.  The library name carries a hash of its source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited kernel is
+rebuilt and a stale one is never loaded.
 :func:`build` starts one ``nvcc`` per missing source, all at once, and waits
 for them; the compiler's register/shared-memory report (``-Xptxas -v``) is
 kept beside each library in a ``.log`` file.
@@ -51,10 +52,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by its source and flags."""
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    """Where ``csrc/<name>.cu`` builds to, keyed by its source, the shared
+    headers and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

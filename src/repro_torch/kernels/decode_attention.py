@@ -1,4 +1,15 @@
-"""Block-sparse paged decode attention: the CUDA kernel and its plain version.
+"""Decode attention: the CUDA kernels and their plain versions.
+
+Dense flash-decode.  ``decode_attention_kernel`` launches
+``csrc/decode_attention.cu`` (hand-written for Hopper, ``sm_90a``), which
+replaces the TPU kernel ``repro.kernels.decode_attention.decode_attention_kernel``:
+one query row per (b, q head), q ``(B,Hq,1,d)``, against a cache k, v
+``(B,Hkv,S,d)`` read through its strides; query head h reads kv head
+``h // (Hq // Hkv)``; cache position kpos is visible iff ``kpos <= pos`` for
+a scalar ``pos``; a row with nothing visible gives exact zeros.
+``decode_attention_plain`` is the same function in plain PyTorch.
+
+Block-sparse paged decode attention.
 
 ``paged_decode_attention_kernel`` launches ``csrc/paged_decode_attention.cu``
 (hand-written for Hopper, ``sm_90a``), which replaces the TPU kernel
@@ -24,8 +35,103 @@ import math
 import torch
 
 from . import build
+from .common import (
+    DTYPE_CODES,
+    check_strided,
+    check_tensor as _check,
+    ptr,
+    raise_on_error,
+    require_cuda,
+    stream,
+    strides,
+)
 
 _SOURCE = "paged_decode_attention"
+_DENSE_SOURCE = "decode_attention"
+NEG_INF = -1e30
+
+
+def decode_attention_plain(q, k, v, pos):
+    """Plain PyTorch dense decode attention (any device, float32 math).
+
+    q: (B, Hq, 1, d); k, v: (B, Hkv, S, d); pos: the last visible cache
+    position, an int or a one-element integer tensor on q's device.
+    """
+    B, Hq, _, d = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    f32 = torch.float32
+    group = Hq // Hkv
+    kf, vf = k.to(f32), v.to(f32)
+    if group != 1:
+        kf = torch.repeat_interleave(kf, group, dim=1)
+        vf = torch.repeat_interleave(vf, group, dim=1)
+    if isinstance(pos, torch.Tensor):
+        pos = pos.reshape(())
+    valid = torch.arange(S, device=q.device) <= pos                  # (S,)
+    s = torch.matmul(q.to(f32), kf.transpose(-1, -2)) / math.sqrt(d)
+    s = s.masked_fill(~valid, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).masked_fill(~valid, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    empty = l <= 0.0
+    out = torch.matmul(p, vf) / torch.where(empty, torch.ones_like(l), l)
+    return out.masked_fill(empty, 0.0).to(q.dtype)
+
+
+def _dense_library() -> ctypes.CDLL:
+    lib = build.load(_DENSE_SOURCE)
+    fn = lib.decode_attention_fwd
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
+                       ll, ll, ll, ll, ll, ll, ll, ll, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def decode_attention_kernel(q, k, v, pos):
+    """Launch the CUDA dense decode attention on ``q``'s device.
+
+    q: (B, Hq, 1, d), float32 or bfloat16; k, v: (B, Hkv, S, d) with Hq a
+    multiple of Hkv, float32 or bfloat16 (one dtype for both, which may
+    differ from q's); every tensor with a contiguous last axis (other
+    strides are free: the model's (B, S, Hkv, d) cache is passed as a
+    transposed view); pos: a one-element int32 tensor on the same CUDA
+    device (read there by the kernel, no host sync).
+    Returns a contiguous (B, Hq, 1, d) tensor in q's dtype.  Launches on the
+    current stream and does not synchronise.
+    ``decode_attention_kernel.launches`` counts launches.
+    """
+    device = require_cuda(q, "decode attention")
+    dtypes = tuple(DTYPE_CODES)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_strided(name, t, dtypes, 4, device)
+    if k.dtype != v.dtype:
+        raise TypeError(f"k and v must share a dtype, got {k.dtype} and {v.dtype}")
+    B, Hq, one, d = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    if one != 1:
+        raise ValueError(f"q must be (B, Hq, 1, d), got {tuple(q.shape)}")
+    if k.shape[0] != B or k.shape[3] != d or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"k, v must be (B, Hkv, S, d) = (B={B}, Hkv, S, d={d}), got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
+    if not (isinstance(pos, torch.Tensor) and pos.device == device
+            and pos.dtype == torch.int32 and pos.numel() == 1):
+        raise ValueError(f"pos must be a one-element int32 tensor on {device}, got {pos!r}")
+    out = torch.empty((B, Hq, 1, d), dtype=q.dtype, device=device)
+    qs, ks, vs = strides(q), strides(k), strides(v)
+    with torch.cuda.device(device):
+        err = _dense_library().decode_attention_fwd(
+            ptr(q), ptr(k), ptr(v), ptr(pos), ptr(out),
+            DTYPE_CODES[q.dtype], DTYPE_CODES[k.dtype], B, Hq, Hkv, S, d,
+            *qs[:2], *ks[:3], *vs[:3], ctypes.c_float(1.0 / math.sqrt(d)), stream(device))
+    raise_on_error(err, "decode_attention")
+    decode_attention_kernel.launches += 1
+    return out
+
+
+decode_attention_kernel.launches = 0
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, tables, lengths,
@@ -57,23 +163,10 @@ def paged_decode_attention_plain(q, k_pages, v_pages, tables, lengths,
     return out.to(q.dtype)
 
 
-def _check(name, t, dtype, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, the kernel runs on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _library() -> ctypes.CDLL:
     lib = build.load(_SOURCE)
     fn = lib.paged_decode_attention_f32
-    if fn.restype is not ctypes.c_int:
+    if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int

@@ -1,0 +1,114 @@
+"""Flash attention (forward): the CUDA kernel and its plain version.
+
+``flash_attention_kernel`` launches ``csrc/flash_attention.cu`` (hand-written
+for Hopper, ``sm_90a``), which replaces the TPU kernel
+``repro.kernels.flash_attention.flash_attention_kernel``: q ``(B,Hq,T,d)``
+against k, v ``(B,Hkv,S,d)``, query head h reading kv head
+``h // (Hq // Hkv)``, causal mask ``kpos <= qpos`` (top-left aligned, as the
+TPU kernel; it equals the bottom-right ``tril(k=S-T)`` of the oracles only
+when ``T == S``), float32 online softmax, output in q's dtype.  One block per
+(b, q head, query tile) with the key walk in fixed order, so row b of a
+batched launch is bitwise equal to a solo launch of row b.
+
+``flash_attention_plain`` is the same function in plain PyTorch: it serves
+CPU tensors (the tests) and is the yardstick the kernel is checked against
+on the card.  :func:`repro_torch.kernels.ops.flash_attention` picks by device.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import build
+from .common import (
+    DTYPE_CODES,
+    check_strided,
+    ptr,
+    raise_on_error,
+    require_cuda,
+    stream,
+    strides,
+)
+
+_SOURCE = "flash_attention"
+NEG_INF = -1e30
+
+
+def _repeat_kv(t, group: int):
+    return t if group == 1 else torch.repeat_interleave(t, group, dim=1)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float | None = None):
+    """Plain PyTorch flash attention (any device, float32 math)."""
+    B, Hq, T, d = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    f32 = torch.float32
+    kf = _repeat_kv(k.to(f32), Hq // Hkv)
+    vf = _repeat_kv(v.to(f32), Hq // Hkv)
+    s = torch.matmul(q.to(f32), kf.transpose(-1, -2)) * scale
+    if causal:
+        kpos = torch.arange(S, device=q.device)
+        qpos = torch.arange(T, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    if causal:
+        p = p.masked_fill(~mask, 0.0)
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return (torch.matmul(p, vf) / denom).to(q.dtype)
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load(_SOURCE)
+    fn = lib.flash_attention_fwd
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
+                       ll, ll, ll, ll, ll, ll, ll, ll, ll, i, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_kernel(q, k, v, *, causal: bool = True, scale: float | None = None):
+    """Launch the CUDA flash attention on ``q``'s device.
+
+    q: (B, Hq, T, d); k, v: (B, Hkv, S, d) with Hq a multiple of Hkv; all
+    of one dtype (float32 or bfloat16), on one CUDA device, each with a
+    contiguous last axis (other strides are free, so transposed views need
+    no copy).  Returns a contiguous
+    (B, Hq, T, d) tensor in q's dtype.  Launches on the current stream and
+    does not synchronise.  ``flash_attention_kernel.launches`` counts
+    launches.
+    """
+    device = require_cuda(q, "flash attention")
+    dtypes = tuple(DTYPE_CODES)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_strided(name, t, dtypes, 4, device)
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k, v must share a dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    B, Hq, T, d = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != d or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"k, v must be (B, Hkv, S, d) = (B={B}, Hkv, S, d={d}), got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
+    if B * Hq >= 2**31:
+        raise ValueError(f"B*Hq = {B * Hq} exceeds the kernel's grid")
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    out = torch.empty((B, Hq, T, d), dtype=q.dtype, device=device)
+    qs, ks, vs = strides(q), strides(k), strides(v)
+    with torch.cuda.device(device):
+        err = _library().flash_attention_fwd(
+            ptr(q), ptr(k), ptr(v), ptr(out), DTYPE_CODES[q.dtype],
+            B, Hq, Hkv, T, S, d, *qs[:3], *ks[:3], *vs[:3],
+            int(causal), ctypes.c_float(scale), stream(device))
+    raise_on_error(err, "flash_attention")
+    flash_attention_kernel.launches += 1
+    return out
+
+
+flash_attention_kernel.launches = 0

@@ -7,9 +7,13 @@ fallback from one to the other and no switch to force either.
 from __future__ import annotations
 
 from .decode_attention import (
+    decode_attention_kernel,
+    decode_attention_plain,
     paged_decode_attention_kernel,
     paged_decode_attention_plain,
 )
+from .flash_attention import flash_attention_kernel, flash_attention_plain
+from .rmsnorm import rmsnorm_kernel, rmsnorm_plain
 
 
 def paged_decode_attention(q, k_pages, v_pages, tables, lengths,
@@ -20,3 +24,26 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths,
                                             lengths, kn, vn)
     return paged_decode_attention_kernel(q, k_pages, v_pages, tables, lengths,
                                          kn, vn)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
+    """Tiled online-softmax attention, q (B,Hq,T,d) against k, v (B,Hkv,S,d),
+    causal mask ``kpos <= qpos`` (see :mod:`.flash_attention`)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    return flash_attention_kernel(q, k, v, causal=causal, scale=scale)
+
+
+def decode_attention(q, k, v, pos):
+    """One query row per (b, q head) against a cache, positions ``<= pos``
+    visible (see :mod:`.decode_attention`)."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, pos)
+    return decode_attention_kernel(q, k, v, pos)
+
+
+def rmsnorm(x, w, *, eps: float = 1e-6):
+    """Rowwise RMSNorm over the last axis (see :mod:`.rmsnorm`)."""
+    if x.device.type == "cpu":
+        return rmsnorm_plain(x, w, eps)
+    return rmsnorm_kernel(x, w, eps)

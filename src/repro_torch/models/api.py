@@ -1,0 +1,143 @@
+"""Unified model API of the port: family dispatch + step functions.
+
+The reference's surface (``models/api.py`` there) for the families the port
+has; today that is ``dense`` alone (SmolLM, Llama 3.2, Qwen2).  The others
+raise :class:`NotImplementedError` until they are ported (ROADMAP Queue 1
+item 9).
+
+* ``init(cfg, gen, tp, device=)``              — parameter dict
+* ``logits(cfg, params, batch, tp)``           — teacher-forcing forward
+* ``init_cache(cfg, batch, max_len, tp)``      — serving cache dict
+* ``prefill(cfg, params, batch, cache, tp)``   — prompt ingestion
+* ``decode(cfg, params, cache, batch, tp)``    — one-token serve step
+* ``make_batch(cfg, shape, seed)``             — random numpy inputs
+* ``load_reference_params(cfg, tree, tp=, device=)`` — carry the reference
+  package's weights across
+
+Entry points run on CUDA unless the caller asks for the CPU
+(``device="cpu"``); without a card they raise.  Batches may hold numpy
+arrays or tensors; they are placed on the parameters' device.  Caches are
+updated in place (see :mod:`.dense`).
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig, ShapeConfig
+from ..core.api import resolve_device
+from . import dense
+from . import layers as L
+
+_FAMILIES = {"dense": dense}
+
+
+def family_module(cfg: ModelConfig):
+    try:
+        return _FAMILIES[cfg.family]
+    except KeyError:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the port has "
+            f"{sorted(_FAMILIES)} (ROADMAP Queue 1 item 9)") from None
+
+
+def _param_device(params) -> torch.device:
+    return params["embed"]["table"].device
+
+
+def _tokens(params, x) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
+                           device=_param_device(params))
+
+
+def init(cfg: ModelConfig, gen: torch.Generator, tp: int = L.DEFAULT_TP, *, device=None):
+    """Random parameters drawn from ``gen`` (on its own device), placed on
+    ``device`` (``None``: the CUDA card)."""
+    return family_module(cfg).init(cfg, gen, tp=tp, device=resolve_device(device))
+
+
+def logits(cfg: ModelConfig, params, batch: dict, tp: int = L.DEFAULT_TP):
+    mod = family_module(cfg)
+    return mod.logits_fn(cfg, params, _tokens(params, batch["tokens"]), tp=tp)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, tp: int = L.DEFAULT_TP,
+               dtype=torch.float32, *, device=None):
+    return family_module(cfg).init_cache(cfg, batch, max_len, tp=tp, dtype=dtype,
+                                         device=resolve_device(device))
+
+
+def prefill(cfg: ModelConfig, params, batch: dict, cache, tp: int = L.DEFAULT_TP):
+    mod = family_module(cfg)
+    return mod.prefill(cfg, params, _tokens(params, batch["tokens"]), cache, tp=tp)
+
+
+def decode(cfg: ModelConfig, params, cache, batch: dict, tp: int = L.DEFAULT_TP):
+    mod = family_module(cfg)
+    return mod.decode_step(cfg, params, cache, _tokens(params, batch["token"]), tp=tp)
+
+
+def input_shapes(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, tuple]:
+    """(shape, dtype) of every model input of a shape cell."""
+    family_module(cfg)
+    B, T = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        return {"tokens": ((B, T), np.int32), "labels": ((B, T), np.int32)}
+    if shape.kind == "prefill":
+        return {"tokens": ((B, T), np.int32)}
+    return {"token": ((B, 1), np.int32)}   # decode: one new token
+
+
+def make_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0) -> dict[str, np.ndarray]:
+    """Random batch for a shape cell; the reference's numbers for the same seed."""
+    rng = np.random.default_rng(seed)
+    return {k: rng.integers(0, cfg.vocab, size=s, dtype=np.int32)
+            for k, (s, _) in input_shapes(cfg, shape).items()}
+
+
+def _leaves(tree, prefix=""):
+    for k in sorted(tree):
+        name = f"{prefix}/{k}" if prefix else k
+        if isinstance(tree[k], Mapping):
+            yield from _leaves(tree[k], name)
+        else:
+            yield name, tree[k]
+
+
+def _build(names_values):
+    out: dict = {}
+    for name, value in names_values:
+        *path, last = name.split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[last] = value
+    return out
+
+
+def load_reference_params(cfg: ModelConfig, tree, *, tp: int, device=None):
+    """The reference package's params pytree, given as nested dicts of numpy
+    arrays, as the port's params on ``device``.
+
+    Every name, shape and dtype must equal those of the port's own ``init``
+    for ``(cfg, tp)``; anything missing, extra or different raises
+    :class:`ValueError` naming it.
+    """
+    device = resolve_device(device)
+    want = dict(_leaves(family_module(cfg).init(cfg, torch.Generator(), tp=tp,
+                                                device=torch.device("meta"))))
+    got = dict(_leaves(tree))
+    if set(got) != set(want):
+        raise ValueError(f"parameter names differ: missing {sorted(set(want) - set(got))}, "
+                         f"unexpected {sorted(set(got) - set(want))}")
+    out = []
+    for name, ref in want.items():
+        value = np.asarray(got[name])
+        if value.shape != tuple(ref.shape):
+            raise ValueError(f"{name}: shape {value.shape}, the port has {tuple(ref.shape)}")
+        if value.dtype != np.dtype(str(ref.dtype).removeprefix("torch.")):
+            raise ValueError(f"{name}: dtype {value.dtype}, the port has {ref.dtype}")
+        out.append((name, torch.tensor(value, device=device)))
+    return _build(out)

@@ -1,0 +1,144 @@
+"""Dense decoder-only transformer LM (qwen2 / llama3 / smollm families).
+
+The port of the reference's ``models/dense.py``: layer parameters are
+stacked on a leading L axis, as there, and each ``lax.scan`` over them
+becomes a Python loop over the stacked tensors.  Attention heads follow the
+head plan (see attention_plan.py) and the vocabulary is padded to a multiple
+of 256, so parameter shapes and names equal the reference's.
+
+The KV cache is updated **in place**: ``prefill`` and ``decode_step`` write
+into the tensors of the cache they are given and return that same dict
+(with ``pos`` advanced), where the reference returns a new cache built from
+a donated one.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import layers as L
+from .layers import AttnDims
+
+
+def _dims(cfg: ModelConfig, tp: int) -> AttnDims:
+    return AttnDims.make(
+        cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
+        tp=tp, qkv_bias=cfg.qkv_bias, rope_theta=cfg.rope_theta,
+    )
+
+
+def init_layer(cfg: ModelConfig, gen, tp: int, *, device):
+    return {
+        "ln1": L.init_norm(cfg.d_model, cfg.norm, device=device),
+        "attn": L.init_attention(gen, _dims(cfg, tp), device=device),
+        "ln2": L.init_norm(cfg.d_model, cfg.norm, device=device),
+        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, gated=cfg.act == "silu",
+                          device=device),
+    }
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def layer_params(params, i: int):
+    """Layer i's parameters: views into the stacked (L, ...) tensors."""
+    def pick(tree):
+        if isinstance(tree, dict):
+            return {k: pick(v) for k, v in tree.items()}
+        return tree[i]
+    return pick(params["layers"])
+
+
+def init(cfg: ModelConfig, gen: torch.Generator, tp: int = L.DEFAULT_TP, *,
+         device: torch.device):
+    layers = [init_layer(cfg, gen, tp, device=device) for _ in range(cfg.n_layers)]
+    params = {
+        "embed": L.init_embed(gen, cfg.padded_vocab(), cfg.d_model, device=device),
+        "layers": _stack(layers),
+        "ln_f": L.init_norm(cfg.d_model, cfg.norm, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = L.init_embed(gen, cfg.padded_vocab(), cfg.d_model, device=device)
+    return params
+
+
+def _layer_fwd(cfg: ModelConfig, dims: AttnDims, h, lp):
+    a, kv = L.attention_full(lp["attn"], dims, L.apply_norm(lp["ln1"], h, cfg.norm))
+    h = h + a
+    m = L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], h, cfg.norm), cfg.act,
+                    gated=cfg.act == "silu")
+    return h + m, kv
+
+
+def backbone(cfg: ModelConfig, params, h, *, tp: int):
+    """Apply all transformer layers to embeddings h: (B,T,D)."""
+    dims = _dims(cfg, tp)
+    for i in range(cfg.n_layers):
+        h, _ = _layer_fwd(cfg, dims, h, layer_params(params, i))
+    return L.apply_norm(params["ln_f"], h, cfg.norm)
+
+
+def logits_fn(cfg: ModelConfig, params, tokens, *, tp: int = L.DEFAULT_TP):
+    """Teacher-forcing logits: tokens (B,T) -> (B,T,Vp)."""
+    h = L.embed_in(cfg, params["embed"], tokens)
+    h = backbone(cfg, params, h, tp=tp)
+    head = params.get("head", params["embed"])
+    return L.unembed(head, h, cfg.padded_vocab())
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + single-token decode with KV cache
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, tp: int = L.DEFAULT_TP,
+               dtype=torch.float32, device: torch.device):
+    dims = _dims(cfg, tp)
+    shape = (cfg.n_layers, batch, max_len, dims.plan.n_kv_phys, cfg.head_dim_)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def prefill(cfg: ModelConfig, params, tokens, cache, *, tp: int = L.DEFAULT_TP):
+    """Fill the cache with a full prompt, in place; returns (last-token
+    logits (B,1,Vp), cache)."""
+    dims = _dims(cfg, tp)
+    B, T = tokens.shape
+    if T > cache["k"].shape[2]:
+        raise ValueError(f"prompt of {T} tokens exceeds the cache's {cache['k'].shape[2]}")
+    h = L.embed_in(cfg, params["embed"], tokens)
+    for i in range(cfg.n_layers):
+        h, (k, v) = _layer_fwd(cfg, dims, h, layer_params(params, i))
+        cache["k"][i, :, :T] = k
+        cache["v"][i, :, :T] = v
+    h = L.apply_norm(params["ln_f"], h, cfg.norm)
+    cache["pos"].fill_(T)
+    head = params.get("head", params["embed"])
+    return L.unembed(head, h[:, -1:, :], cfg.padded_vocab()), cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, token, *, tp: int = L.DEFAULT_TP):
+    """One decode step: token (B,1) int32 -> (logits (B,1,Vp), cache).
+
+    Writes the token's k/v rows at ``cache["pos"]`` and advances it, in place.
+    """
+    dims = _dims(cfg, tp)
+    h = L.embed_in(cfg, params["embed"], token)
+    pos = cache["pos"]
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        a, _, _ = L.attention_decode(lp["attn"], dims, L.apply_norm(lp["ln1"], h, cfg.norm),
+                                     cache["k"][i], cache["v"][i], pos)
+        h = h + a
+        m = L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], h, cfg.norm), cfg.act,
+                        gated=cfg.act == "silu")
+        h = h + m
+    h = L.apply_norm(params["ln_f"], h, cfg.norm)
+    pos += 1
+    head = params.get("head", params["embed"])
+    return L.unembed(head, h, cfg.padded_vocab()), cache

@@ -1,0 +1,234 @@
+"""Shared model building blocks of the port (functional, plain dicts of tensors).
+
+The functions the dense decoder family uses, with the reference package's
+signatures and layouts (``models/layers.py`` there): activations (B,T,D),
+projections (B,T,H,hd), caches (B,S,Hkv,hd), heads laid out by
+:mod:`.attention_plan`.  Parameters are float32 masters, cast to the
+activations' dtype at each use, where the reference casts them.
+
+On the card the norms and the attention cores run the port's hand-written
+kernels through :mod:`repro_torch.kernels.ops`: ``rmsnorm`` the RMSNorm
+kernel, ``attention_full`` the flash-attention kernel (which tiles the query
+axis itself, so the reference's query blocking, there for TPU memory, has
+no counterpart) and ``attention_decode`` the flash-decode kernel.  On the
+CPU the same calls take the kernels' plain versions.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .attention_plan import HeadPlan, plan_heads
+
+DEFAULT_TP = 16
+PARAM_DTYPE = torch.float32    # master params; compute casts to bf16
+
+
+def _init(gen: torch.Generator, shape, device: torch.device, scale=None,
+          dtype=PARAM_DTYPE):
+    """Normal(0, scale^2) with scale 1/sqrt(shape[0]) by default, drawn from
+    ``gen`` on the generator's device (the meta device needs none)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(shape[0] if shape else 1)
+    where = device if device.type == "meta" else gen.device
+    x = torch.randn(tuple(shape), generator=gen, device=where, dtype=torch.float32)
+    return (x * scale).to(dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, scale, eps=1e-6):
+    return ops.rmsnorm(x.contiguous(), scale, eps=eps)
+
+
+def layernorm(x, scale, bias, eps=1e-5):
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+
+
+def init_norm(d, kind="rmsnorm", *, device):
+    p = {"scale": torch.ones((d,), dtype=PARAM_DTYPE, device=device)}
+    if kind != "rmsnorm":
+        p["bias"] = torch.zeros((d,), dtype=PARAM_DTYPE, device=device)
+    return p
+
+
+def apply_norm(p, x, kind="rmsnorm"):
+    if kind == "rmsnorm":
+        return rmsnorm(x, p["scale"])
+    return layernorm(x, p["scale"], p["bias"])
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_tables(positions, head_dim, theta):
+    """cos/sin tables for given integer positions (any shape)."""
+    f32 = dict(dtype=torch.float32, device=positions.device)
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, **f32) / head_dim))
+    ang = positions.to(torch.float32)[..., None] * inv     # (..., hd/2)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (..., T, H, hd); cos/sin: (T, hd/2) broadcastable."""
+    x1 = x[..., 0::2]
+    x2 = x[..., 1::2]
+    c = cos[..., :, None, :]              # broadcast over the head axis
+    s = sin[..., :, None, :]
+    even = x1 * c - x2 * s
+    odd = x1 * s + x2 * c
+    return torch.stack([even, odd], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention (head-planned)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnDims:
+    d_model: int
+    plan: HeadPlan
+    head_dim: int
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+
+    @classmethod
+    def make(cls, d_model, n_heads, n_kv_heads, head_dim, *, tp=DEFAULT_TP,
+             qkv_bias=False, rope_theta=10000.0):
+        return cls(d_model, plan_heads(n_heads, n_kv_heads, tp), head_dim,
+                   qkv_bias, rope_theta)
+
+
+def init_attention(gen, dims: AttnDims, *, device):
+    plan = dims.plan
+    hd = dims.head_dim
+    # padded q slots: zero-init pad columns (and their W_o rows) so pads are inert
+    pad_mask = torch.tensor([1.0 if q >= 0 else 0.0 for q in plan.q_slot_to_orig],
+                            dtype=torch.float32, device=device)
+    p = {
+        "wq": _init(gen, (dims.d_model, plan.n_q_pad, hd), device) * pad_mask[None, :, None],
+        "wk": _init(gen, (dims.d_model, plan.n_kv_phys, hd), device),
+        "wv": _init(gen, (dims.d_model, plan.n_kv_phys, hd), device),
+        "wo": _init(gen, (plan.n_q_pad, hd, dims.d_model), device) * pad_mask[:, None, None],
+    }
+    if dims.qkv_bias:
+        zeros = lambda *s: torch.zeros(s, dtype=PARAM_DTYPE, device=device)  # noqa: E731
+        p["bq"] = zeros(plan.n_q_pad, hd)
+        p["bk"] = zeros(plan.n_kv_phys, hd)
+        p["bv"] = zeros(plan.n_kv_phys, hd)
+    return p
+
+
+def _qkv(p, dims: AttnDims, x, positions):
+    """x: (B,T,D) -> q (B,T,Hq,hd), k/v (B,T,Hkv,hd), rope applied."""
+    q = torch.einsum("btd,dhk->bthk", x, p["wq"].to(x.dtype))
+    k = torch.einsum("btd,dhk->bthk", x, p["wk"].to(x.dtype))
+    v = torch.einsum("btd,dhk->bthk", x, p["wv"].to(x.dtype))
+    if dims.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if dims.rope_theta > 0:
+        cos, sin = rope_tables(positions, dims.head_dim, dims.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def attention_full(p, dims: AttnDims, x):
+    """Full-sequence attention (training / prefill).  Returns (out, (k, v)).
+
+    The core is the flash-attention kernel on (B,H,T,hd) views of the
+    projections (no copy: the kernel reads strides).  Its causal mask is
+    top-left aligned, which is the reference's mask here because q and k
+    cover the same T positions.
+    """
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device)
+    q, k, v = _qkv(p, dims, x, positions)
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                            causal=True)
+    out = torch.einsum("bthk,hkd->btd", o.transpose(1, 2), p["wo"].to(x.dtype))
+    return out, (k, v)
+
+
+def attention_decode(p, dims: AttnDims, x1, cache_k, cache_v, pos):
+    """Single-token decode against a KV cache.
+
+    x1: (B,1,D); cache_k/v: (B,S,Hkv,hd); pos: int32 0-d tensor on the
+    cache's device (current length).  The new token's k/v row is written
+    into the caches **in place** at ``pos`` (the reference returns updated
+    copies of a donated buffer); returns (out, cache_k, cache_v).  The core
+    is the flash-decode kernel, reading the cache through a (B,Hkv,S,hd)
+    view; it reads ``pos`` on the device, so a step needs no host sync.
+    """
+    q, k1, v1 = _qkv(p, dims, x1, pos.reshape(1))
+    at = pos.reshape(1).to(torch.long)
+    cache_k.index_copy_(1, at, k1.to(cache_k.dtype))
+    cache_v.index_copy_(1, at, v1.to(cache_v.dtype))
+    o = ops.decode_attention(q.transpose(1, 2), cache_k.transpose(1, 2),
+                             cache_v.transpose(1, 2), pos)      # (B,Hq,1,hd)
+    out = torch.einsum("bthk,hkd->btd", o.transpose(1, 2), p["wo"].to(x1.dtype))
+    return out, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen, d_model, d_ff, gated=True, *, device):
+    # drawn in the reference's key order: wg, wu, then wd
+    p = {}
+    if gated:
+        p["wg"] = _init(gen, (d_model, d_ff), device)
+    p["wu"] = _init(gen, (d_model, d_ff), device)
+    p["wd"] = _init(gen, (d_ff, d_model), device)
+    return p
+
+
+_ACTS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),   # jax.nn.gelu's default
+    "relu": F.relu,
+}
+
+
+def apply_mlp(p, x, act="silu", gated=True):
+    actf = _ACTS[act]
+    if gated:
+        h = actf(x @ p["wg"].to(x.dtype)) * (x @ p["wu"].to(x.dtype))
+    else:
+        h = actf(x @ p["wu"].to(x.dtype))
+    return h @ p["wd"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings / head
+# ---------------------------------------------------------------------------
+
+def init_embed(gen, vocab_padded, d_model, *, device):
+    return {"table": _init(gen, (vocab_padded, d_model), device, scale=0.02)}
+
+
+def embed(p, ids):
+    return p["table"][ids]
+
+
+def embed_in(cfg, p, ids):
+    """Embedding lookup cast to the model's compute dtype (bf16 by default).
+    The reference also pins a batch sharding here; the port has no mesh."""
+    return embed(p, ids).to(getattr(torch, cfg.compute_dtype))
+
+
+def unembed(p_head, x, vocab_padded):
+    return x @ p_head["table"].to(x.dtype).T  # tied or separate head table

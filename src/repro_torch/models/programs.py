@@ -1,9 +1,11 @@
-"""Model → Program IR lowering for the port: the decode-loop LMs.
+"""Model → Program IR lowering for the port: the model zoo's dense forward
+and the decode-loop LMs.
 
 The exported programs are framework-free IR; the port carries its own copy
 of each exporter so it imports nothing of the JAX package.  Each exporter
 draws the same numpy random stream in the same order as its counterpart in
-the reference package, so the same ``seed`` gives bitwise-equal constants;
+the reference package, so the same ``seed`` gives bitwise-equal constants,
+and :func:`export_dense_forward` names its weights as the reference does;
 :func:`load_reference_constants` carries another program's weights across.
 """
 from __future__ import annotations
@@ -11,8 +13,152 @@ from __future__ import annotations
 from typing import Mapping
 
 import numpy as np
+import torch
 
+from ..configs.base import ModelConfig
 from ..core.program import Program, ProgramBuilder
+from .attention_plan import plan_heads
+
+
+def export_dense_forward(
+    cfg: ModelConfig,
+    params,
+    batch: int,
+    seq: int,
+    *,
+    with_host_check: bool = True,
+    tp: int = 2,
+) -> tuple[Program, list[np.ndarray]]:
+    """Export a dense-family forward (the port's params) as a Program.
+
+    Returns (program, [tokens]) with all weights as program constants, named
+    as the reference's export names them (``embed/table``,
+    ``layers/{i}/attn/wq``, ``ln_f/scale``, ...).  The functions are the
+    natural offload units: ``embed``, per layer ``layer{i}.attn`` and
+    ``layer{i}.mlp`` under ``block{i}``, and ``lm_head``; ``main`` chains
+    them.  ``with_host_check=True`` inserts the paper's printf case, a
+    host-side ``host_assert_finite`` between the backbone and the head,
+    which makes complete cross-compilation (``native``) infeasible until
+    PFO splits around it.
+
+    The program is **batch-agnostic** (wildcard leading dim in every
+    reshape).  The head is the tied embedding table, as in the reference.
+    ``tp`` must give a head plan the config admits (``tp=1`` on one card).
+    """
+    if cfg.family != "dense":
+        raise ValueError(f"export_dense_forward exports the dense family, got {cfg.family!r}")
+    B = -1                                   # batch-agnostic reshapes
+    pb = ProgramBuilder(f"{cfg.name}-forward")
+
+    # stage weights as program constants
+    for k, v in _flatten(params).items():
+        pb.constant(k, v)
+
+    plan = plan_heads(cfg.n_heads, cfg.n_kv_heads, tp)
+    hd = cfg.head_dim_
+    D = cfg.d_model
+
+    # ---- embed ---------------------------------------------------------
+    f = pb.function("embed", ["tokens"])
+    f.use_global("embed/table")
+    h = f.emit("embed", "embed/table", "tokens")
+    f.build([h])
+
+    # ---- per-layer functions --------------------------------------------
+    for i in range(cfg.n_layers):
+        at = pb.function(f"layer{i}.attn", ["x"])
+        for w in ("ln1/scale", "attn/wq", "attn/wk", "attn/wv", "attn/wo"):
+            at.use_global(_lname(i, w))
+        n = at.emit("rmsnorm", "x", _lname(i, "ln1/scale"))
+
+        # q/k/v: (B,T,D) @ (D, H*hd) -> (B,T,H,hd) -> (B,H,T,hd)
+        def proj(fn, wname, heads):
+            w2 = fn.emit("reshape", _lname(i, wname), shape=(D, heads * hd))
+            y = fn.emit("matmul", n, w2)
+            y = fn.emit("reshape", y, shape=(B, seq, heads, hd))
+            return fn.emit("transpose", y, perm=(0, 2, 1, 3))
+        q = proj(at, "attn/wq", plan.n_q_pad)
+        k = proj(at, "attn/wk", plan.n_kv_phys)
+        v = proj(at, "attn/wv", plan.n_kv_phys)
+        q = at.emit("rope", q, theta=cfg.rope_theta)
+        k = at.emit("rope", k, theta=cfg.rope_theta)
+        o = at.emit("sdpa", q, k, v, causal=True)       # T == S: the flash kernel's mask
+        o = at.emit("transpose", o, perm=(0, 2, 1, 3))
+        o = at.emit("reshape", o, shape=(B, seq, plan.n_q_pad * hd))
+        wo = at.emit("reshape", _lname(i, "attn/wo"), shape=(plan.n_q_pad * hd, D))
+        o = at.emit("matmul", o, wo)
+        out = at.emit("add", "x", o)
+        at.build([out])
+
+        ml = pb.function(f"layer{i}.mlp", ["x"])
+        for w in ("ln2/scale", "mlp/wg", "mlp/wu", "mlp/wd"):
+            ml.use_global(_lname(i, w))
+        n = ml.emit("rmsnorm", "x", _lname(i, "ln2/scale"))
+        g = ml.emit("matmul", n, _lname(i, "mlp/wg"))
+        g = ml.emit("silu", g)
+        u = ml.emit("matmul", n, _lname(i, "mlp/wu"))
+        gu = ml.emit("mul", g, u)
+        dn = ml.emit("matmul", gu, _lname(i, "mlp/wd"))
+        out = ml.emit("add", "x", dn)
+        ml.build([out])
+
+        blk = pb.function(f"block{i}", ["x"])
+        a = blk.call(f"layer{i}.attn", "x")
+        b = blk.call(f"layer{i}.mlp", a)
+        blk.build([b])
+
+    # ---- head -----------------------------------------------------------
+    hd_fn = pb.function("lm_head", ["x"])
+    hd_fn.use_global("ln_f/scale")
+    hd_fn.use_global("embed/table")
+    n = hd_fn.emit("rmsnorm", "x", "ln_f/scale")
+    wt = hd_fn.emit("transpose", "embed/table", perm=(1, 0))
+    lg = hd_fn.emit("matmul", n, wt)
+    hd_fn.build([lg])
+
+    # ---- main -----------------------------------------------------------
+    m = pb.function("main", ["tokens"])
+    x = m.call("embed", "tokens")
+    for i in range(cfg.n_layers):
+        x = m.call(f"block{i}", x)
+    if with_host_check:
+        # the paper's printf case: host-side sanity check in the hot path
+        x = m.emit("host_assert_finite", x, tag=f"{cfg.name}.backbone")
+    lg = m.call("lm_head", x)
+    mx = m.emit("reduce_max", lg, axis=(2,))
+    m.build([lg, mx])
+
+    prog = pb.build("main")
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab, (batch, seq), dtype=np.int32)
+    return prog, [tokens]
+
+
+def _lname(i: int, w: str) -> str:
+    return f"layers/{i}/{w}"
+
+
+def _flatten(params) -> dict[str, np.ndarray]:
+    """Flatten the stacked-layer params into per-layer float32 numpy arrays,
+    named by their key paths and ordered as the reference orders them
+    (dict keys sorted at every level; each stacked leaf split into layers
+    ``0..L-1`` before the next leaf)."""
+    flat: dict[str, np.ndarray] = {}
+
+    def visit(parts, node):
+        if isinstance(node, Mapping):
+            for key in sorted(node):
+                visit(parts + [str(key)], node[key])
+            return
+        arr = node.detach().to("cpu", torch.float32).numpy()
+        if parts[0] == "layers":
+            for i in range(arr.shape[0]):      # stacked on axis 0: split per layer
+                flat[_lname(i, "/".join(parts[1:]))] = arr[i]
+        else:
+            flat["/".join(parts)] = arr
+
+    visit([], params)
+    return flat
 
 
 def export_attn_decode_lm(
