@@ -56,6 +56,25 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    the attn LM's d=960 prefill) against their bounds,
    their plain versions and the one PyTorch call that computes the same
    function (timed for comparison only; the port never calls it).
+9. The SSD scan kernel against its plain version on the card: the
+   reference's ``SSD_CASES`` and the hybrid path's shapes ((8,1024,80,64),
+   and its float32 gate's T=300 and 304, not multiples of the 256 chunk),
+   float32 at 2e-4 and bfloat16 at 2e-2, y and the final state; row 0 of a
+   batched launch bitwise equal to a solo launch; the model's strided x.
+10. ``decode_multimodel`` on the card: the mamba2 SSM and the attention LM
+   co-served over one shared page pool give ``BENCH_serve.json``'s counters
+   exactly and every model's solo ``decode_reference`` tokens.
+11. The hybrid standard path at full width: ``greedy_generate`` on
+   Zamba2-2.7B (all 54 Mamba2 layers, the shared block 9 times, bf16
+   compute, tp=1, random weights from a seeded generator): 8 prompts of
+   1024 tokens, 32 new tokens each.  Gates: 54 SSD + 9 flash + 73 RMSNorm
+   launches per prefill, 9 decode + 73 RMSNorm per step; timed tokens equal
+   greedy_generate's; on a float32 copy of the config, 2 prompts of 300
+   tokens, prefill + 4 decode steps equal the teacher-forcing logits at
+   5e-3.  Profiler windows of one prefill and of 8 decode steps.
+12. The SSD kernel's time at the path's shape against its bound and its
+   plain version (no single PyTorch call computes it), and the flash,
+   flash-decode and RMSNorm kernels' times at the hybrid shapes.
 
 The last lines are a ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  The script needs the repo's
@@ -86,11 +105,18 @@ H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
 H100_BF16_FLOPS = 989e12         # bf16 tensor cores, dense
 
 KERNEL_SOURCES = ("paged_decode_attention", "rmsnorm", "flash_attention",
-                  "decode_attention")
+                  "decode_attention", "ssm_scan")
 
 # the dense path: SmolLM-360M at full size (src/repro_torch/configs/smollm_360m.py)
 DENSE_ARCH, DENSE_B, DENSE_PROMPT, DENSE_NEW = "smollm-360m", 8, 512, 32
 MIXED_B, MIXED_SEQ = 2, 256
+# the hybrid path: Zamba2-2.7B at full width (src/repro_torch/configs/zamba2_2_7b.py):
+# 32 heads of 80 in the shared block, SSD with H=80 heads of P=64, N=64, chunk 256
+HYBRID_ARCH, HYBRID_B, HYBRID_PROMPT, HYBRID_NEW = "zamba2-2.7b", 8, 1024, 32
+HYB_HEADS, HYB_HD, HYB_D = 32, 80, 2560
+SSD_H, SSD_P, SSD_N, SSD_Q = 80, 64, 64, 256
+GATE_B, GATE_PROMPT, GATE_STEPS = 2, 300, 4     # the hybrid float32 gate
+HYB_CACHE = HYBRID_PROMPT + HYBRID_NEW + 1      # 1057 positions
 # the reference's kernel cases (tests/test_kernels.py) and this path's shapes
 ATTN_CASES = [  # (B, Hq, Hkv, T, S, d, causal)
     (1, 2, 2, 128, 128, 32, True), (2, 4, 2, 128, 128, 64, True),
@@ -100,15 +126,30 @@ ATTN_CASES = [  # (B, Hq, Hkv, T, S, d, causal)
     (DENSE_B, 15, 5, DENSE_PROMPT + 1, DENSE_PROMPT + 1, 64, True),  # its teacher forcing
     (MIXED_B, 15, 5, MIXED_SEQ, MIXED_SEQ, 64, True),         # the mixed path
     (CAPACITY, 1, 1, PROMPT, PROMPT, D_MODEL, True),   # the attn LM's prefill
+    (HYBRID_B, HYB_HEADS, HYB_HEADS, HYBRID_PROMPT, HYBRID_PROMPT, HYB_HD, True),  # Zamba2
+    (GATE_B, HYB_HEADS, HYB_HEADS, GATE_PROMPT, GATE_PROMPT, HYB_HD, True),  # its gate
+    (GATE_B, HYB_HEADS, HYB_HEADS, GATE_PROMPT + GATE_STEPS, GATE_PROMPT + GATE_STEPS,
+     HYB_HD, True),                                   # the gate's teacher forcing
 ]
 DECODE_CASES = [  # (B, Hq, Hkv, S, d, pos)
     (1, 2, 2, 256, 32, 255), (2, 4, 1, 512, 64, 300), (1, 8, 2, 128, 16, 64),
     (DENSE_B, 15, 5, DENSE_PROMPT + DENSE_NEW + 1, 64, DENSE_PROMPT + DENSE_NEW // 2),
     (DENSE_B, 15, 5, DENSE_PROMPT + 4, 64, DENSE_PROMPT),     # the float32 copy's step
+    (HYBRID_B, HYB_HEADS, HYB_HEADS, HYB_CACHE, HYB_HD, HYBRID_PROMPT + HYBRID_NEW // 2),
+    (GATE_B, HYB_HEADS, HYB_HEADS, GATE_PROMPT + GATE_STEPS + 1, HYB_HD,
+     GATE_PROMPT + GATE_STEPS - 1),                   # the hybrid gate's last step
 ]
 RMS_SHAPES = [(8, 64), (3, 5, 128), (256, 32),
               (DENSE_B * DENSE_PROMPT, 960), (DENSE_B, 960),
-              (DENSE_B, DENSE_PROMPT + 1, 960), (MIXED_B, MIXED_SEQ, 960)]
+              (DENSE_B, DENSE_PROMPT + 1, 960), (MIXED_B, MIXED_SEQ, 960),
+              (HYBRID_B, HYBRID_PROMPT, HYB_D), (HYBRID_B, 1, HYB_D),
+              (GATE_B, GATE_PROMPT + GATE_STEPS, HYB_D)]
+# the reference's SSD cases (tests/test_kernels.py) and the hybrid path's shapes:
+# (B, T, H, P, N, chunk)
+SSD_CASES = [(1, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32), (1, 96, 1, 64, 64, 32),
+             (HYBRID_B, HYBRID_PROMPT, SSD_H, SSD_P, SSD_N, SSD_Q),    # Zamba2 prefill
+             (GATE_B, GATE_PROMPT, SSD_H, SSD_P, SSD_N, SSD_Q),        # T % 256 != 0
+             (GATE_B, GATE_PROMPT + GATE_STEPS, SSD_H, SSD_P, SSD_N, SSD_Q)]
 
 
 def log(msg: str) -> None:
@@ -292,7 +333,8 @@ def phase_main(torch) -> dict:
           (launches, rep.kernel_steps))
     # the prefill's sdpa op runs the flash kernel, once per batched prefill
     check(launches["flash_attention"] == rep.prefills > 0, (launches, rep.prefills))
-    check(launches["rmsnorm"] == launches["decode_attention"] == 0, launches)
+    check(launches["rmsnorm"] == launches["decode_attention"] == launches["ssd_scan"] == 0,
+          launches)
     walk = rep.kernel_steps * CAPACITY * spec.pages_per_stream
     check(rep.pages_visited + rep.pages_skipped == walk, rep.table())
     check(0 < rep.pages_visited, rep.table())
@@ -658,9 +700,11 @@ def _launch_counts():
         decode_attention_kernel, paged_decode_attention_kernel)
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.rmsnorm import rmsnorm_kernel
+    from repro_torch.kernels.ssm_scan import ssd_scan_kernel
     return {"rmsnorm": rmsnorm_kernel, "flash_attention": flash_attention_kernel,
             "decode_attention": decode_attention_kernel,
-            "paged_decode_attention": paged_decode_attention_kernel}
+            "paged_decode_attention": paged_decode_attention_kernel,
+            "ssd_scan": ssd_scan_kernel}
 
 
 def _reset_counts():
@@ -708,7 +752,7 @@ def phase_dense_standard(torch) -> dict:
           (tokens.shape, tokens.dtype))
     check(np.all((0 <= tokens) & (tokens < cfg.vocab)), "token out of range")
     want = {"rmsnorm": (2 * L + 1) * (DENSE_NEW + 1), "flash_attention": L,
-            "decode_attention": L * DENSE_NEW, "paged_decode_attention": 0}
+            "decode_attention": L * DENSE_NEW, "paged_decode_attention": 0, "ssd_scan": 0}
     check(launches == want, f"launches {launches} != {want}")
 
     # the same steps timed one by one, with their launch counts
@@ -723,7 +767,7 @@ def phase_dense_standard(torch) -> dict:
     prefill_ms = (time.perf_counter() - t0) * 1e3
     delta = {k: v - before[k] for k, v in _counts().items()}
     check(delta == {"rmsnorm": 2 * L + 1, "flash_attention": L, "decode_attention": 0,
-                    "paged_decode_attention": 0}, f"prefill launches {delta}")
+                    "paged_decode_attention": 0, "ssd_scan": 0}, f"prefill launches {delta}")
     step_ms, out = [], [tok]
     for _ in range(DENSE_NEW):
         before = _counts()
@@ -734,7 +778,8 @@ def phase_dense_standard(torch) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
         delta = {k: v - before[k] for k, v in _counts().items()}
         check(delta == {"rmsnorm": 2 * L + 1, "flash_attention": 0, "decode_attention": L,
-                        "paged_decode_attention": 0}, f"decode-step launches {delta}")
+                        "paged_decode_attention": 0, "ssd_scan": 0},
+              f"decode-step launches {delta}")
         out.append(tok)
     timed = torch.cat(out, dim=1).cpu().numpy()
     check(np.array_equal(timed, tokens), "timed steps' tokens != greedy_generate's")
@@ -839,7 +884,8 @@ def phase_dense_mixed(torch, dense: dict) -> None:
     np.testing.assert_allclose(logits, on_cpu, rtol=2e-3, atol=2e-4)
     L = cfg32.n_layers
     check(launches == {"rmsnorm": 2 * L + 1, "flash_attention": L, "decode_attention": 0,
-                       "paged_decode_attention": 0}, f"mixed path launches {launches}")
+                       "paged_decode_attention": 0, "ssd_scan": 0},
+          f"mixed path launches {launches}")
     cov = hybrid.plan_for(tokens).coverage
     log(f"# dense mixed path (tech-gfp, batch {MIXED_B} x {MIXED_SEQ}): logits == "
         f"api.logits, max |err| {err:.3e} (2e-3/2e-4); crossings guest->host "
@@ -960,6 +1006,376 @@ def phase_dense_timing(torch, dense: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the SSD kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(torch, case, dtype, seed, dev):
+    """x, dt, A, B, C as in tests/test_kernels.py, on the card."""
+    B, T, H, P, N, _ = case
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    x = f(rng.standard_normal((B, T, H, P))).to(dtype)
+    dt = f(rng.random((B, T, H)) * 0.5 + 0.1)
+    A = f(-rng.random(H) - 0.2)
+    Bm = f(rng.standard_normal((B, T, N)) * 0.3).to(dtype)
+    Cm = f(rng.standard_normal((B, T, N)) * 0.3).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+def phase_ssd_kernel(torch) -> float:
+    """The SSD kernel against its plain version: the reference's cases in
+    float32 at 2e-4, the hybrid path's shapes in float32 and bfloat16 (2e-2),
+    a T that is not a multiple of the chunk; y and the final state; row 0 of
+    a batched launch bitwise equal to a solo launch; the model's strided
+    (B,T,H,P) view equal to contiguous input."""
+    from repro_torch.kernels.ssm_scan import ssd_scan_kernel, ssd_scan_plain
+
+    dev = torch.device("cuda")
+    worst, cases = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = 2e-4 if dtype == torch.float32 else 2e-2
+        for case in SSD_CASES:
+            chunk = case[5]
+            args = _ssd_inputs(torch, case, dtype, 20 + cases, dev)
+            y, S = ssd_scan_kernel(*args, chunk=chunk, return_state=True)
+            wy, wS = ssd_scan_plain(*args, chunk=chunk, return_state=True)
+            torch.cuda.synchronize()
+            for got, want in ((y, wy), (S, wS)):
+                err = (got.float() - want.float()).abs().max().item()
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+                torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+            check(torch.isfinite(y.float()).all().item(), f"ssd: non-finite y {case}")
+            solo, S_solo = ssd_scan_kernel(*(a[:1] if a.dim() > 1 else a for a in args),
+                                           chunk=chunk, return_state=True)
+            check(torch.equal(solo[0], y[0]) and torch.equal(S_solo[0], S[0]),
+                  f"ssd: batched row 0 != solo {case} {dtype}")
+            x = args[0]
+            Bsz, T, H, P = x.shape
+            wide = torch.zeros((Bsz, T, H * P + 8), dtype=dtype, device=dev)
+            wide[..., :H * P] = x.reshape(Bsz, T, H * P)
+            view = wide[..., :H * P].unflatten(-1, (H, P))
+            check(torch.equal(ssd_scan_kernel(view, *args[1:], chunk=chunk), y),
+                  f"ssd: strided x differs from contiguous {case}")
+            cases += 1
+    torch.cuda.synchronize()
+    log(f"# ssd kernel vs plain: {cases} cases (y and final state), max |err| in "
+        f"float32 {worst:.3e} (tol 2e-4; bf16 2e-2); batched row 0 == solo bitwise, "
+        f"strided x, T % chunk != 0: ok")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 10: decode_multimodel on the card
+# ---------------------------------------------------------------------------
+
+def phase_multimodel(torch) -> None:
+    """``benchmarks/smoke_decode.py``'s decode_multimodel workload (mamba2 SSM
+    + attention LM over one shared page pool) with the units on the card:
+    ``BENCH_serve.json``'s counters exactly, every stream's tokens equal to
+    its model's solo ``decode_reference`` on the card."""
+    from repro_torch import mixed
+    from repro_torch.models.programs import export_attn_decode_lm, export_mamba2_decode_lm
+    from repro_torch.serve import MultiModelDecodeScheduler, StateSpec, decode_reference
+
+    vocab, dm, max_ctx, prompt_len = 32, 16, 24, 6
+    capacity, lens = 3, (5, 6, 7, 8, 9, 10)
+    planneds = {
+        "attn": mixed.trace(export_attn_decode_lm(
+            vocab=vocab, d_model=dm, max_context=max_ctx)).plan("tech-gfp"),
+        "mamba2": mixed.trace(export_mamba2_decode_lm(vocab=vocab, d_model=dm)).plan(
+            "tech-gfp"),
+    }
+    spec = StateSpec(growing={0: 1, 1: 1}, max_context=max_ctx, page_size=4)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, vocab, (prompt_len,), dtype=np.int32) for _ in lens]
+    t0 = time.perf_counter()
+    multi = MultiModelDecodeScheduler(start=False)
+    multi.register("attn", planneds["attn"], step="decode_step", capacity=capacity,
+                   state=spec)
+    multi.register("mamba2", planneds["mamba2"], step="decode_step", capacity=capacity)
+    jobs = []
+    with multi:
+        for i, (p, n) in enumerate(zip(prompts, lens)):
+            model = "attn" if i % 2 == 0 else "mamba2"
+            jobs.append((model, p, multi.submit(p, n, model=model)))
+        multi.start()
+        outs = [(m, p, s.result(timeout=300)) for m, p, s in jobs]
+    wall = time.perf_counter() - t0
+    rep = multi.report()
+    oracle = {name: (p.compile(), p.for_entry("decode_step").compile())
+              for name, p in planneds.items()}
+    violations = sum(
+        not np.array_equal(decode_reference(*oracle[m], p, len(t), capacity=capacity), t)
+        for m, p, t in outs)
+    ssm, attn = rep.models["mamba2"], rep.models["attn"]
+    got = {
+        "attn_page_allocs": attn.page_allocs,
+        "attn_state_bytes_per_crossing": attn.state_bytes_per_crossing,
+        "attn_tokens_per_crossing": attn.tokens_per_crossing,
+        "bit_identity_violations": violations,
+        "models": len(rep.models),
+        "pool_in_use_at_close": rep.pool_in_use,
+        "pool_pages": rep.pool_pages,
+        "pool_peak": rep.pool_peak,
+        "pool_refs_outstanding_at_close": rep.pool_refs_outstanding,
+        "ssm_page_allocs": ssm.page_allocs,
+        "ssm_state_bytes_per_crossing": ssm.state_bytes_per_crossing,
+        "ssm_tokens_per_crossing": ssm.tokens_per_crossing,
+        "state_bytes_per_crossing": rep.state_bytes_per_crossing,
+        "streams": rep.streams,
+        "tokens": rep.tokens,
+        "tokens_per_crossing": rep.tokens_per_crossing,
+    }
+    want = json.loads((ROOT / "BENCH_serve.json").read_text())["decode_multimodel"]
+    for k, v in want.items():
+        check(got[k] == v, f"decode_multimodel {k}: {got[k]} on the card, {v} recorded")
+    check(rep.failures == 0, rep.table())
+    log(f"# decode_multimodel on the card ({wall:.2f} s): {violations} bit-identity "
+        f"violations; ssm_page_allocs {ssm.page_allocs}, attn_page_allocs "
+        f"{attn.page_allocs}, pool_peak {rep.pool_peak}, tokens/crossing "
+        f"{rep.tokens_per_crossing:.4f}, ssm state bytes/crossing "
+        f"{ssm.state_bytes_per_crossing:.1f} == BENCH_serve.json")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the hybrid standard path at full width
+# ---------------------------------------------------------------------------
+
+def _hybrid_launches(L: int, G: int, *, prefills: int, steps: int) -> dict:
+    norms = L + 2 * G + 1           # a norm per Mamba2 layer, two per shared block, ln_f
+    return {"rmsnorm": norms * (prefills + steps), "flash_attention": G * prefills,
+            "decode_attention": G * steps, "paged_decode_attention": 0,
+            "ssd_scan": L * prefills}
+
+
+def phase_hybrid_standard(torch) -> dict:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import api, mamba2
+
+    dev = torch.device("cuda")
+    cfg = get_config(HYBRID_ARCH)
+    L, G = cfg.n_layers, mamba2.n_shared_applications(cfg)
+    t0 = time.perf_counter()
+    params = api.init(cfg, torch.Generator(device=dev).manual_seed(SEED), tp=1, device=dev)
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in _tensors(params))
+    log(f"# hybrid path: {cfg.name} ({L} Mamba2 layers, d_model {cfg.d_model}, SSD "
+        f"{SSD_H} heads x {SSD_P}, N {cfg.ssm.state_dim}, chunk {cfg.ssm.chunk}; shared "
+        f"block x{G}: {cfg.n_heads} heads of {cfg.head_dim_}, d_ff {cfg.d_ff}; vocab "
+        f"{cfg.vocab}, {cfg.compute_dtype} compute), {nparams / 1e6:.1f} M params "
+        f"({nparams * 4 / 1e9:.2f} GB f32), init {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED + 4)
+    prompt = rng.integers(0, cfg.vocab, (HYBRID_B, HYBRID_PROMPT), dtype=np.int32)
+    greedy_generate(cfg, params, prompt[:, :300], steps=2, tp=1)      # warm-up
+    torch.cuda.synchronize()
+
+    # the main path, counted: greedy_generate as a user calls it
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    tokens = greedy_generate(cfg, params, prompt, steps=HYBRID_NEW, tp=1)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(tokens.shape == (HYBRID_B, HYBRID_NEW + 1) and tokens.dtype == np.int32,
+          (tokens.shape, tokens.dtype))
+    check(np.all((0 <= tokens) & (tokens < cfg.vocab)), "token out of range")
+    want = _hybrid_launches(L, G, prefills=1, steps=HYBRID_NEW)
+    check(launches == want, f"hybrid launches {launches} != {want}")
+
+    # the same steps timed one by one, with their launch counts
+    cache = api.init_cache(cfg, HYBRID_B, HYB_CACHE, tp=1, device=dev)
+    cache_mb = sum(cache[k].numel() * cache[k].element_size() for k in
+                   ("S", "conv", "ak", "av")) / 1e6
+    prefill, decode = make_prefill_step(cfg, tp=1), make_decode_step(cfg, tp=1)
+    before = _counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": torch.as_tensor(prompt, device=dev)}, cache)
+    tok = torch.argmax(logits[..., :cfg.vocab], dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    delta = {k: v - before[k] for k, v in _counts().items()}
+    check(delta == _hybrid_launches(L, G, prefills=1, steps=0), f"prefill launches {delta}")
+    step_ms, out = [], [tok]
+    for _ in range(HYBRID_NEW):
+        before = _counts()
+        t0 = time.perf_counter()
+        logits, cache = decode(params, cache, {"token": tok})
+        tok = torch.argmax(logits[..., :cfg.vocab], dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        delta = {k: v - before[k] for k, v in _counts().items()}
+        check(delta == _hybrid_launches(L, G, prefills=0, steps=1),
+              f"decode-step launches {delta}")
+        out.append(tok)
+    timed = torch.cat(out, dim=1).cpu().numpy()
+    check(np.array_equal(timed, tokens), "timed steps' tokens != greedy_generate's")
+    p50 = float(np.median(step_ms))
+    log(f"# hybrid standard path: {HYBRID_B} x {HYBRID_PROMPT}-token prompts, "
+        f"{HYBRID_NEW} new tokens each: greedy_generate {wall * 1e3:.1f} ms = "
+        f"{HYBRID_B * (HYBRID_NEW + 1) / wall:.1f} tokens/s; prefill {prefill_ms:.2f} ms, "
+        f"decode step p50 {p50:.3f} ms (min {min(step_ms):.3f}, max {max(step_ms):.3f}) "
+        f"= {HYBRID_B / p50 * 1e3:.1f} tokens/s in decode; launches {launches}; "
+        f"max_memory_allocated {peak / 2**20:.1f} MiB; cache {cache_mb:.1f} MB f32 "
+        f"(S {cache['S'].numel() * 4 / 1e6:.1f}, conv {cache['conv'].numel() * 4 / 1e6:.1f}, "
+        f"ak+av {2 * cache['ak'].numel() * 4 / 1e6:.1f})")
+
+    # where the time goes: one prefill, then 8 decode steps
+    cache = api.init_cache(cfg, HYBRID_B, HYB_CACHE, tp=1, device=dev)
+    toks = torch.as_tensor(prompt, device=dev)
+    profile_steps(torch, lambda: prefill(params, {"tokens": toks}, cache), 1,
+                  f"hybrid prefill ({HYBRID_B} x {HYBRID_PROMPT} tokens, {L} layers)")
+    n = min(8, HYBRID_NEW)
+    profile_steps(torch, lambda: [decode(params, cache, {"token": tok}) for _ in range(n)],
+                  n, f"hybrid decode steps (batch {HYBRID_B}, cache {HYBRID_PROMPT}.."
+                  f"{HYBRID_PROMPT + n})")
+
+    # the reference's serving contract at full width, in float32: prefill +
+    # decode steps equal the teacher-forcing logits (tests/test_models.py, 5e-3)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    gate = np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab, (GATE_B, GATE_PROMPT + GATE_STEPS), dtype=np.int32)
+    full = api.logits(cfg32, params, {"tokens": gate}, tp=1)
+    cache = api.init_cache(cfg32, GATE_B, GATE_PROMPT + GATE_STEPS + 1, tp=1, device=dev)
+    got, cache = api.prefill(cfg32, params, {"tokens": gate[:, :GATE_PROMPT]}, cache, tp=1)
+    errs = [(got[:, 0] - full[:, GATE_PROMPT - 1]).abs().max().item()]
+    torch.testing.assert_close(got[:, 0], full[:, GATE_PROMPT - 1], rtol=5e-3, atol=5e-3)
+    for t in range(GATE_PROMPT, GATE_PROMPT + GATE_STEPS):
+        got, cache = api.decode(cfg32, params, cache, {"token": gate[:, t:t + 1]}, tp=1)
+        errs.append((got[:, 0] - full[:, t]).abs().max().item())
+        torch.testing.assert_close(got[:, 0], full[:, t], rtol=5e-3, atol=5e-3)
+    check(torch.isfinite(full).all().item(), "hybrid float32 logits not finite")
+    log(f"# hybrid float32 copy ({GATE_B} x {GATE_PROMPT} tokens, {GATE_STEPS} steps): "
+        f"prefill + decode == teacher forcing, max |err| {max(errs):.3e} (tol 5e-3)")
+    return {"launches": launches, "cfg": cfg}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the kernels' times at the hybrid path's shapes
+# ---------------------------------------------------------------------------
+
+def ssd_work(B, T, H, P, N, Q, x_bytes):
+    """(bytes, flops) of one SSD scan: x, dt, B, C read once, y and the final
+    state written once; flops over the pairs this input's chunks hold."""
+    nbytes = (2 * B * T * H * P * x_bytes + B * T * H * 4 + 2 * B * T * N * x_bytes
+              + H * 4 + B * H * N * P * 4)
+    flops = 0
+    for t0 in range(0, T, Q):
+        n = min(Q, T - t0)
+        flops += n * (n + 1) // 2 * 2 * (N + P) + 4 * n * N * P
+    return nbytes, flops * B * H
+
+
+def phase_hybrid_timing(torch) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_kernel, decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_kernel, flash_attention_plain)
+    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+    from repro_torch.kernels.ssm_scan import ssd_scan_kernel, ssd_scan_plain
+
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    flush = l2_flush_buffer(torch)
+    saved = _counts()
+    out = {}
+
+    # the SSD scan of one Mamba2 layer's prefill: x (8,1024,80,64) bf16
+    case = (HYBRID_B, HYBRID_PROMPT, SSD_H, SSD_P, SSD_N, SSD_Q)
+    x, dt, A, Bm, Cm = _ssd_inputs(torch, case, bf16, 30, dev)
+    args = (x, dt, A, Bm, Cm)
+    y, S = ssd_scan_kernel(*args, chunk=SSD_Q, return_state=True)
+    wy, wS = ssd_scan_plain(*args, chunk=SSD_Q, return_state=True)
+    err = max((y.float() - wy.float()).abs().max().item(), (S - wS).abs().max().item())
+    nbytes, flops = ssd_work(*case, x_bytes=2)
+    bound, by = _bound(nbytes, flops, H100_BF16_FLOPS)
+    out["ssd_scan"] = dict(
+        ms=time_ms(torch, lambda: ssd_scan_kernel(*args, chunk=SSD_Q, return_state=True),
+                   20, flush),
+        plain_ms=time_ms(torch, lambda: ssd_scan_plain(*args, chunk=SSD_Q,
+                                                       return_state=True), 10, flush),
+        library_ms=None, bound_ms=bound, bound_by=by, max_abs_err=err,
+        shape=f"x {tuple(x.shape)} bf16, B, C {tuple(Bm.shape)} bf16, chunk {SSD_Q}",
+        work=f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP")
+
+    # flash: the shared block's prefill attention, (8,32,1024,80) bf16, MHA
+    q, k, v = (_randn(torch, (HYBRID_B, HYB_HEADS, HYBRID_PROMPT, HYB_HD), bf16, s, dev)
+               for s in (31, 32, 33))
+    err = (flash_attention_kernel(q, k, v) - flash_attention_plain(q, k, v)).abs().max().item()
+    nbytes = 2 * 4 * q.numel()
+    flops = 4 * HYBRID_B * HYB_HEADS * HYB_HD * (HYBRID_PROMPT * (HYBRID_PROMPT + 1) // 2)
+    bound, by = _bound(nbytes, flops, H100_BF16_FLOPS)
+    out["flash_attention@hybrid"] = dict(
+        ms=time_ms(torch, lambda: flash_attention_kernel(q, k, v), 10, flush),
+        plain_ms=time_ms(torch, lambda: flash_attention_plain(q, k, v), 10, flush),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), 20, flush),
+        bound_ms=bound, bound_by=by, max_abs_err=err,
+        shape=f"q,k,v {tuple(q.shape)} bf16 causal",
+        work=f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP")
+
+    # decode: the shared block's step attention; after the first Mamba2
+    # layer the decode step runs in float32 (the reference's promotion), so q
+    # (8,32,1,80) f32 against the (8,1057,32,80) f32 cache at pos 1040
+    pos = HYBRID_PROMPT + HYBRID_NEW // 2
+    q1 = _randn(torch, (HYBRID_B, HYB_HEADS, 1, HYB_HD), f32, 34, dev)
+    ck = _randn(torch, (HYBRID_B, HYB_CACHE, HYB_HEADS, HYB_HD), f32, 35, dev)
+    cv = _randn(torch, (HYBRID_B, HYB_CACHE, HYB_HEADS, HYB_HD), f32, 36, dev)
+    kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+    pt = torch.tensor([pos], dtype=torch.int32, device=dev)
+    err = (decode_attention_kernel(q1, kt, vt, pt)
+           - decode_attention_plain(q1, kt, vt, pt)).abs().max().item()
+    visible = pos + 1
+    nbytes = 2 * 4 * q1.numel() + 2 * HYBRID_B * HYB_HEADS * visible * HYB_HD * 4 + 4
+    flops = 4 * HYBRID_B * HYB_HEADS * visible * HYB_HD
+    bound, by = _bound(nbytes, flops, H100_FP32_FLOPS)
+    mask = (torch.arange(HYB_CACHE, device=dev) <= pos)[None, None, None, :]
+    out["decode_attention@hybrid"] = dict(
+        ms=time_ms(torch, lambda: decode_attention_kernel(q1, kt, vt, pt), 100, flush),
+        plain_ms=time_ms(torch, lambda: decode_attention_plain(q1, kt, vt, pt), 20, flush),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q1, kt, vt, attn_mask=mask), 100, flush),
+        bound_ms=bound, bound_by=by, max_abs_err=err,
+        shape=f"q {tuple(q1.shape)} f32, cache {tuple(ck.shape)} f32, pos {pos}",
+        work=f"{nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP")
+
+    # rmsnorm: the prefill's rows (8192, 2560) bf16; the decode step's (8, 2560) f32
+    for rows, dtype, key in ((HYBRID_B * HYBRID_PROMPT, bf16, "rmsnorm@hybrid"),
+                             (HYBRID_B, f32, "rmsnorm@hybrid-decode")):
+        xr = _randn(torch, (rows, HYB_D), dtype, 37, dev)
+        w = _randn(torch, (HYB_D,), f32, 38, dev)
+        wl = w.to(dtype)
+        err = (rmsnorm_kernel(xr, w).float() - rmsnorm_plain(xr, w).float()).abs().max().item()
+        nbytes = 2 * xr.element_size() * xr.numel() + 4 * w.numel()
+        bound, by = _bound(nbytes, 4 * xr.numel(), H100_FP32_FLOPS)
+        out[key] = dict(
+            ms=time_ms(torch, lambda: rmsnorm_kernel(xr, w), 100, flush),
+            plain_ms=time_ms(torch, lambda: rmsnorm_plain(xr, w), 50, flush),
+            library_ms=time_ms(torch, lambda: F.rms_norm(xr, (HYB_D,), wl, 1e-6), 100, flush),
+            bound_ms=bound, bound_by=by, max_abs_err=err,
+            shape=f"x ({rows}, {HYB_D}) {str(dtype).removeprefix('torch.')}, w f32",
+            work=f"{nbytes / 1e6:.3f} MB")
+
+    for fn, n in zip(_launch_counts().values(), saved.values()):
+        fn.launches = n                     # timing launches are not the path's
+    for name, r in out.items():
+        lib = "null (no single PyTorch call computes the SSD scan)" \
+            if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"# {name} at {r['shape']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}: {r['work']}), plain {r['plain_ms']:.4f} ms, library "
+            f"{lib}, |err| {r['max_abs_err']:.3e}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -979,12 +1395,16 @@ def main() -> int:
     phase_build(torch)
     err = phase_kernel(torch)
     dense_err = phase_dense_kernels(torch)
+    ssd_err = phase_ssd_kernel(torch)
     main_run = phase_main(torch)
     timing = phase_timing(torch, main_run)
     phase_small(torch)
+    phase_multimodel(torch)
     dense = phase_dense_standard(torch)
     phase_dense_mixed(torch, dense)
     dense_timing = phase_dense_timing(torch, dense)
+    hybrid = phase_hybrid_standard(torch)
+    hybrid_timing = phase_hybrid_timing(torch)
     log(f"# all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     kernels = [{
@@ -1019,6 +1439,21 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "ok": True,
         })
+    t = hybrid_timing["ssd_scan"]
+    kernels.append({
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:28",
+        "launches": hybrid["launches"]["ssd_scan"],
+        "max_abs_err": max(ssd_err, t["max_abs_err"]),
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": None,
+        "ok": True,
+    })
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

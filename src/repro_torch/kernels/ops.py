@@ -14,6 +14,7 @@ from .decode_attention import (
 )
 from .flash_attention import flash_attention_kernel, flash_attention_plain
 from .rmsnorm import rmsnorm_kernel, rmsnorm_plain
+from .ssm_scan import ssd_scan_kernel, ssd_scan_plain
 
 
 def paged_decode_attention(q, k_pages, v_pages, tables, lengths,
@@ -47,3 +48,11 @@ def rmsnorm(x, w, *, eps: float = 1e-6):
     if x.device.type == "cpu":
         return rmsnorm_plain(x, w, eps)
     return rmsnorm_kernel(x, w, eps)
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, return_state: bool = False):
+    """Mamba2 SSD chunked scan, x (B,T,H,P), dt (B,T,H), A (H,), B, C (B,T,N)
+    -> y (B,T,H,P) [and the final state (B,H,N,P)] (see :mod:`.ssm_scan`)."""
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, A, B, C, chunk=chunk, return_state=return_state)
+    return ssd_scan_kernel(x, dt, A, B, C, chunk=chunk, return_state=return_state)

@@ -1,12 +1,16 @@
-"""Oracles for the port's kernels: naive formulas, the allclose targets.
+"""Oracles of the port's kernels that are not their plain versions.
 
-``attention_ref``, ``decode_attention_ref`` and ``rmsnorm_ref`` are torch
-transcriptions of the reference package's oracles (``kernels/ref.py``
-there): two-pass softmax attention with GQA by repeating kv heads, the
-causal mask bottom-right aligned (``tril(k=S-T)``), and float32 statistics.
+Each formula has one copy in the port.  ``rmsnorm_ref`` (float32
+statistics) is also the RMSNorm kernel's plain version.  ``ssd_scan_ref`` is
+the SSD recurrence taken one step at a time, the definition that the SSD
+kernel and its plain version (both in the chunked form) are held to.
 ``paged_decode_attention_ref`` is numpy: the emulator body of the
-``paged_attention`` op and the allclose target of the paged kernel.  All are
-copies, so the port imports nothing of the JAX package.
+``paged_attention`` op and the allclose target of the paged kernel.  The
+dense attention kernels' oracles are their plain versions
+(``flash_attention_plain``, ``decode_attention_plain``), held against the
+reference package's ``attention_ref`` and ``decode_attention_ref`` in the
+tests.  All are transcriptions of the reference package's
+``kernels/ref.py``, so the port imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -16,42 +20,30 @@ import numpy as np
 import torch
 
 
-def _gqa(q, k, v):
-    """float32 scores q.k/sqrt(d) with k, v heads repeated up to q's."""
-    Hq, Hkv, d = q.shape[1], k.shape[1], q.shape[-1]
-    if Hq != Hkv:
-        k = torch.repeat_interleave(k, Hq // Hkv, dim=1)
-        v = torch.repeat_interleave(v, Hq // Hkv, dim=1)
-    f32 = torch.float32
-    s = torch.einsum("bhtd,bhsd->bhts", q.to(f32), k.to(f32)) / math.sqrt(d)
-    return s, v.to(f32)
-
-
-def attention_ref(q, k, v, *, causal: bool = True):
-    """q: (B,Hq,T,d); k, v: (B,Hkv,S,d): naive softmax attention with GQA."""
-    T, S = q.shape[2], k.shape[2]
-    s, vf = _gqa(q, k, v)
-    if causal:
-        mask = torch.ones((T, S), dtype=torch.bool, device=q.device).tril(S - T)
-        s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhts,bhsd->bhtd", p, vf).to(q.dtype)
-
-
-def decode_attention_ref(q, k, v, pos):
-    """q: (B,Hq,1,d); k, v: (B,Hkv,S,d); positions > pos masked."""
-    S = k.shape[2]
-    s, vf = _gqa(q, k, v)
-    valid = torch.arange(S, device=q.device) <= pos
-    s = torch.where(valid, s, torch.tensor(-1e30, device=q.device))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhts,bhsd->bhtd", p, vf).to(q.dtype)
-
-
 def rmsnorm_ref(x, w, *, eps: float = 1e-6):
     xf = x.to(torch.float32)
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)
+
+
+def ssd_scan_ref(x, dt, A, B, C):
+    """Sequential-scan SSD (the definitionally correct recurrence).
+
+    x: (B,T,H,P); dt: (B,T,H); A: (H,); B, C: (B,T,N) -> y (B,T,H,P) in
+    x's dtype; the state is float32.
+    """
+    f32 = torch.float32
+    Bs, T, H, P = x.shape
+    N = B.shape[-1]
+    dt = dt.to(f32)
+    S = torch.zeros((Bs, H, N, P), dtype=f32, device=x.device)
+    ys = []
+    for t in range(T):
+        dec = torch.exp(dt[:, t] * A)                                # (B,H)
+        S = S * dec[..., None, None] + torch.einsum(
+            "bn,bh,bhp->bhnp", B[:, t].to(f32), dt[:, t], x[:, t].to(f32))
+        ys.append(torch.einsum("bn,bhnp->bhp", C[:, t].to(f32), S))
+    return torch.stack(ys, dim=1).to(x.dtype)
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, tables, lengths,

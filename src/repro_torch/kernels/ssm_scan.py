@@ -1,0 +1,155 @@
+"""SSD (Mamba2) chunked scan: the CUDA kernel and its plain version.
+
+``ssd_scan_kernel`` launches ``csrc/ssm_scan.cu`` (hand-written for Hopper,
+``sm_90a``), which replaces the TPU kernel
+``repro.kernels.ssm_scan.ssd_scan_kernel``:
+
+    S_t = exp(dt_t * A) S_{t-1} + dt_t B_t (x) x_t,    y_t = C_t . S_t
+
+for x ``(B,T,H,P)``, dt ``(B,T,H)`` float32, A ``(H,)`` float32, B and C
+``(B,T,N)`` shared across heads, in the chunked form (chunks of ``chunk``
+rows), all math in float32, y in x's dtype.  Unlike the TPU kernel it also
+returns the final state ``(B,H,N,P)`` float32 (``return_state=True``), which
+the model's prefill stores for decode, and takes a T that is not a multiple
+of the chunk without padded copies.  One block per (b, h) with sums in a
+fixed order, so row b of a batched launch is bitwise equal to a solo launch
+of row b.  CUDA C++ rather than Triton: the work is three matmul-shaped
+products with an (N,P) state carried across chunks, not an elementwise pass,
+and it keeps the port's single ``nvcc`` build path.
+
+``ssd_scan_plain`` is the same function in plain PyTorch, the chunked form
+of the reference's ``models/mamba2.py:ssd_chunked``: it serves CPU tensors
+(the tests) and is the yardstick the kernel is checked against on the card.
+:func:`repro_torch.kernels.ops.ssd_scan` picks by device.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+from .common import (
+    DTYPE_CODES,
+    check_strided,
+    check_tensor,
+    ptr,
+    raise_on_error,
+    require_cuda,
+    stream,
+)
+
+_SOURCE = "ssm_scan"
+
+
+def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 256, return_state: bool = False):
+    """Plain PyTorch chunked SSD (any device, float32 math): y (B,T,H,P) in
+    x's dtype, and the final state (B,H,N,P) float32 if ``return_state``.
+
+    A T that is not a multiple of the chunk is padded with dt = 0, which is
+    inert (decay 1, update 0), as the reference's ``ssd_chunked`` does."""
+    f32 = torch.float32
+    Bsz, T, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, T)
+    pad = (-T) % Q
+    if pad:
+        def z(a):
+            return F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
+        x, dt, B, C = z(x), z(dt), z(B), z(C)
+    nc = x.shape[1] // Q
+
+    dA = dt * A                                          # (B,T,H)
+    xdt = x * dt[..., None]                              # float32
+
+    def r(a):
+        return a.reshape(Bsz, nc, Q, *a.shape[2:])
+    dA_c, xdt_c, B_c, C_c = r(dA), r(xdt).to(f32), r(B).to(f32), r(C).to(f32)
+
+    cs = torch.cumsum(dA_c, dim=2)                       # (B,nc,Q,H)
+    # intra-chunk: L_ij = exp(cs_i - cs_j) for i >= j, selected (never a
+    # multiplied mask: exp above the diagonal can overflow)
+    li = cs[:, :, :, None, :] - cs[:, :, None, :, :]     # (B,nc,Q,Q,H)
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    Lm = torch.where(mask[None, None, :, :, None], torch.exp(li),
+                     torch.zeros((), dtype=f32, device=x.device))
+    scores = torch.einsum("bcqn,bckn->bcqk", C_c, B_c)
+    y = torch.einsum("bcqk,bcqkh,bckhp->bcqhp", scores, Lm, xdt_c)
+
+    # chunk-final local states, then the inter-chunk scan
+    decay_to_end = torch.exp(cs[:, :, -1:, :] - cs)      # (B,nc,Q,H)
+    S_local = torch.einsum("bckn,bckh,bckhp->bchnp", B_c, decay_to_end, xdt_c)
+    chunk_decay = torch.exp(cs[:, :, -1, :])             # (B,nc,H)
+    S = torch.zeros((Bsz, H, N, P), dtype=f32, device=x.device)
+    prevs = []
+    for c in range(nc):
+        prevs.append(S)
+        S = S * chunk_decay[:, c, :, None, None] + S_local[:, c]
+    S_prevs = torch.stack(prevs, dim=1)                  # (B,nc,H,N,P)
+
+    # inter-chunk contribution: y_i += (C_i . S_prev) exp(cs_i)
+    y = y + torch.einsum("bcqn,bchnp->bcqhp", C_c, S_prevs) * torch.exp(cs)[..., None]
+    y = y.reshape(Bsz, nc * Q, H, P)[:, :T].to(x.dtype)
+    return (y, S) if return_state else y
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load(_SOURCE)
+    fn = lib.ssd_scan_fwd
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, ll, ll, ll, p, ll, ll, ll, p, p, ll, ll, p, ll, ll,
+                       p, ll, ll, ll, p, i, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def ssd_scan_kernel(x, dt, A, B, C, *, chunk: int = 256, return_state: bool = False):
+    """Launch the CUDA SSD scan on ``x``'s device.
+
+    x: (B, T, H, P), float32 or bfloat16; dt: (B, T, H) float32; A: (H,)
+    contiguous float32; B, C: (B, T, N) in x's dtype; all on one CUDA
+    device, each with a contiguous last axis (other strides are free, so the
+    model's (B,T,H,P) view of its (B,T,H*P) activations needs no copy).
+    Returns y, a contiguous (B, T, H, P) tensor in x's dtype, and with
+    ``return_state`` also the final state, a contiguous (B, H, N, P) float32
+    tensor.  Launches on the current stream and does not synchronise; a
+    shape whose chunk does not fit one block's shared memory is refused by
+    the launch (``RuntimeError``).  ``ssd_scan_kernel.launches`` counts
+    launches.
+    """
+    device = require_cuda(x, "ssd scan")
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    check_strided("x", x, (x.dtype,), 4, device)
+    Bsz, T, H, P = x.shape
+    check_strided("dt", dt, (torch.float32,), 3, device)
+    check_tensor("A", A, torch.float32, (H,), device)
+    for name, t in (("B", B), ("C", C)):
+        check_strided(name, t, (x.dtype,), 3, device)
+    N = B.shape[-1]
+    if tuple(dt.shape) != (Bsz, T, H):
+        raise ValueError(f"dt must have shape {(Bsz, T, H)}, got {tuple(dt.shape)}")
+    if tuple(B.shape) != (Bsz, T, N) or tuple(C.shape) != (Bsz, T, N):
+        raise ValueError(f"B and C must be (B, T, N) = ({Bsz}, {T}, N), got "
+                         f"{tuple(B.shape)} and {tuple(C.shape)}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    if Bsz * H >= 2**31:
+        raise ValueError(f"B*H = {Bsz * H} exceeds the kernel's grid")
+    y = torch.empty((Bsz, T, H, P), dtype=x.dtype, device=device)
+    S = torch.empty((Bsz, H, N, P), dtype=torch.float32, device=device) \
+        if return_state else None
+    xs, ds, bs, cs, ys = x.stride(), dt.stride(), B.stride(), C.stride(), y.stride()
+    with torch.cuda.device(device):
+        err = _library().ssd_scan_fwd(
+            ptr(x), xs[0], xs[1], xs[2], ptr(dt), ds[0], ds[1], ds[2], ptr(A),
+            ptr(B), bs[0], bs[1], ptr(C), cs[0], cs[1], ptr(y), ys[0], ys[1], ys[2],
+            ptr(S), DTYPE_CODES[x.dtype], Bsz, T, H, P, N, min(chunk, T), stream(device))
+    raise_on_error(err, "ssd_scan")
+    ssd_scan_kernel.launches += 1
+    return (y, S) if return_state else y
+
+
+ssd_scan_kernel.launches = 0

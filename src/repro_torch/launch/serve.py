@@ -7,6 +7,10 @@ reference jits them wholesale).  The *mixed* path is the Program export in
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
+
+Any architecture of a ported family serves (dense: SmolLM, Llama 3.2,
+Qwen2; hybrid: Zamba2), at its reduced size, with random weights.
 """
 from __future__ import annotations
 

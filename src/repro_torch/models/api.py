@@ -1,9 +1,9 @@
 """Unified model API of the port: family dispatch + step functions.
 
 The reference's surface (``models/api.py`` there) for the families the port
-has; today that is ``dense`` alone (SmolLM, Llama 3.2, Qwen2).  The others
-raise :class:`NotImplementedError` until they are ported (ROADMAP Queue 1
-item 9).
+has: ``dense`` (SmolLM, Llama 3.2, Qwen2) and ``hybrid`` (Zamba2: Mamba2
+layers and a shared attention block).  The others raise
+:class:`NotImplementedError` until they are ported (ROADMAP Queue 1 item 9).
 
 * ``init(cfg, gen, tp, device=)``              — parameter dict
 * ``logits(cfg, params, batch, tp)``           — teacher-forcing forward
@@ -17,7 +17,7 @@ item 9).
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``); without a card they raise.  Batches may hold numpy
 arrays or tensors; they are placed on the parameters' device.  Caches are
-updated in place (see :mod:`.dense`).
+updated in place (see :mod:`.dense` and :mod:`.mamba2`).
 """
 from __future__ import annotations
 
@@ -28,10 +28,10 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..core.api import resolve_device
-from . import dense
+from . import dense, mamba2
 from . import layers as L
 
-_FAMILIES = {"dense": dense}
+_FAMILIES = {"dense": dense, "hybrid": mamba2}
 
 
 def family_module(cfg: ModelConfig):

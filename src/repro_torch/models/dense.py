@@ -37,9 +37,11 @@ def init_layer(cfg: ModelConfig, gen, tp: int, *, device):
     }
 
 
-def _stack(trees):
+def stack_layers(trees):
+    """Per-layer parameter dicts stacked on a leading L axis, as the
+    reference's ``vmap``-ed init lays them out."""
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+        return {k: stack_layers([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
 
 
@@ -57,7 +59,7 @@ def init(cfg: ModelConfig, gen: torch.Generator, tp: int = L.DEFAULT_TP, *,
     layers = [init_layer(cfg, gen, tp, device=device) for _ in range(cfg.n_layers)]
     params = {
         "embed": L.init_embed(gen, cfg.padded_vocab(), cfg.d_model, device=device),
-        "layers": _stack(layers),
+        "layers": stack_layers(layers),
         "ln_f": L.init_norm(cfg.d_model, cfg.norm, device=device),
     }
     if not cfg.tie_embeddings:

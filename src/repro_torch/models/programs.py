@@ -371,6 +371,159 @@ def export_attn_decode_lm(
     return pb.build("prefill")
 
 
+def export_mamba2_decode_lm(
+    vocab: int = 32,
+    d_model: int = 16,
+    state_dim: int = 4,
+    head_dim: int = 4,
+    *,
+    with_host_check: bool = True,
+    seed: int = 0,
+) -> Program:
+    """Export a single-head SSD (mamba2-style) LM as a **decode-loop program**
+    whose per-stream state is **fixed-size** — the degenerate
+    ``StateSpec(growing={})`` workload of
+    :class:`~repro_torch.serve.DecodeScheduler`:
+    no paging, no per-token growth, a constant ``N*P`` floats per stream.
+
+    Two roots:
+
+    * entry ``prefill(tokens)`` — tokens ``(B, T)`` int32 →
+      ``(logits (B, V), S (B, N*P))``: the SSD recurrence
+      ``S_t = exp(dt_t·A)·S_{t-1} + dt_t·(B_t ⊗ x_t)`` over the whole
+      prompt in closed form (cumulative-sum decays, one weighted
+      reduction — no sequential scan op), with the *last* prompt token
+      routed through the same ``cell`` function the step uses.
+    * ``decode_step(S, token)`` — state ``(B, N*P)`` + last token ``(B,)``
+      int32 → ``(logits, S')``: one recurrence step.
+
+    The state is carried **rank-2** ``(B, N*P)`` on purpose: the SSD update
+    is arithmetic (decay-and-add), so rows are *recomputed*, not
+    pass-through — the recurrent-state exactness contract (see
+    ``docs/analysis.md``), not the rank-≥3 cache contract that demands
+    bitwise row preservation.  The ``N × P`` outer products and
+    contractions are phrased as matmuls against constant 0/1
+    Khatri-Rao matrices (``Kn``/``Kp``/``Cp``) so no root ever reshapes
+    activations (decode roots must stay wildcard-reshape-free).
+
+    Every op is row-independent on axis 0, so token-level re-batching is
+    bit-exact, and ``with_host_check`` keeps the paper's printf case in
+    both roots (every prefill/step pays real guest→host crossings).
+    """
+    rng = np.random.default_rng(seed)
+    D, N, P = d_model, int(state_dim), int(head_dim)
+    W = lambda *s: (rng.standard_normal(s) / np.sqrt(s[0])).astype(np.float32)
+
+    # Khatri-Rao helpers: slot n*P+p of the flat (N*P,) state holds S[n, p]
+    Kn = np.zeros((N, N * P), np.float32)   # broadcast over p: Kn[n, n*P+p]=1
+    Kp = np.zeros((P, N * P), np.float32)   # broadcast over n: Kp[p, n*P+p]=1
+    for n in range(N):
+        for p in range(P):
+            Kn[n, n * P + p] = 1.0
+            Kp[p, n * P + p] = 1.0
+
+    pb = ProgramBuilder("mamba2-decode-lm")
+    pb.constant("E", W(vocab, D))             # embedding table
+    pb.constant("W_dt", W(D, 1))              # step-size projection
+    pb.constant("W_B", W(D, N))               # input projection (B_t)
+    pb.constant("W_C", W(D, N))               # output projection (C_t)
+    pb.constant("W_x", W(D, P))               # head-input projection
+    pb.constant("W_z", W(D, P))               # gate projection
+    pb.constant("W_out", W(P, D))             # head-output projection
+    pb.constant("Wo", W(D, vocab))            # LM head
+    pb.constant("Kn", Kn)
+    pb.constant("Kp", Kp)
+    pb.constant("Cp", Kp.T.copy())            # contract slots back to (P,)
+    pb.constant("A", np.array(-1.0, np.float32))  # decay rate (A_log = 0)
+
+    # head(h) -> logits: shared by prefill and decode_step (one jitted unit)
+    head = pb.function("head", ["h"])
+    head.use_global("Wo")
+    lg = head.emit("matmul", "h", "Wo")
+    head.build([lg])
+
+    # cell(S, e) -> (h, S'): one SSD recurrence step on embedded input e.
+    # Shared by decode_step and prefill's last position, so the prefill's
+    # final update is the *same unit at the same signature* as a step.
+    cell = pb.function("cell", ["S", "e"])
+    for w in ("W_dt", "W_B", "W_C", "W_x", "W_z", "W_out", "Kn", "Kp", "Cp", "A"):
+        cell.use_global(w)
+    dt = cell.emit("sigmoid", cell.emit("matmul", "e", "W_dt"))   # (B, 1)
+    dec = cell.emit("exp", cell.emit("mul", dt, "A"))             # (B, 1)
+    b1 = cell.emit("matmul", "e", "W_B")                          # (B, N)
+    xdt = cell.emit("mul", cell.emit("matmul", "e", "W_x"), dt)   # (B, P)
+    # outer product B_t ⊗ (dt·x_t), flattened: slot n*P+p = b1[n] * xdt[p]
+    u = cell.emit("mul",
+                  cell.emit("matmul", b1, "Kn"),
+                  cell.emit("matmul", xdt, "Kp"))                 # (B, N*P)
+    S2 = cell.emit("add", cell.emit("mul", "S", dec), u)          # (B, N*P)
+    # y[p] = Σ_n C_t[n] · S'[n, p] — contraction via the same slot layout
+    c1 = cell.emit("matmul", "e", "W_C")                          # (B, N)
+    y = cell.emit("matmul",
+                  cell.emit("mul", cell.emit("matmul", c1, "Kn"), S2),
+                  "Cp")                                           # (B, P)
+    g = cell.emit("mul", y, cell.emit("silu", cell.emit("matmul", "e", "W_z")))
+    h = cell.emit("tanh", cell.emit("add", cell.emit("matmul", g, "W_out"), "e"))
+    cell.build([h, S2])
+
+    # encode(tokens) -> (h, S'): whole-prompt SSD in closed form.  The scan
+    #   S_t = dec_t · S_{t-1} + u_t  with S_0 = 0
+    # has solution  S_{T-1} = Σ_{t<T-1} u_t · exp(Σ_{t<s≤T-1} dA_s), computed
+    # with cumsum weights; the final token then routes through `cell`.
+    enc = pb.function("encode", ["tokens"])
+    for w in ("E", "W_dt", "W_B", "W_x", "Kn", "Kp", "A"):
+        enc.use_global(w)
+    e = enc.emit("embed", "E", "tokens")                          # (B, T, D)
+    dt = enc.emit("sigmoid", enc.emit("matmul", e, "W_dt"))       # (B, T, 1)
+    dA = enc.emit("mul", dt, "A")                                 # (B, T, 1)
+    # position index 1..T, derived in-program so the entry stays unary
+    ones = enc.emit("cast", enc.emit("eq", "tokens", "tokens"), dtype="float32")
+    idx = enc.emit("cumsum", ones, axis=1)                        # (B, T) = 1..T
+    mx = enc.emit("reduce_max", idx, axis=(1,), keepdims=True)    # (B, 1) = T
+    # prefix mask: positions strictly before the last one
+    fm = enc.emit("expand_dims",
+                  enc.emit("cast", enc.emit("lt", idx, mx), dtype="float32"),
+                  axis=2)                                         # (B, T, 1)
+    dAm = enc.emit("mul", dA, fm)
+    cs = enc.emit("cumsum", dAm, axis=1)                          # (B, T, 1)
+    tot = enc.emit("reduce_sum", dAm, axis=(1,), keepdims=True)   # (B, 1, 1)
+    wts = enc.emit("exp", enc.emit("sub", tot, cs))               # (B, T, 1)
+    b1 = enc.emit("matmul", e, "W_B")                             # (B, T, N)
+    xdt = enc.emit("mul", enc.emit("matmul", e, "W_x"), dt)       # (B, T, P)
+    u = enc.emit("mul",
+                 enc.emit("matmul", b1, "Kn"),
+                 enc.emit("matmul", xdt, "Kp"))                   # (B, T, N*P)
+    up = enc.emit("mul", u, enc.emit("mul", wts, fm))
+    S_prev = enc.emit("reduce_sum", up, axis=(1,))                # (B, N*P)
+    # select the last prompt embedding with a one-hot matmul (T is dynamic)
+    oh = enc.emit("cast", enc.emit("eq", idx, mx), dtype="float32")
+    e_last = enc.emit("squeeze",
+                      enc.emit("matmul", enc.emit("expand_dims", oh, axis=1), e),
+                      axis=1)                                     # (B, D)
+    h, S2 = enc.call("cell", S_prev, e_last)
+    enc.build([h, S2])
+
+    # prefill(tokens) -> (logits, S): program entry
+    pf = pb.function("prefill", ["tokens"])
+    h, S2 = pf.call("encode", "tokens")
+    if with_host_check:
+        h = pf.emit("host_assert_finite", h, tag="mamba2-lm.prefill")
+    lg = pf.call("head", h)
+    pf.build([lg, S2])
+
+    # decode_step(S, token) -> (logits, S'): the per-token root
+    st = pb.function("decode_step", ["S", "token"])
+    st.use_global("E")
+    e = st.emit("embed", "E", "token")                            # (B, D)
+    h, S2 = st.call("cell", "S", e)
+    if with_host_check:
+        h = st.emit("host_assert_finite", h, tag="mamba2-lm.step")
+    lg = st.call("head", h)
+    st.build([lg, S2])
+
+    return pb.build("prefill")
+
+
 def load_reference_constants(program: Program,
                              constants: Mapping[str, np.ndarray]) -> Program:
     """Install ``constants`` (e.g. the reference program's

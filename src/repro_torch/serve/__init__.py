@@ -13,8 +13,13 @@ through the block-sparse paged-attention CUDA kernel.
         tokens = sched.decode(prompt, max_new_tokens=16)
         print(sched.report())            # tokens/crossing, occupancy, ...
 
-Request-level serving, multi-model co-serving, AOT and the cluster tier
-come with later slices of the port.
+:class:`MultiModelDecodeScheduler` co-serves several decode models —
+say the mamba2 SSM (fixed-size state, no pages) and the attention LM (paged
+KV) — from one loop over one shared :class:`PagePool`, reporting per model
+and for the pool (:class:`MultiModelReport`).
+
+Request-level serving, AOT and the cluster tier come with later slices of
+the port.
 """
 from .batcher import (
     BlockTable,
@@ -23,10 +28,11 @@ from .batcher import (
     SlotMap,
     StateSpec,
 )
-from .reports import DecodeReport, DecodeStats
+from .reports import DecodeReport, DecodeStats, MultiModelReport
 from .runtime import (
     DecodeScheduler,
     DecodeStream,
+    MultiModelDecodeScheduler,
     decode_reference,
     greedy_sample,
     paged_decode_reference,
@@ -35,5 +41,6 @@ from .runtime import (
 __all__ = [
     "BlockTable", "PagePool", "PagedKVState", "SlotMap", "StateSpec",
     "DecodeScheduler", "DecodeStream", "DecodeReport", "DecodeStats",
+    "MultiModelDecodeScheduler", "MultiModelReport",
     "decode_reference", "greedy_sample", "paged_decode_reference",
 ]

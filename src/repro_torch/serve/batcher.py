@@ -350,14 +350,25 @@ class PagedKVState:
     Not thread-safe; owned by the scheduler's decode loop.
     """
 
-    def __init__(self, capacity: int, spec: StateSpec):
+    def __init__(self, capacity: int, spec: StateSpec,
+                 pool: PagePool | None = None):
         if not spec.paged:
             raise ValueError("PagedKVState needs a StateSpec with growing arrays")
         self.capacity = int(capacity)
         self.spec = spec
-        self.pool = PagePool(spec.pool_pages(capacity), spec.page_size)
-        # physical page accounting: allocs - frees is the pages this state
-        # holds in its pool
+        if pool is None:
+            pool = PagePool(spec.pool_pages(capacity), spec.page_size)
+        elif pool.page_size != spec.page_size:
+            raise ValueError(
+                f"shared PagePool has page_size={pool.page_size} but the "
+                f"StateSpec declares page_size={spec.page_size}")
+        self.pool = pool
+        # per-instance *physical* page accounting: with a shared pool
+        # (multi-model serving) the pool's global counters mix every model's
+        # traffic, so each state tracks its own allocs/frees.  Pages never
+        # alias across PagedKVState instances (block tables and the prefix
+        # index are per-instance), so allocs - frees is exactly the pages
+        # this instance holds.
         self.page_allocs = 0
         self.page_frees = 0
         self.page_peak_in_use = 0

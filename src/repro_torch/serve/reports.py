@@ -3,8 +3,10 @@
 Where :class:`~repro_torch.core.stats.ExecutionReport` describes one entry call,
 :class:`DecodeReport` describes the token-level continuous-batching
 scheduler across calls: tokens per crossing, per-step occupancy, admission
-waits, page-pool and paged-kernel counters.  (The request-level, cluster and
-multi-model reports come with those runtimes in later slices of the port.)
+waits, page-pool and paged-kernel counters; :class:`MultiModelReport` holds
+one per co-served model plus the shared pool's counters.  (The
+request-level and cluster reports come with those runtimes in later slices
+of the port.)
 
 Ratio metrics can be undefined before any qualifying work ran (e.g.
 ``tokens_per_crossing`` before the first crossing).  The numeric properties
@@ -267,6 +269,133 @@ class DecodeReport:
                 ("page visit fraction", _fmt(self.page_visit_fraction)),
             ]
         return _render_rows(rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiModelReport:
+    """Per-model + aggregate view over a
+    :class:`~repro_torch.serve.MultiModelDecodeScheduler`.
+
+    ``models`` holds one :class:`DecodeReport` per registered model — the
+    per-model sections, each with its own tokens/crossing, occupancy, and
+    page counters (a fixed-size-state model's ``page_allocs`` is 0 by
+    contract).  The ``pool_*`` fields are the *shared* :class:`PagePool`'s
+    global counters, mixing every paged tenant's traffic; per-model page
+    accounting lives in each model's section, and the two reconcile:
+    ``pool_allocs == sum of per-model page_allocs`` (likewise frees), so
+    the cross-tenant leak identity ``pool_allocs - pool_frees ==
+    pool_in_use == 0`` holds at close.  Aggregate properties sum over the
+    sections; the co-serving headline is the per-model contrast in
+    :attr:`DecodeReport.state_bytes_per_crossing` — fixed-size state pays
+    a tiny constant per crossing while growing KV state pays the padded
+    cache — which :meth:`table` puts side by side.
+    """
+
+    models: dict[str, DecodeReport] = dataclasses.field(default_factory=dict)
+    # shared-pool globals (0 when no registered model pages)
+    pool_pages: int = 0
+    pool_page_size: int = 0
+    pool_in_use: int = 0                # at snapshot; 0 after close = no leaks
+    pool_peak: int = 0                  # high-water across all tenants
+    pool_allocs: int = 0
+    pool_frees: int = 0
+    pool_refs_outstanding: int = 0      # refcount leaks across tenants
+
+    def _sum(self, field: str) -> int:
+        return sum(getattr(r, field) for r in self.models.values())
+
+    @property
+    def streams(self) -> int:
+        return self._sum("streams")
+
+    @property
+    def tokens(self) -> int:
+        return self._sum("tokens")
+
+    @property
+    def steps(self) -> int:
+        return self._sum("steps")
+
+    @property
+    def prefills(self) -> int:
+        return self._sum("prefills")
+
+    @property
+    def crossings(self) -> int:
+        return self._sum("crossings")
+
+    @property
+    def state_bytes(self) -> int:
+        return self._sum("state_bytes")
+
+    @property
+    def failures(self) -> int:
+        return self._sum("failures")
+
+    @property
+    def tokens_per_crossing(self) -> float:
+        """Aggregate tokens per guest→host crossing (NaN until any)."""
+        if self.crossings == 0:
+            return math.nan
+        return self.tokens / self.crossings
+
+    @property
+    def state_bytes_per_crossing(self) -> float:
+        """Aggregate marshalled state bytes per crossing (NaN until any)."""
+        if self.crossings == 0:
+            return math.nan
+        return self.state_bytes / self.crossings
+
+    def as_dict(self) -> dict:
+        return {
+            "models": {name: r.as_dict() for name, r in self.models.items()},
+            "streams": self.streams,
+            "tokens": self.tokens,
+            "steps": self.steps,
+            "prefills": self.prefills,
+            "crossings": self.crossings,
+            "tokens_per_crossing": self.tokens_per_crossing,
+            "state_bytes": self.state_bytes,
+            "state_bytes_per_crossing": self.state_bytes_per_crossing,
+            "failures": self.failures,
+            "pool_pages": self.pool_pages,
+            "pool_page_size": self.pool_page_size,
+            "pool_in_use": self.pool_in_use,
+            "pool_peak": self.pool_peak,
+            "pool_allocs": self.pool_allocs,
+            "pool_frees": self.pool_frees,
+            "pool_refs_outstanding": self.pool_refs_outstanding,
+        }
+
+    def __str__(self) -> str:
+        return (
+            f"MultiModelReport(models={len(self.models)}, "
+            f"streams={self.streams}, tokens={self.tokens}, "
+            f"tokens/crossing={_fmt(self.tokens_per_crossing)}, "
+            f"pool_in_use={self.pool_in_use}/{self.pool_pages})"
+        )
+
+    def table(self) -> str:
+        """Per-model sections plus the aggregate, for demos/benchmarks."""
+        parts = []
+        for name in sorted(self.models):
+            parts.append(f"[{name}]\n{self.models[name].table()}")
+        rows = [
+            ("models", str(len(self.models))),
+            ("streams", str(self.streams)),
+            ("tokens", str(self.tokens)),
+            ("crossings", str(self.crossings)),
+            ("tokens/crossing", _fmt(self.tokens_per_crossing)),
+            ("state bytes/crossing", _fmt(self.state_bytes_per_crossing, ".0f")),
+            ("failures", str(self.failures)),
+        ]
+        if self.pool_pages:
+            rows.append(
+                ("shared pool in use",
+                 f"{self.pool_in_use}/{self.pool_pages} "
+                 f"(peak {self.pool_peak}, size {self.pool_page_size})"))
+        parts.append("[aggregate]\n" + _render_rows(rows))
+        return "\n\n".join(parts)
 
 
 class DecodeStats(_OwnerFoldingStats):

@@ -14,10 +14,14 @@ each step goes through the block-sparse paged-attention CUDA kernel.
                                          max_context=32, page_size=4)) as s:
         tokens = s.decode(prompt, max_new_tokens=16)
 
+:class:`MultiModelDecodeScheduler` co-serves several decode models (for
+example the mamba2 SSM and the attention LM) from one loop over one shared
+page pool, one batched crossing per model per iteration.
+
 The offload units run on CUDA unless ``backend="cpu"`` is passed (the
 tests do).  The page pools stay numpy on the host and cross at every step,
-as in the reference.  Request-level serving (``MixedServer``) and
-multi-model co-serving come with later slices of the port.
+as in the reference.  Request-level serving (``MixedServer``) comes with a
+later slice of the port.
 """
 from __future__ import annotations
 
@@ -34,14 +38,16 @@ from .. import obs
 from ..core.api import CompiledHybrid, PlannedProgram
 from .batcher import (
     PagedKVState,
+    PagePool,
     SlotMap,
     StateSpec,
     pad_rows,
 )
-from .reports import DecodeReport, DecodeStats
+from .reports import DecodeReport, DecodeStats, MultiModelReport
 
 
 _CLOSE = object()
+_WAKE = object()
 
 
 def _resolve(fut: Future, *, result=None, exception=None) -> None:
@@ -233,6 +239,8 @@ class DecodeScheduler:
         state: StateSpec | None = None,
         prefill_suffix: str | None = None,
         paged_step: str | None = None,
+        page_pool: PagePool | None = None,
+        page_quota: int | None = None,
         tracer: "obs.Tracer | None" = None,
     ):
         # explicit tracer wins; otherwise each phase consults the process
@@ -276,11 +284,29 @@ class DecodeScheduler:
                     f"returns only {self._n_state} state array(s)"
                 )
         # paged growing-state storage; None for fixed-row state contracts.
-        # Admission gates each stream's worst case against the whole pool.
-        self._paged = (PagedKVState(self.capacity, self.state_spec)
+        # ``page_pool`` lets several schedulers share one physical pool
+        # (multi-model co-serving); ``page_quota`` is then this scheduler's
+        # admission budget within it — worst-case gating against the quota
+        # keeps every co-tenant's admitted streams able to grow to their
+        # end even when the pool itself is shared.
+        if (page_pool is not None or page_quota is not None) \
+                and not self.state_spec.paged:
+            raise ValueError(
+                "page_pool/page_quota need a paged StateSpec (growing "
+                "arrays) — a fixed-row state allocates no pages")
+        self._paged = (PagedKVState(self.capacity, self.state_spec,
+                                    pool=page_pool)
                        if self.state_spec.paged else None)
-        self._pool_pages = (self._paged.pool.pages if self._paged is not None
-                            else 0)
+        if self._paged is not None:
+            quota = (int(page_quota) if page_quota is not None
+                     else self.state_spec.pool_pages(self.capacity))
+            if not 1 <= quota <= self._paged.pool.pages:
+                raise ValueError(
+                    f"page_quota={quota} must be in [1, "
+                    f"{self._paged.pool.pages}] (the pool's page count)")
+            self._page_quota = quota
+        else:
+            self._page_quota = 0
         self._pages_committed = 0      # worst-case pages of live streams
         self._paged_dirty = True       # membership changed since last gather
         # the prefix-sharing prefill: a root with the step's arg structure
@@ -437,11 +463,11 @@ class DecodeScheduler:
                     f"prompt_len + max_new_tokens - 1 = {worst_ctx} exceeds "
                     f"the state contract's max_context={spec.max_context}"
                 )
-            if spec.pages_needed(worst_ctx) > self._pool_pages:
+            if spec.pages_needed(worst_ctx) > self._page_quota:
                 raise ValueError(
                     f"stream needs {spec.pages_needed(worst_ctx)} pages at "
-                    f"worst case but this scheduler's page pool holds only "
-                    f"{self._pool_pages}"
+                    f"worst case but this scheduler's page quota is only "
+                    f"{self._page_quota}"
                 )
         stream = DecodeStream(prompt, int(max_new_tokens),
                               self.eos if eos is None else eos)
@@ -556,7 +582,10 @@ class DecodeScheduler:
         """Fail every live and pending stream with ``e`` and keep serving.
 
         Records everything before resolving any future: a client waking
-        from ``result()`` must see current counters.
+        from ``result()`` must see current counters.  Shared by this
+        scheduler's own loop and by :class:`MultiModelDecodeScheduler`,
+        whose loop drives several schedulers and must contain one model's
+        poisoned iteration to that model's streams.
         """
         failed: list[DecodeStream] = []
         for slot, stream in self._slots.occupied():
@@ -629,7 +658,7 @@ class DecodeScheduler:
         """Quota pages not spoken for by any live stream's worst case."""
         if self._paged is None:
             return 0
-        return self._pool_pages - self._pages_committed
+        return self._page_quota - self._pages_committed
 
     def _release_slot(self, stream: DecodeStream) -> None:
         """Free the stream's slot and recycle its pages + reservation."""
@@ -641,9 +670,13 @@ class DecodeScheduler:
 
     def _record_pool(self) -> None:
         if self._paged is not None:
+            # per-instance counters, not the pool's: with a shared pool
+            # (multi-model co-serving) the pool's global totals mix every
+            # tenant's traffic, while these are exactly this scheduler's.
+            # For a private pool the two are identical.
             paged, pool = self._paged, self._paged.pool
             self._stats.record_pool(
-                page_size=pool.page_size, page_capacity=self._pool_pages,
+                page_size=pool.page_size, page_capacity=self._page_quota,
                 in_use=paged.pages_in_use, peak=paged.page_peak_in_use,
                 allocs=paged.page_allocs, frees=paged.page_frees,
                 prefix_hits=paged.prefix_hits,
@@ -1023,6 +1056,300 @@ class DecodeScheduler:
         self._release_slot(stream)
         stream.retired_step = (stream.admitted_step - 1 if at_prefill
                                else self._step_idx - 1)
+
+
+class MultiModelDecodeScheduler:
+    """Heterogeneous co-serving: several decode models, one scheduler.
+
+    Each :meth:`register`\\ ed model — a ``(PlannedProgram, StateSpec)``
+    pair with its own step root, capacity, and sampling config — becomes a
+    **lane**: a full :class:`DecodeScheduler` whose slot partition,
+    signature group, and counters are private to that model, but whose
+    loop thread is never started.  This scheduler runs ONE loop thread
+    that drives every lane in turn, so each iteration issues **one
+    batched prefill/step crossing per model** — the multi-model analogue
+    of continuous batching's one-crossing-per-step contract — and a
+    poisoned iteration in one model's lane fails only that model's
+    streams (see :meth:`DecodeScheduler._fail_all`).
+
+    **Shared page pool.**  All paged lanes draw from one
+    :class:`~repro_torch.serve.PagePool` sized at build time to the sum of the
+    lanes' quotas (each quota defaults to the lane's can't-fail pool size;
+    cap it via ``StateSpec(pages=...)``).  Every lane admission-gates
+    against its own quota, so co-tenants can never starve each other of
+    pages mid-flight, and per-lane page accounting
+    (:class:`~repro_torch.serve.batcher.PagedKVState`) keeps each model's
+    ``page_allocs``/``page_frees`` exact while the pool's globals sum
+    them.  A fixed-size-state model (``StateSpec(growing={})`` — e.g. the
+    mamba2 SSM export) never touches the pool at all: its lane asserts
+    the degenerate fast path's ``page_allocs == 0`` contract simply by
+    construction.
+
+    **Bit-exactness** is inherited lane by lane: every lane pads to its
+    own fixed capacity, so each stream's tokens are bit-identical to its
+    model's solo :func:`decode_reference` regardless of what the *other*
+    models were doing — the whole point of per-model signature groups.
+
+    **Lifecycle.**  ``register(...)`` (before any traffic) →
+    ``submit(model=...)`` / ``warm(model, ...)`` → ``report()`` →
+    ``close()``.  The lanes are built lazily on first use; registering
+    after that raises.
+
+        multi = MultiModelDecodeScheduler()
+        multi.register("attn", planned_attn, step="decode_step",
+                       capacity=4, state=StateSpec(growing={0: 1, 1: 1},
+                                                   max_context=32,
+                                                   page_size=8))
+        multi.register("mamba2", planned_m2, step="decode_step", capacity=4)
+        with multi:
+            a = multi.submit(prompt, 8, model="attn")
+            b = multi.submit(prompt, 8, model="mamba2")
+            print(multi.report().table())    # per-model sections + aggregate
+    """
+
+    def __init__(self, *, start: bool = True,
+                 tracer: "obs.Tracer | None" = None):
+        # start=True (default) launches the loop on first submit; start=False
+        # queues submissions until start() — the deterministic way to admit a
+        # whole multi-model burst together (same idiom as DecodeScheduler)
+        self._autostart = bool(start)
+        self._tracer = tracer
+        self._configs: dict[str, tuple[PlannedProgram, dict]] = {}
+        self._lanes: dict[str, DecodeScheduler] | None = None
+        self.pool: PagePool | None = None
+        self._queue: queue.Queue = queue.Queue()
+        self._closed = False
+        self._started = False
+        self._lock = threading.Lock()
+        self._loop_thread = threading.Thread(
+            target=self._loop, name="mixed-multimodel-loop", daemon=True
+        )
+
+    # -- registration ---------------------------------------------------------
+
+    def register(
+        self,
+        name: str,
+        planned: PlannedProgram,
+        *,
+        step: str,
+        capacity: int = 8,
+        state: StateSpec | None = None,
+        **kwargs,
+    ) -> "MultiModelDecodeScheduler":
+        """Add a model lane (chainable).  Must precede the first submit/warm.
+
+        ``kwargs`` forward to the lane's :class:`DecodeScheduler`
+        (``sample``, ``eos``, ``prefill_suffix``, ``paged_step``,
+        ``backend``, ...); the scheduler itself owns the lane's lifecycle
+        and pool plumbing, so ``start``/``page_pool``/``page_quota``/
+        ``tracer`` are rejected here.
+        """
+        for owned in ("start", "page_pool", "page_quota", "tracer"):
+            if owned in kwargs:
+                raise TypeError(
+                    f"register() manages {owned!r} itself; it cannot be "
+                    f"passed per model")
+        with self._lock:
+            if self._lanes is not None:
+                raise RuntimeError(
+                    "cannot register a model after the scheduler started "
+                    "serving (lanes and the shared pool are already built)")
+            if name in self._configs:
+                raise ValueError(f"model {name!r} is already registered")
+            self._configs[name] = (
+                planned, dict(step=step, capacity=capacity, state=state,
+                              **kwargs))
+        return self
+
+    @property
+    def registered(self) -> tuple[str, ...]:
+        """Registered model names, in registration order."""
+        return tuple(self._configs)
+
+    def _ensure_built(self) -> None:
+        """Build the lanes and the shared pool (idempotent, first use)."""
+        with self._lock:
+            if self._lanes is not None:
+                return
+            if not self._configs:
+                raise RuntimeError(
+                    "no models registered; call register() before serving")
+            # one shared physical pool sized to the sum of per-lane quotas;
+            # quota-gated admission inside each lane keeps tenants isolated
+            quotas: dict[str, int] = {}
+            page_size: int | None = None
+            for name, (_planned, kw) in self._configs.items():
+                spec = kw["state"]
+                if spec is None or not spec.paged:
+                    continue
+                if page_size is None:
+                    page_size = spec.page_size
+                elif page_size != spec.page_size:
+                    raise ValueError(
+                        f"model {name!r} declares page_size="
+                        f"{spec.page_size} but the shared pool was sized "
+                        f"at page_size={page_size}; co-served paged specs "
+                        f"must agree on page_size")
+                quotas[name] = spec.pool_pages(int(kw["capacity"]))
+            pool = (PagePool(sum(quotas.values()), page_size)
+                    if quotas else None)
+            lanes: dict[str, DecodeScheduler] = {}
+            for name, (planned, kw) in self._configs.items():
+                paged = name in quotas
+                lanes[name] = DecodeScheduler(
+                    planned,
+                    start=False,            # this scheduler's loop drives it
+                    page_pool=pool if paged else None,
+                    page_quota=quotas.get(name),
+                    tracer=self._tracer,
+                    **kw,
+                )
+            self.pool = pool
+            self._lanes = lanes
+
+    # -- client surface -------------------------------------------------------
+
+    def submit(
+        self,
+        prompt,
+        max_new_tokens: int,
+        *,
+        model: str,
+        eos: int | None = None,
+    ) -> DecodeStream:
+        """Enqueue one decode stream on ``model``'s lane.
+
+        Same contract as :meth:`DecodeScheduler.submit`, plus routing:
+        ``model`` must name a registered model.  Admission, stepping, and
+        retirement happen on the model's own slot partition, so streams
+        of different models never share a batch row.
+        """
+        if self._autostart:
+            self.start()    # lanes built + loop running on first traffic
+        else:
+            self._ensure_built()
+        lane = self._lanes.get(model)
+        if lane is None:
+            raise KeyError(
+                f"unknown model {model!r}; registered models: "
+                f"{sorted(self._lanes)}")
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("MultiModelDecodeScheduler is closed")
+            # enqueue lane item and wake token under one lock: nothing can
+            # land in a lane queue after close() queued the _CLOSE sentinel
+            stream = lane.submit(prompt, max_new_tokens, eos=eos)
+            self._queue.put(_WAKE)
+        return stream
+
+    def decode(self, prompt, max_new_tokens: int, *, model: str,
+               eos: int | None = None,
+               timeout: float | None = None) -> np.ndarray:
+        """Blocking convenience: ``submit(...).result(timeout)``."""
+        return self.submit(prompt, max_new_tokens, model=model,
+                           eos=eos).result(timeout)
+
+    def warm(self, model: str, prompt_len: int, **kwargs) -> None:
+        """Pre-compile ``model``'s prefill/step signatures (see
+        :meth:`DecodeScheduler.warm`)."""
+        self._ensure_built()
+        if model not in self._lanes:
+            raise KeyError(
+                f"unknown model {model!r}; registered models: "
+                f"{sorted(self._lanes)}")
+        self._lanes[model].warm(prompt_len, **kwargs)
+
+    def report(self) -> MultiModelReport:
+        """Per-model :class:`DecodeReport` sections + shared-pool globals."""
+        lanes = self._lanes or {}
+        pool = self.pool
+        return MultiModelReport(
+            models={name: lane.report() for name, lane in lanes.items()},
+            pool_pages=pool.pages if pool else 0,
+            pool_page_size=pool.page_size if pool else 0,
+            pool_in_use=pool.in_use if pool else 0,
+            pool_peak=pool.peak_in_use if pool else 0,
+            pool_allocs=pool.allocs if pool else 0,
+            pool_frees=pool.frees if pool else 0,
+            pool_refs_outstanding=pool.refs_outstanding if pool else 0,
+        )
+
+    def start(self) -> None:
+        """Build the lanes and start the co-serving loop (idempotent)."""
+        self._ensure_built()
+        with self._lock:
+            if self._started:
+                return
+            self._started = True
+            self._loop_thread.start()
+
+    def close(self) -> None:
+        """Stop accepting, decode every queued stream on every lane to
+        completion, then join the loop thread (same every-caller-joins
+        contract as :meth:`DecodeScheduler.close`)."""
+        with self._lock:
+            if self._lanes is None and not self._configs:
+                self._closed = True     # nothing registered: nothing to drain
+                return
+        self.start()
+        with self._lock:
+            if not self._closed:
+                self._closed = True
+                self._queue.put(_CLOSE)
+        self._loop_thread.join()
+
+    def __enter__(self) -> "MultiModelDecodeScheduler":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- the co-serving loop (scheduler thread) -------------------------------
+
+    def _drain(self, block: bool) -> bool:
+        """Consume wake tokens from this scheduler's own queue; True once
+        the close sentinel has been seen.  The tokens carry no payload —
+        submissions live in the lanes' queues — they only bound how long
+        an idle loop blocks."""
+        closing = False
+        if block:
+            closing = self._queue.get() is _CLOSE
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                return closing
+            if item is _CLOSE:
+                closing = True
+
+    def _loop(self) -> None:
+        lanes = list(self._lanes.values())
+        closing = False
+        while True:
+            idle = (not closing
+                    and all(lane._slots.live == 0 and not lane._pending
+                            and lane._queue.empty() for lane in lanes))
+            closing = self._drain(block=idle) or closing
+            for lane in lanes:
+                # one admission pass + ONE batched step crossing per model
+                # per iteration; a poisoned model fails only its own lane
+                try:
+                    lane._drain(block=False)
+                    lane._admit()
+                    if lane._slots.live:
+                        lane._step_all()
+                except Exception as e:  # noqa: BLE001 — contain the blast
+                    # radius to this lane's streams and keep co-serving
+                    lane._fail_all(e)
+            if closing and all(lane._slots.live == 0 and not lane._pending
+                               and lane._queue.empty() for lane in lanes):
+                for lane in lanes:
+                    if lane._paged is not None:
+                        # same zero-leak drain contract as a solo close()
+                        lane._paged.clear_prefix_index()
+                        lane._record_pool()
+                return
 
 
 def decode_reference(

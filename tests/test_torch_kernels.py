@@ -6,8 +6,9 @@ Pallas kernels (interpret mode, as ``tests/test_kernels.py`` runs them) and
 the reference's oracles over the same cases, in float32 and bfloat16, at the
 reference's tolerances: 2e-5 for attention and 1e-5 for RMSNorm in float32,
 2e-2 in bfloat16.  The causal cases have T == S, where the flash kernel's
-top-left mask and the oracle's bottom-right mask agree.  The port's torch
-oracles are checked against the reference's too.
+top-left mask and the oracle's bottom-right mask agree.  The port's oracles
+(its plain versions and ``ref.rmsnorm_ref``) are checked against the
+reference's too.
 
 The CUDA kernels themselves are compared with their plain versions on the
 card (marked ``gpu``, skipped without CUDA); the reference package is
@@ -120,17 +121,19 @@ def test_rmsnorm_matches_reference(shape, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_torch_oracles_match_reference_oracles(dtype):
+    """The port keeps one copy of each formula: the plain versions are the
+    attention kernels' oracles, ``ref.rmsnorm_ref`` RMSNorm's."""
     from repro.kernels import ref as jref
 
     for case in ATTN_CASES:
         (jq, tq), (jk, tk), (jv, tv) = _attn_inputs(case, dtype)
-        _close(tref.attention_ref(tq, tk, tv, causal=case[6]),
+        _close(flash_attention_plain(tq, tk, tv, causal=case[6]),
                jref.attention_ref(jq, jk, jv, causal=case[6]), dtype, 2e-5)
     for B, Hq, Hkv, S, d, pos, _ in DECODE_CASES:
         (jq, tq), (jk, tk), (jv, tv) = (_both((B, Hq, 1, d), dtype, 3),
                                         _both((B, Hkv, S, d), dtype, 4),
                                         _both((B, Hkv, S, d), dtype, 5))
-        _close(tref.decode_attention_ref(tq, tk, tv, pos),
+        _close(decode_attention_plain(tq, tk, tv, torch.tensor(pos, dtype=torch.int32)),
                jref.decode_attention_ref(jq, jk, jv, pos), dtype, 2e-5)
     for shape in RMS_SHAPES:
         (jx, tx), (jw, tw) = _both(shape, dtype, 6), _both(shape[-1:], "float32", 7)
