@@ -35,7 +35,8 @@ Phases (any failure exits non-zero; the result lines print only at the end):
 5. The dense kernels (RMSNorm, flash attention, flash-decode) against their
    plain versions on the card: the reference's kernel cases
    (``tests/test_kernels.py``) plus every shape the dense, mixed and paged
-   paths and their float32 gates give the kernels, float32 at
+   paths and their float32 gates give the kernels, and RMSNorm at the train
+   step's (8, 1024, 960) rows, float32 at
    2e-5 (RMSNorm 1e-5) and bfloat16 at 2e-2; decode with pos < 0 gives exact
    zeros; row b of a batched flash launch is bitwise equal to a solo launch;
    a causal ``sdpa`` op with T != S is refused on the card.
@@ -75,6 +76,25 @@ Phases (any failure exits non-zero; the result lines print only at the end):
 12. The SSD kernel's time at the path's shape against its bound and its
    plain version (no single PyTorch call computes it), and the flash,
    flash-decode and RMSNorm kernels' times at the hybrid shapes.
+13. The training kernels (forward with statistics, dQ, dK/dV) against their
+   plain versions on the card: the reference's ``BWD_CASES``, a short last
+   tile at d = 128 and the train step's shape, float32 at 2e-4 and bfloat16
+   at 2e-2; batched == solo bitwise and strided views at the train shape.
+14. The training path at full width: ``launch.train.train`` on SmolLM-360M
+   uncut (float32 masters, bf16 compute, remat, tp=1, AdamW lr 3e-4, clip
+   1.0), 6 steps of 8 x 1024 ``TokenPipeline`` tokens.  Gates: finite
+   losses and grad norms; 64 forward-with-statistics (32 + 32 recomputed),
+   32 dQ and 32 dK/dV launches per step and no plain-version call; one
+   step's gradients through the kernels against the plain versions in
+   their places (one run each, back to back) at a global relative error
+   <= 2e-2, every leaf finite and nonzero where the plain one is; on the
+   reduced config in float32 the card's step equals the CPU's (1e-4) and a
+   3 + 3 resumed run equals 6 uninterrupted steps (rtol 1e-5, atol 1e-6).
+   Step p50, tokens/s,
+   peak memory, and a profiler window of one step.  Then the three kernels'
+   times at the train shape against their bounds, their plain versions and
+   ``scaled_dot_product_attention``'s forward and backward, and RMSNorm's at
+   the train step's (8, 1024, 960) rows against ``F.rms_norm``.
 
 The last lines are a ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  The script needs the repo's
@@ -105,7 +125,7 @@ H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
 H100_BF16_FLOPS = 989e12         # bf16 tensor cores, dense
 
 KERNEL_SOURCES = ("paged_decode_attention", "rmsnorm", "flash_attention",
-                  "decode_attention", "ssm_scan")
+                  "decode_attention", "ssm_scan", "flash_attention_bwd")
 
 # the dense path: SmolLM-360M at full size (src/repro_torch/configs/smollm_360m.py)
 DENSE_ARCH, DENSE_B, DENSE_PROMPT, DENSE_NEW = "smollm-360m", 8, 512, 32
@@ -117,6 +137,13 @@ HYB_HEADS, HYB_HD, HYB_D = 32, 80, 2560
 SSD_H, SSD_P, SSD_N, SSD_Q = 80, 64, 64, 256
 GATE_B, GATE_PROMPT, GATE_STEPS = 2, 300, 4     # the hybrid float32 gate
 HYB_CACHE = HYBRID_PROMPT + HYBRID_NEW + 1      # 1057 positions
+# the training path: SmolLM-360M uncut, 6 steps of 8 x 1024 tokens
+TRAIN_ARCH, TRAIN_B, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = "smollm-360m", 8, 1024, 6, 3e-4
+# the reference's BWD_CASES (tests/test_profiling_and_flash_bwd.py), a short
+# last tile at Qwen2's head dim, and the train step's attention:
+# (B, Hq, Hkv, T, d, causal)
+BWD_CASES = [(1, 2, 2, 64, 16, True), (2, 4, 2, 64, 32, True), (1, 2, 1, 96, 16, False),
+             (2, 6, 2, 100, 128, True), (TRAIN_B, 15, 5, TRAIN_SEQ, 64, True)]
 # the reference's kernel cases (tests/test_kernels.py) and this path's shapes
 ATTN_CASES = [  # (B, Hq, Hkv, T, S, d, causal)
     (1, 2, 2, 128, 128, 32, True), (2, 4, 2, 128, 128, 64, True),
@@ -143,7 +170,8 @@ RMS_SHAPES = [(8, 64), (3, 5, 128), (256, 32),
               (DENSE_B * DENSE_PROMPT, 960), (DENSE_B, 960),
               (DENSE_B, DENSE_PROMPT + 1, 960), (MIXED_B, MIXED_SEQ, 960),
               (HYBRID_B, HYBRID_PROMPT, HYB_D), (HYBRID_B, 1, HYB_D),
-              (GATE_B, GATE_PROMPT + GATE_STEPS, HYB_D)]
+              (GATE_B, GATE_PROMPT + GATE_STEPS, HYB_D),
+              (TRAIN_B, TRAIN_SEQ, 960)]                      # the train step's norms
 # the reference's SSD cases (tests/test_kernels.py) and the hybrid path's shapes:
 # (B, T, H, P, N, chunk)
 SSD_CASES = [(1, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32), (1, 96, 1, 64, 64, 32),
@@ -696,6 +724,7 @@ def phase_dense_kernels(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 def _launch_counts():
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels.decode_attention import (
         decode_attention_kernel, paged_decode_attention_kernel)
     from repro_torch.kernels.flash_attention import flash_attention_kernel
@@ -704,7 +733,15 @@ def _launch_counts():
     return {"rmsnorm": rmsnorm_kernel, "flash_attention": flash_attention_kernel,
             "decode_attention": decode_attention_kernel,
             "paged_decode_attention": paged_decode_attention_kernel,
-            "ssd_scan": ssd_scan_kernel}
+            "ssd_scan": ssd_scan_kernel,
+            "flash_attention_fwd_stats": fab.flash_attention_fwd_stats_kernel,
+            "flash_attention_dq": fab.flash_attention_dq_kernel,
+            "flash_attention_dkv": fab.flash_attention_dkv_kernel}
+
+
+# the serving paths launch none of the training kernels
+NO_TRAIN_LAUNCHES = {"flash_attention_fwd_stats": 0, "flash_attention_dq": 0,
+                     "flash_attention_dkv": 0}
 
 
 def _reset_counts():
@@ -752,7 +789,8 @@ def phase_dense_standard(torch) -> dict:
           (tokens.shape, tokens.dtype))
     check(np.all((0 <= tokens) & (tokens < cfg.vocab)), "token out of range")
     want = {"rmsnorm": (2 * L + 1) * (DENSE_NEW + 1), "flash_attention": L,
-            "decode_attention": L * DENSE_NEW, "paged_decode_attention": 0, "ssd_scan": 0}
+            "decode_attention": L * DENSE_NEW, "paged_decode_attention": 0, "ssd_scan": 0,
+            **NO_TRAIN_LAUNCHES}
     check(launches == want, f"launches {launches} != {want}")
 
     # the same steps timed one by one, with their launch counts
@@ -767,7 +805,8 @@ def phase_dense_standard(torch) -> dict:
     prefill_ms = (time.perf_counter() - t0) * 1e3
     delta = {k: v - before[k] for k, v in _counts().items()}
     check(delta == {"rmsnorm": 2 * L + 1, "flash_attention": L, "decode_attention": 0,
-                    "paged_decode_attention": 0, "ssd_scan": 0}, f"prefill launches {delta}")
+                    "paged_decode_attention": 0, "ssd_scan": 0, **NO_TRAIN_LAUNCHES},
+          f"prefill launches {delta}")
     step_ms, out = [], [tok]
     for _ in range(DENSE_NEW):
         before = _counts()
@@ -778,7 +817,7 @@ def phase_dense_standard(torch) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
         delta = {k: v - before[k] for k, v in _counts().items()}
         check(delta == {"rmsnorm": 2 * L + 1, "flash_attention": 0, "decode_attention": L,
-                        "paged_decode_attention": 0, "ssd_scan": 0},
+                        "paged_decode_attention": 0, "ssd_scan": 0, **NO_TRAIN_LAUNCHES},
               f"decode-step launches {delta}")
         out.append(tok)
     timed = torch.cat(out, dim=1).cpu().numpy()
@@ -884,7 +923,7 @@ def phase_dense_mixed(torch, dense: dict) -> None:
     np.testing.assert_allclose(logits, on_cpu, rtol=2e-3, atol=2e-4)
     L = cfg32.n_layers
     check(launches == {"rmsnorm": 2 * L + 1, "flash_attention": L, "decode_attention": 0,
-                       "paged_decode_attention": 0, "ssd_scan": 0},
+                       "paged_decode_attention": 0, "ssd_scan": 0, **NO_TRAIN_LAUNCHES},
           f"mixed path launches {launches}")
     cov = hybrid.plan_for(tokens).coverage
     log(f"# dense mixed path (tech-gfp, batch {MIXED_B} x {MIXED_SEQ}): logits == "
@@ -1147,7 +1186,7 @@ def _hybrid_launches(L: int, G: int, *, prefills: int, steps: int) -> dict:
     norms = L + 2 * G + 1           # a norm per Mamba2 layer, two per shared block, ln_f
     return {"rmsnorm": norms * (prefills + steps), "flash_attention": G * prefills,
             "decode_attention": G * steps, "paged_decode_attention": 0,
-            "ssd_scan": L * prefills}
+            "ssd_scan": L * prefills, **NO_TRAIN_LAUNCHES}
 
 
 def phase_hybrid_standard(torch) -> dict:
@@ -1376,6 +1415,327 @@ def phase_hybrid_timing(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _bwd_chain(fwd, dq_fn, dkv_fn, q, k, v, do, causal):
+    """(o, m, l, dq, dk, dv) of one forward-with-statistics and backward
+    chain, delta formed as ``FlashAttentionFn`` forms it."""
+    o, m, l = fwd(q, k, v, causal=causal)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = dq_fn(q, k, v, do, m, l, delta, causal=causal)
+    dk, dv = dkv_fn(q, k, v, do, m, l, delta, causal=causal)
+    return o, m, l, dq, dk, dv
+
+
+def phase_bwd_kernels(torch) -> dict:
+    """The forward-with-statistics, dQ and dK/dV kernels against their plain
+    versions: the reference's ``BWD_CASES``, a short last tile at Qwen2's
+    head dim and the training shape, float32 at 2e-4 (the reference's own
+    tolerance) and bfloat16 at 2e-2; row 0 of a batched launch bitwise equal
+    to a solo launch, and the model's transposed views equal to contiguous
+    inputs, at the training shape."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    dev = torch.device("cuda")
+    names = ("flash_attention_fwd_stats", "flash_attention_dq", "flash_attention_dkv")
+    worst = dict.fromkeys(names, 0.0)
+    kernels = (fab.flash_attention_fwd_stats_kernel, fab.flash_attention_dq_kernel,
+               fab.flash_attention_dkv_kernel)
+    plains = (fab.flash_attention_fwd_stats_plain, fab.flash_attention_dq_plain,
+              fab.flash_attention_dkv_plain)
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = 2e-4 if dtype == torch.float32 else 2e-2
+        for B, Hq, Hkv, T, d, causal in BWD_CASES:
+            q, do = (_randn(torch, (B, Hq, T, d), dtype, s, dev) for s in (40, 41))
+            k, v = (_randn(torch, (B, Hkv, T, d), dtype, s, dev) for s in (42, 43))
+            got = _bwd_chain(*kernels, q, k, v, do, causal)
+            want = _bwd_chain(*plains, q, k, v, do, causal)
+            torch.cuda.synchronize()
+            for name, g, w in zip(names[:1] * 3 + names[1:2] + names[2:] * 2, got, want):
+                check(g.dtype == w.dtype and g.shape == w.shape, (name, g.shape, w.shape))
+                err = (g.float() - w.float()).abs().max().item()
+                if dtype == torch.float32:
+                    worst[name] = max(worst[name], err)
+                torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+                check(torch.isfinite(g.float()).all().item(), f"{name}: non-finite")
+            cases += 1
+            if (B, T) != (TRAIN_B, TRAIN_SEQ) or dtype != torch.bfloat16:
+                continue
+            o, m, l, dq, dk, dv = got
+            one = [t[:1] for t in (q, k, v, do)]
+            solo = _bwd_chain(*kernels, *one, causal)
+            for g, w in zip(solo, got):
+                check(torch.equal(g[0], w[0]), "training kernels: batched row 0 != solo")
+            tv = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v, do)]
+            check(all(torch.equal(a, b) for a, b in
+                      zip(_bwd_chain(*kernels, *tv, causal), got)),
+                  "training kernels: strided views differ from contiguous inputs")
+    log(f"# training kernels vs plain: {cases} cases (o, m, l, dq, dk, dv), max |err| "
+        f"in float32 {worst} (tol 2e-4; bf16 2e-2); batched row 0 == solo bitwise and "
+        f"strided views at the training shape: ok")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the training path at full width
+# ---------------------------------------------------------------------------
+
+def _grad_rel_err(torch, got, want):
+    num = sum(((g.float() - w.float()) ** 2).sum() for g, w in zip(got, want))
+    return (torch.sqrt(num) / torch.sqrt(sum((w.float() ** 2).sum() for w in want))).item()
+
+
+def phase_train(torch) -> dict:
+    """``launch.train.train`` on SmolLM-360M uncut (float32 masters, bf16
+    compute, remat, tp=1, AdamW lr 3e-4, clip 1.0): 6 steps of 8 x 1024
+    tokens from ``TokenPipeline``.  Gates: (a) every loss and grad norm
+    finite; (b) per step 2L forward-with-statistics (L and L recomputed),
+    L dQ and L dK/dV launches and no plain-version call; (c) one step's
+    gradients through the kernels against the same step with the plain
+    versions in their places, back to back: global relative error <= 2e-2,
+    every leaf finite and nonzero where the plain one is; (d) on the reduced
+    config in float32 the card's step equals the CPU's (1e-4), and a 3 + 3
+    resumed run equals 6 uninterrupted steps (rtol 1e-5, atol 1e-6)."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models import api
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    L = cfg.n_layers
+    check(cfg.remat and cfg.compute_dtype == "bfloat16", (cfg.remat, cfg.compute_dtype))
+
+    # the main path, counted, with the plain versions counted too: a call of
+    # one on the card would be a fallback
+    plain_calls = {}
+    saved_plain = {n: getattr(fab, n) for n in (
+        "flash_attention_fwd_stats_plain", "flash_attention_dq_plain",
+        "flash_attention_dkv_plain")}
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            plain_calls[name] = plain_calls.get(name, 0) + 1
+            return fn(*args, **kw)
+        return call
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for n, fn in saved_plain.items():
+            setattr(fab, n, counted(n, fn))
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = train(TRAIN_ARCH, reduced=False, steps=TRAIN_STEPS, batch=TRAIN_B,
+                    seq=TRAIN_SEQ, lr=TRAIN_LR, seed=SEED, log_every=1, device="cuda")
+        wall = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        for n, fn in saved_plain.items():
+            setattr(fab, n, fn)
+    peak = torch.cuda.max_memory_allocated()
+    metrics = out["metrics"]
+    check(len(metrics) == TRAIN_STEPS, metrics)
+    check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in metrics),
+          f"non-finite loss or grad norm: {metrics}")
+    per_step = {"flash_attention_fwd_stats": 2 * L, "flash_attention_dq": L,
+                "flash_attention_dkv": L}
+    for name, n in per_step.items():
+        check(launches[name] == TRAIN_STEPS * n,
+              f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps, want {n} per step")
+    check(launches["flash_attention"] == launches["decode_attention"] == 0, launches)
+    check(not plain_calls, f"plain versions called on the card: {plain_calls}")
+    nparams = sum(t.numel() for t in _tensors(out["params"]))
+    step_ms = [m["ms"] for m in metrics]
+    p50 = float(np.median(step_ms))
+    tokens = TRAIN_B * TRAIN_SEQ
+    log(f"# training path: {cfg.name} uncut ({L} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}q/{cfg.n_kv_heads}kv heads of {cfg.head_dim_}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}), {nparams / 1e6:.1f} M params, float32 masters, "
+        f"{cfg.compute_dtype} compute, remat, tp=1, AdamW lr {TRAIN_LR}, clip 1.0: "
+        f"{TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_SEQ} tokens in {wall:.2f} s (init "
+        f"included); step p50 {p50:.1f} ms (min {min(step_ms):.1f}, max "
+        f"{max(step_ms):.1f}) = {tokens / p50 * 1e3:.0f} tokens/s; losses "
+        f"{[round(m['loss'], 4) for m in metrics]}, grad norms "
+        f"{[round(m['grad_norm'], 4) for m in metrics]}; launches {launches}; "
+        f"max_memory_allocated {peak / 2**20:.1f} MiB")
+
+    # where the time goes: one more step under the profiler
+    params, opt_state = out["params"], out["opt_state"]
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_B, seed=SEED))
+    batch = data.batch_at(TRAIN_STEPS)
+    step_fn = make_train_step(cfg, tp=1, opt=AdamWConfig(lr=TRAIN_LR),
+                              total_steps=max(TRAIN_STEPS, 10))
+    saved = _counts()
+    profile_steps(torch, lambda: step_fn(params, opt_state, batch), 1,
+                  f"train step ({TRAIN_B} x {TRAIN_SEQ} tokens, {L} layers, remat)")
+
+    # (c) the kernels against their plain versions in the same step
+    grads, times = {}, {}
+    # the plain versions in the kernels' places, where ``_routes`` finds them
+    plain = {f"flash_attention_{n}_kernel": getattr(fab, f"flash_attention_{n}_plain")
+             for n in ("fwd_stats", "dq", "dkv")}
+    shipped = {n: getattr(fab, n) for n in plain}
+    try:
+        for route in ("kernel", "plain"):
+            for n in plain:
+                setattr(fab, n, plain[n] if route == "plain" else shipped[n])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, g = loss_and_grads(cfg, params, batch, tp=1)
+            torch.cuda.synchronize()
+            times[route] = (time.perf_counter() - t0) * 1e3
+            grads[route] = (float(loss), [t for _, t in api._leaves(g)])
+    finally:
+        for n, fn in shipped.items():
+            setattr(fab, n, fn)
+        for fn, n in zip(_launch_counts().values(), saved.values()):
+            fn.launches = n
+    names = [n for n, _ in api._leaves(params)]
+    rel = _grad_rel_err(torch, grads["kernel"][1], grads["plain"][1])
+    check(rel <= 2e-2, f"kernel vs plain gradients: global relative error {rel:.3e}")
+    for name, g, w in zip(names, grads["kernel"][1], grads["plain"][1]):
+        check(torch.isfinite(g).all().item(), f"{name}: non-finite gradient")
+        check(torch.count_nonzero(w).item() == 0 or torch.count_nonzero(g).item() > 0,
+              f"{name}: zero gradient through the kernels, nonzero through the plain versions")
+    leaf_rel = {n: _grad_rel_err(torch, [g], [w]) for n, g, w in
+                zip(names, grads["kernel"][1], grads["plain"][1])}
+    log(f"# train-step gradients, kernels vs plain versions (one step, {TRAIN_B} x "
+        f"{TRAIN_SEQ}): loss {grads['kernel'][0]:.6f} / {grads['plain'][0]:.6f}, global "
+        f"relative error {rel:.3e} (tol 2e-2); per leaf "
+        f"{ {n: float(f'{e:.2e}') for n, e in leaf_rel.items()} }; loss+gradient host time "
+        f"{times['kernel']:.1f} ms with the kernels, then {times['plain']:.1f} ms with "
+        f"the plain versions")
+
+    # (d) the reduced config in float32: card == CPU, and resume == uninterrupted
+    cfg_r = dataclasses.replace(reduced_config(TRAIN_ARCH), compute_dtype="float32")
+    cpu = api.init(cfg_r, torch.Generator().manual_seed(SEED), tp=1, device="cpu")
+    card = _tree_map(lambda t: t.to(dev), cpu)
+    batch_r = TokenPipeline(DataConfig(vocab=cfg_r.vocab, seq_len=64, global_batch=4,
+                                       seed=SEED)).batch_at(0)
+    (lc, gc), (lg, gg) = (loss_and_grads(cfg_r, p, batch_r, tp=1) for p in (cpu, card))
+    errs = []
+    for (name, a), (_, b) in zip(api._leaves(gc), api._leaves(gg)):
+        err = (b.cpu() - a).abs().max().item()
+        errs.append(err / max(a.abs().max().item(), 1e-12))
+        check(err <= 1e-4 * max(a.abs().max().item(), 1e-12), f"card vs CPU grad {name}: {err}")
+    check(abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc)), (float(lg), float(lc)))
+    step_r = make_train_step(cfg_r, tp=1, opt=AdamWConfig(lr=TRAIN_LR), total_steps=10)
+    _, _, mc = step_r(cpu, adamw_init(cpu), batch_r)
+    _, _, mg = step_r(card, adamw_init(card), batch_r)
+    for key in ("loss", "grad_norm"):
+        check(abs(float(mg[key]) - float(mc[key])) <= 1e-4 * abs(float(mc[key])),
+              (key, float(mg[key]), float(mc[key])))
+    kw = dict(reduced=True, batch=2, seq=32, ckpt_every=100, log_every=100, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        full = train(TRAIN_ARCH, steps=6, ckpt_dir=f"{tmp}/a", **kw)
+        train(TRAIN_ARCH, steps=3, ckpt_dir=f"{tmp}/b", **kw)
+        resumed = train(TRAIN_ARCH, steps=6, ckpt_dir=f"{tmp}/b", resume=True, **kw)
+    resume_err = 0.0
+    for (name, a), (_, b) in zip(api._leaves(full["params"]), api._leaves(resumed["params"])):
+        resume_err = max(resume_err, (a - b).abs().max().item())
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)
+    log(f"# reduced {TRAIN_ARCH} float32: card step == CPU step (loss {float(mg['loss']):.6f} "
+        f"/ {float(mc['loss']):.6f}, largest leaf gradient error {max(errs):.2e} of the "
+        f"leaf's max, tol 1e-4); 3 + 3 resumed steps == 6 uninterrupted (max |err| "
+        f"{resume_err:.2e}, rtol 1e-5, atol 1e-6)")
+    return {"launches": launches, "p50_ms": p50}
+
+
+def phase_train_timing(torch) -> dict:
+    """The three training kernels at the train step's attention shape: q
+    (8,15,1024,64), k, v (8,5,1024,64) bf16, causal, against their bounds,
+    their plain versions and ``scaled_dot_product_attention``'s forward (row
+    4) and backward (rows 5 and 6 together; timed for comparison only); and
+    the RMSNorm kernel at the train step's rows against ``F.rms_norm``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    flush = l2_flush_buffer(torch)
+    saved = _counts()
+    B, Hq, Hkv, T, d = TRAIN_B, 15, 5, TRAIN_SEQ, 64
+    q, do = (_randn(torch, (B, Hq, T, d), bf16, s, dev) for s in (50, 51))
+    k, v = (_randn(torch, (B, Hkv, T, d), bf16, s, dev) for s in (52, 53))
+    o, m, l = fab.flash_attention_fwd_stats_kernel(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    bwd = (q, k, v, do, m, l, delta)
+    got = (o, m, l, fab.flash_attention_dq_kernel(*bwd), *fab.flash_attention_dkv_kernel(*bwd))
+    want = (*fab.flash_attention_fwd_stats_plain(q, k, v), fab.flash_attention_dq_plain(*bwd),
+            *fab.flash_attention_dkv_plain(*bwd))
+    errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+
+    pairs = B * Hq * (T * (T + 1) // 2)            # visible (query, key) pairs
+    qb, kb, sb = q.numel() * 2, k.numel() * 2, B * Hq * T * 4
+    work = {  # bytes (inputs read once, outputs written once), flops
+        "flash_attention_fwd_stats": (qb + 2 * kb + qb + 2 * sb, 2 * 2 * d * pairs),
+        "flash_attention_dq": (qb + 2 * kb + qb + 3 * sb + qb, 3 * 2 * d * pairs),
+        "flash_attention_dkv": (qb + 2 * kb + qb + 3 * sb + 2 * kb, 4 * 2 * d * pairs),
+    }
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do,
+                                                         retain_graph=True), 20, flush)
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 50, flush)
+    runs = {
+        "flash_attention_fwd_stats": (lambda: fab.flash_attention_fwd_stats_kernel(q, k, v),
+                                      lambda: fab.flash_attention_fwd_stats_plain(q, k, v),
+                                      lib_fwd, max(errs[:3])),
+        "flash_attention_dq": (lambda: fab.flash_attention_dq_kernel(*bwd),
+                               lambda: fab.flash_attention_dq_plain(*bwd), lib_bwd, errs[3]),
+        "flash_attention_dkv": (lambda: fab.flash_attention_dkv_kernel(*bwd),
+                                lambda: fab.flash_attention_dkv_plain(*bwd), lib_bwd,
+                                max(errs[4:])),
+    }
+    out = {}
+    shape = f"q {tuple(q.shape)}, k,v {tuple(k.shape)} bf16 causal"
+    for name, (kern, plain, lib, err) in runs.items():
+        nbytes, flops = work[name]
+        bound, by = _bound(nbytes, flops, H100_BF16_FLOPS)
+        out[name] = dict(ms=time_ms(torch, kern, 20, flush),
+                         plain_ms=time_ms(torch, plain, 10, flush), library_ms=lib,
+                         bound_ms=bound, bound_by=by, max_abs_err=err, shape=shape,
+                         library="sdpa forward" if name.endswith("stats")
+                         else "sdpa backward (dq, dk, dv)",
+                         work=f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP")
+
+    # the RMSNorm forward kernel at the train step's rows (8 x 1024, 960) bf16,
+    # 129 launches a step under ``RMSNormFn``
+    x = _randn(torch, (B, T, 960), bf16, 54, dev)
+    w = _randn(torch, (960,), torch.float32, 55, dev)
+    wb = w.to(bf16)
+    nbytes = 2 * 2 * x.numel() + 4 * w.numel()
+    bound, by = _bound(nbytes, 4 * x.numel(), H100_FP32_FLOPS)
+    out["rmsnorm@train"] = dict(
+        ms=time_ms(torch, lambda: rmsnorm_kernel(x, w), 200, flush),
+        plain_ms=time_ms(torch, lambda: rmsnorm_plain(x, w), 50, flush),
+        library_ms=time_ms(torch, lambda: F.rms_norm(x, (960,), wb, 1e-6), 200, flush),
+        bound_ms=bound, bound_by=by, shape=f"x {tuple(x.shape)} bf16, w f32",
+        max_abs_err=(rmsnorm_kernel(x, w).float() - rmsnorm_plain(x, w).float()).abs().max().item(),
+        library="F.rms_norm", work=f"{nbytes / 1e6:.3f} MB")
+    for fn, n in zip(_launch_counts().values(), saved.values()):
+        fn.launches = n                     # timing launches are not the path's
+    for name, r in out.items():
+        log(f"# {name} at {r['shape']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}: {r['work']}), plain {r['plain_ms']:.4f} ms, library "
+            f"({r['library']}) {r['library_ms']:.4f} ms, |err| {r['max_abs_err']:.3e}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1392,19 +1752,31 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     t_all = time.perf_counter()
-    phase_build(torch)
-    err = phase_kernel(torch)
-    dense_err = phase_dense_kernels(torch)
-    ssd_err = phase_ssd_kernel(torch)
-    main_run = phase_main(torch)
-    timing = phase_timing(torch, main_run)
-    phase_small(torch)
-    phase_multimodel(torch)
-    dense = phase_dense_standard(torch)
-    phase_dense_mixed(torch, dense)
-    dense_timing = phase_dense_timing(torch, dense)
-    hybrid = phase_hybrid_standard(torch)
-    hybrid_timing = phase_hybrid_timing(torch)
+    walls = {}
+
+    def run(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(torch, *args)
+        walls[phase.__name__] = round(time.perf_counter() - t0, 2)
+        return out
+
+    run(phase_build)
+    err = run(phase_kernel)
+    dense_err = run(phase_dense_kernels)
+    ssd_err = run(phase_ssd_kernel)
+    main_run = run(phase_main)
+    timing = run(phase_timing, main_run)
+    run(phase_small)
+    run(phase_multimodel)
+    dense = run(phase_dense_standard)
+    run(phase_dense_mixed, dense)
+    dense_timing = run(phase_dense_timing, dense)
+    hybrid = run(phase_hybrid_standard)
+    hybrid_timing = run(phase_hybrid_timing)
+    bwd_err = run(phase_bwd_kernels)
+    training = run(phase_train)
+    train_timing = run(phase_train_timing)
+    log(f"# phase wall times (s): {walls}")
     log(f"# all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     kernels = [{
@@ -1431,7 +1803,9 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces,
             "launches": dense["launches"][name],
-            "max_abs_err": max(dense_err[name], t["max_abs_err"]),
+            "max_abs_err": max(dense_err[name], t["max_abs_err"],
+                               train_timing["rmsnorm@train"]["max_abs_err"]
+                               if name == "rmsnorm" else 0.0),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
@@ -1454,6 +1828,23 @@ def main() -> int:
         "library_ms": None,
         "ok": True,
     })
+    for name, line in (("flash_attention_fwd_stats", 27), ("flash_attention_dq", 65),
+                       ("flash_attention_dkv", 96)):
+        t = train_timing[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"src/repro/kernels/flash_attention_bwd.py:{line}",
+            "launches": training["launches"][name],
+            "max_abs_err": max(bwd_err[name], t["max_abs_err"]),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "ok": True,
+        })
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

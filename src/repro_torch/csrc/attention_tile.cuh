@@ -1,5 +1,6 @@
 // Shared body of the dense attention kernels (flash_attention.cu,
-// decode_attention.cu): one thread block attends a tile of query rows to a
+// decode_attention.cu, and the forward-with-statistics kernel of
+// flash_attention_bwd.cu): one thread block attends a tile of query rows to a
 // run of key/value rows with an float32 online softmax, walking the keys in
 // tiles of fixed order.
 //
@@ -96,14 +97,18 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // key j iff j <= limit0 + r*limit_step.  Output row r goes to
 // o + r*o_stride.  A row with nothing visible gives exact zeros when
 // `zero_empty`, else acc / max(l, 1e-30) (the flash kernel's clamp; acc is
-// zero there too).
+// zero there too).  When `m_out` is given, row r's running max goes to
+// m_out[r] and its clamped denominator max(l, 1e-30) to l_out[r]: the
+// statistics the backward kernels recompute the probabilities from.
 template <typename TQ, typename TKV, typename TO>
 __device__ void attend_rows(const TQ* __restrict__ q, long long q_stride, int nrows,
                             const TKV* __restrict__ k, long long k_stride,
                             const TKV* __restrict__ v, long long v_stride, int nkeys,
                             int limit0, int limit_step, TO* __restrict__ o,
                             long long o_stride, int d, int bq, int bk, float scale,
-                            bool zero_empty, float* smem) {
+                            bool zero_empty, float* smem,
+                            float* __restrict__ m_out = nullptr,
+                            float* __restrict__ l_out = nullptr) {
   const int ld = d + 1;
   float* sq = smem;
   float* acc = sq + bq * ld;
@@ -222,6 +227,12 @@ __device__ void attend_rows(const TQ* __restrict__ q, long long q_stride, int nr
       out = acc[e] / fmaxf(l, 1e-30f);
     }
     o[r * o_stride + c] = from_f32<TO>(out);
+  }
+  if (m_out != nullptr) {
+    for (int r = tid; r < nrows; r += kThreads) {
+      m_out[r] = sm[r];
+      l_out[r] = fmaxf(sl[r], 1e-30f);
+    }
   }
 }
 

@@ -45,6 +45,23 @@ def strides(t) -> tuple[int, ...]:
     return tuple(0 if n == 1 else s for n, s in zip(t.shape, t.stride()))
 
 
+def records_grad(*tensors) -> bool:
+    """Whether autograd records an op on these inputs."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def refuse_grad(what: str, route: str, *tensors) -> None:
+    """Raise if autograd would record this call: a kernel's output is a
+    fresh tensor filled through ``ctypes`` with no ``grad_fn``, so under
+    grad an input that requires grad would silently get no gradient.
+    ``route`` names the differentiable way to the same function."""
+    if records_grad(*tensors):
+        raise RuntimeError(
+            f"the {what} kernel is forward-only: its output carries no gradient, "
+            f"but an input requires grad; {route}")
+
+
 def require_cuda(t, what: str) -> torch.device:
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
         where = t.device if isinstance(t, torch.Tensor) else type(t).__name__

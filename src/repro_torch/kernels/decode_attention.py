@@ -41,6 +41,7 @@ from .common import (
     check_tensor as _check,
     ptr,
     raise_on_error,
+    refuse_grad,
     require_cuda,
     stream,
     strides,
@@ -101,6 +102,9 @@ def decode_attention_kernel(q, k, v, pos):
     current stream and does not synchronise.
     ``decode_attention_kernel.launches`` counts launches.
     """
+    refuse_grad("decode attention", "decode attention serves inference only: call "
+                "it under torch.no_grad(); training attention is "
+                "ops.flash_attention_trainable", q, k, v)
     device = require_cuda(q, "decode attention")
     dtypes = tuple(DTYPE_CODES)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -182,6 +186,9 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, tables, lengths,
     device, or this raises.  Launches on the current stream and does not
     synchronise.  ``paged_decode_attention_kernel.launches`` counts launches.
     """
+    refuse_grad("paged decode attention", "paged decode serves inference only: call "
+                "it under torch.no_grad(); training attention is "
+                "ops.flash_attention_trainable", q, k_pages, v_pages, kn, vn)
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got q on {device}")

@@ -27,6 +27,7 @@ from .common import (
     check_strided,
     ptr,
     raise_on_error,
+    refuse_grad,
     require_cuda,
     stream,
     strides,
@@ -83,6 +84,8 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, scale: float | None 
     does not synchronise.  ``flash_attention_kernel.launches`` counts
     launches.
     """
+    refuse_grad("flash attention", "differentiate through "
+                "ops.flash_attention_trainable (FlashAttentionFn)", q, k, v)
     device = require_cuda(q, "flash attention")
     dtypes = tuple(DTYPE_CODES)
     for name, t in (("q", q), ("k", k), ("v", v)):

@@ -13,7 +13,8 @@ from .decode_attention import (
     paged_decode_attention_plain,
 )
 from .flash_attention import flash_attention_kernel, flash_attention_plain
-from .rmsnorm import rmsnorm_kernel, rmsnorm_plain
+from .flash_attention_bwd import FlashAttentionFn
+from .rmsnorm import RMSNormFn, rmsnorm_kernel, rmsnorm_plain
 from .ssm_scan import ssd_scan_kernel, ssd_scan_plain
 
 
@@ -35,6 +36,13 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
     return flash_attention_kernel(q, k, v, causal=causal, scale=scale)
 
 
+def flash_attention_trainable(q, k, v, *, causal: bool = True):
+    """Differentiable flash attention, q (B,Hq,T,d) against k, v (B,Hkv,S,d):
+    forward with statistics, then dQ and dK/dV, each the CUDA kernel on the
+    card and its plain version on the CPU (see :mod:`.flash_attention_bwd`)."""
+    return FlashAttentionFn.apply(q, k, v, causal)
+
+
 def decode_attention(q, k, v, pos):
     """One query row per (b, q head) against a cache, positions ``<= pos``
     visible (see :mod:`.decode_attention`)."""
@@ -48,6 +56,12 @@ def rmsnorm(x, w, *, eps: float = 1e-6):
     if x.device.type == "cpu":
         return rmsnorm_plain(x, w, eps)
     return rmsnorm_kernel(x, w, eps)
+
+
+def rmsnorm_trainable(x, w, *, eps: float = 1e-6):
+    """Differentiable RMSNorm: the kernel (card) or the plain version (CPU)
+    forward, the closed-form float32 backward (see :mod:`.rmsnorm`)."""
+    return RMSNormFn.apply(x, w, eps)
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, return_state: bool = False):

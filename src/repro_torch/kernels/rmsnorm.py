@@ -11,6 +11,13 @@ source for its design.  CUDA C++ rather than Triton only to share the one
 ``rmsnorm_plain`` is the same function in plain PyTorch: it serves CPU
 tensors (the tests) and is the yardstick the kernel is checked against on
 the card.  :func:`repro_torch.kernels.ops.rmsnorm` picks by device.
+
+``RMSNormFn`` is the differentiable RMSNorm of training.  Its forward is the
+kernel on the card and ``rmsnorm_plain`` on the CPU; its backward is the
+closed-form gradient in float32 PyTorch ops,
+``dx = rstd * (g*w - x_hat * mean(g*w*x_hat))`` and ``dw = sum(g * x_hat)``.
+The reference package has no RMSNorm backward kernel (XLA differentiates
+``models/layers.py:rmsnorm`` there), so the port has none either.
 """
 from __future__ import annotations
 
@@ -19,7 +26,15 @@ import ctypes
 import torch
 
 from . import build
-from .common import DTYPE_CODES, check_tensor, ptr, raise_on_error, require_cuda, stream
+from .common import (
+    DTYPE_CODES,
+    check_tensor,
+    ptr,
+    raise_on_error,
+    refuse_grad,
+    require_cuda,
+    stream,
+)
 from .ref import rmsnorm_ref
 
 _SOURCE = "rmsnorm"
@@ -49,6 +64,8 @@ def rmsnorm_kernel(x, w, eps: float = 1e-6):
     current stream and does not synchronise.  ``rmsnorm_kernel.launches``
     counts launches.
     """
+    refuse_grad("rmsnorm", "differentiate through ops.rmsnorm_trainable (RMSNormFn)",
+                x, w)
     device = require_cuda(x, "rmsnorm")
     if x.dim() < 1 or x.dtype not in DTYPE_CODES:
         raise TypeError(f"x must be float32 or bfloat16 with a last axis, got "
@@ -70,3 +87,27 @@ def rmsnorm_kernel(x, w, eps: float = 1e-6):
 
 
 rmsnorm_kernel.launches = 0
+
+
+class RMSNormFn(torch.autograd.Function):
+    """Differentiable RMSNorm over the last axis: x (..., D) in float32 or
+    bfloat16, w (D,) float32; gradients in their dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        y = rmsnorm_plain(x, w, eps) if x.device.type == "cpu" else rmsnorm_kernel(x, w, eps)
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        f32 = torch.float32
+        xf, gf = x.to(f32), g.to(f32)
+        rstd = torch.rsqrt(torch.mean(torch.square(xf), dim=-1, keepdim=True) + ctx.eps)
+        x_hat = xf * rstd
+        gw = gf * w.to(f32)
+        dx = rstd * (gw - x_hat * torch.mean(gw * x_hat, dim=-1, keepdim=True))
+        dw = (gf * x_hat).reshape(-1, x.shape[-1]).sum(dim=0)
+        return dx.to(x.dtype), dw.to(w.dtype), None

@@ -36,6 +36,7 @@ from .common import (
     check_tensor,
     ptr,
     raise_on_error,
+    refuse_grad,
     require_cuda,
     stream,
 )
@@ -119,6 +120,9 @@ def ssd_scan_kernel(x, dt, A, B, C, *, chunk: int = 256, return_state: bool = Fa
     the launch (``RuntimeError``).  ``ssd_scan_kernel.launches`` counts
     launches.
     """
+    refuse_grad("ssd scan", "the SSD scan has no backward yet (the hybrid family "
+                "does not train, ROADMAP Queue 1 item 10): call it under "
+                "torch.no_grad()", x, dt, A, B, C)
     device = require_cuda(x, "ssd scan")
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")

@@ -1,1 +1,1 @@
-"""Step functions and the standard serving entry point of the port."""
+"""Step functions and the serving and training entry points of the port."""

@@ -1,0 +1,106 @@
+"""End-to-end trainer of the port: data -> train step -> checkpoint/restart.
+
+The reference's ``launch/train.py`` on one device: the dense family, tp=1,
+float32 master weights drawn on the CPU from ``seed`` (so a run on the card
+and one on the CPU start from the same weights), synthetic batches from
+:class:`~repro_torch.data.pipeline.TokenPipeline`, checkpoints carrying
+(params, opt_state, data cursor) so ``--resume`` continues exactly where a
+run stopped.  Runs on the card unless asked for the CPU.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --full \\
+      --steps 6 --batch 8 --seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --reduced \\
+      --steps 20 --batch 4 --seq 64 --device cpu --ckpt-dir /tmp/ckpt
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from ..checkpoint.checkpoint import AsyncCheckpointer, latest_step
+from ..configs import get_config, reduced_config
+from ..core.api import resolve_device
+from ..data.pipeline import DataConfig, TokenPipeline
+from ..models import api
+from ..optim import AdamWConfig, adamw_init
+from .steps import make_train_step
+
+
+def train(arch: str, *, reduced: bool = True, steps: int = 50, batch: int = 8,
+          seq: int = 128, ckpt_dir: str | None = None, resume: bool = False,
+          ckpt_every: int = 20, log_every: int = 10, lr: float = 3e-4,
+          seed: int = 0, device=None) -> dict:
+    """Train ``arch`` for ``steps`` steps (counting those a resumed
+    checkpoint already took).  Returns ``history`` ((step, loss) at each
+    log), ``metrics`` (loss, grad norm and host milliseconds of every step
+    this call ran, each step synchronised), ``params``, ``opt_state`` and
+    ``cfg``."""
+    cfg = reduced_config(arch) if reduced else get_config(arch)
+    device = resolve_device(device)
+    tp = 1
+    step_fn = make_train_step(cfg, tp=tp, opt=AdamWConfig(lr=lr),
+                              total_steps=max(steps, 10))
+    params = api.init(cfg, torch.Generator().manual_seed(seed), tp=tp, device=device)
+    opt_state = adamw_init(params)
+    step0 = 0
+
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                                    seed=seed))
+    ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
+    if resume and ckpt is not None and latest_step(ckpt_dir) is not None:
+        restored = ckpt.restore({"params": params, "opt": opt_state})
+        if restored is not None:
+            tree, step0, extra = restored
+            params, opt_state = tree["params"], tree["opt"]
+            print(f"resumed from step {step0}")
+
+    history, metrics = [], []
+    t0 = time.time()
+    for i in range(step0, steps):
+        t_step = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, data.batch_at(i))
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])     # synchronises
+        metrics.append({"step": i + 1, "loss": loss, "grad_norm": gnorm,
+                        "ms": (time.perf_counter() - t_step) * 1e3})
+        if (i + 1) % log_every == 0 or i == steps - 1:
+            history.append((i + 1, loss))
+            print(f"step {i+1:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
+                  f"({(time.time()-t0)/max(1,i+1-step0):.2f}s/step)", flush=True)
+        if ckpt is not None and (i + 1) % ckpt_every == 0:
+            ckpt.save(i + 1, {"params": params, "opt": opt_state},
+                      extra={"next_data_index": i + 1})
+    if ckpt is not None:
+        ckpt.save(steps, {"params": params, "opt": opt_state},
+                  extra={"next_data_index": steps})
+        ckpt.wait()
+    return {"history": history, "metrics": metrics, "params": params,
+            "opt_state": opt_state, "cfg": cfg}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--reduced", action="store_true", default=False)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    out = train(args.arch, reduced=args.reduced, steps=args.steps, batch=args.batch,
+                seq=args.seq, ckpt_dir=args.ckpt_dir, resume=args.resume,
+                ckpt_every=args.ckpt_every, lr=args.lr, device=args.device)
+    losses = [l for _, l in out["history"]]
+    if len(losses) >= 2 and losses[-1] < losses[0]:
+        print(f"loss improved: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

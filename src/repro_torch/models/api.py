@@ -13,6 +13,8 @@ layers and a shared attention block).  The others raise
 * ``make_batch(cfg, shape, seed)``             — random numpy inputs
 * ``load_reference_params(cfg, tree, tp=, device=)`` — carry the reference
   package's weights across
+* ``load_reference_opt_state(cfg, tree, tp=, device=)`` — and its AdamW
+  state
 
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``); without a card they raise.  Batches may hold numpy
@@ -21,13 +23,12 @@ updated in place (see :mod:`.dense` and :mod:`.mamba2`).
 """
 from __future__ import annotations
 
-from typing import Mapping
-
 import numpy as np
 import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..core.api import resolve_device
+from ..optim.tree import tree_build as _build, tree_items as _leaves
 from . import dense, mamba2
 from . import layers as L
 
@@ -97,26 +98,6 @@ def make_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0) -> dict[str,
             for k, (s, _) in input_shapes(cfg, shape).items()}
 
 
-def _leaves(tree, prefix=""):
-    for k in sorted(tree):
-        name = f"{prefix}/{k}" if prefix else k
-        if isinstance(tree[k], Mapping):
-            yield from _leaves(tree[k], name)
-        else:
-            yield name, tree[k]
-
-
-def _build(names_values):
-    out: dict = {}
-    for name, value in names_values:
-        *path, last = name.split("/")
-        node = out
-        for p in path:
-            node = node.setdefault(p, {})
-        node[last] = value
-    return out
-
-
 def load_reference_params(cfg: ModelConfig, tree, *, tp: int, device=None):
     """The reference package's params pytree, given as nested dicts of numpy
     arrays, as the port's params on ``device``.
@@ -141,3 +122,17 @@ def load_reference_params(cfg: ModelConfig, tree, *, tp: int, device=None):
             raise ValueError(f"{name}: dtype {value.dtype}, the port has {ref.dtype}")
         out.append((name, torch.tensor(value, device=device)))
     return _build(out)
+
+
+def load_reference_opt_state(cfg: ModelConfig, tree, *, tp: int, device=None):
+    """The reference package's AdamW state ``{"m": tree, "v": tree, "step"}``
+    (moments as nested dicts of numpy arrays) as the port's on ``device``:
+    the moments checked as :func:`load_reference_params` checks parameters,
+    the step an int32 0-d tensor."""
+    device = resolve_device(device)
+    return {
+        "m": load_reference_params(cfg, tree["m"], tp=tp, device=device),
+        "v": load_reference_params(cfg, tree["v"], tp=tp, device=device),
+        "step": torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32,
+                             device=device),
+    }

@@ -14,6 +14,7 @@ a donated one.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import layers as L
@@ -75,11 +76,38 @@ def _layer_fwd(cfg: ModelConfig, dims: AttnDims, h, lp):
     return h + m, kv
 
 
+def unstack_layers(params, n_layers: int):
+    """Every layer's parameters, views of the stacked (L, ...) tensors taken
+    by one ``unbind`` per leaf, so the backward stacks each leaf's layer
+    gradients once (the reference's scan writes them into one array)."""
+    def split(tree):
+        return {k: split(v) if isinstance(v, dict) else torch.unbind(v)
+                for k, v in tree.items()}
+
+    def pick(tree, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+    parts = split(params["layers"])
+    return [pick(parts, i) for i in range(n_layers)]
+
+
 def backbone(cfg: ModelConfig, params, h, *, tp: int):
-    """Apply all transformer layers to embeddings h: (B,T,D)."""
+    """Apply all transformer layers to embeddings h: (B,T,D).
+
+    Under autograd, ``cfg.remat`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
+    scan body): only the layer inputs stay saved."""
     dims = _dims(cfg, tp)
-    for i in range(cfg.n_layers):
-        h, _ = _layer_fwd(cfg, dims, h, layer_params(params, i))
+
+    def layer(h, lp):
+        return _layer_fwd(cfg, dims, h, lp)[0]
+
+    remat = cfg.remat and torch.is_grad_enabled() and h.requires_grad
+    for lp in unstack_layers(params, cfg.n_layers):
+        if remat:
+            h = checkpoint(layer, h, lp, use_reentrant=False)
+        else:
+            h = layer(h, lp)
     return L.apply_norm(params["ln_f"], h, cfg.norm)
 
 

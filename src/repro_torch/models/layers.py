@@ -12,6 +12,14 @@ kernel, ``attention_full`` the flash-attention kernel (which tiles the query
 axis itself, so the reference's query blocking, there for TPU memory, has
 no counterpart) and ``attention_decode`` the flash-decode kernel.  On the
 CPU the same calls take the kernels' plain versions.
+
+Under autograd (grad enabled and an input that requires grad, as in a
+train step) ``rmsnorm`` and ``attention_full`` take the differentiable
+routes instead: ``RMSNormFn`` (the same forward kernel, a float32 backward)
+and ``FlashAttentionFn`` (the forward-with-statistics, dQ and dK/dV
+kernels).  Otherwise they take the forward-only kernels, whose outputs
+carry no gradient.  Both routes are kernels on the card; the choice follows
+autograd's state, not the device.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..kernels.common import records_grad
 from .attention_plan import HeadPlan, plan_heads
 
 DEFAULT_TP = 16
@@ -44,7 +53,12 @@ def _init(gen: torch.Generator, shape, device: torch.device, scale=None,
 # ---------------------------------------------------------------------------
 
 def rmsnorm(x, scale, eps=1e-6):
-    return ops.rmsnorm(x.contiguous(), scale, eps=eps)
+    # float32 statistics times float32(scale), as the reference's promotion
+    # of a bf16 scale does in a train step
+    x, w = x.contiguous(), scale.to(torch.float32)
+    if records_grad(x, w):
+        return ops.rmsnorm_trainable(x, w, eps=eps)
+    return ops.rmsnorm(x, w, eps=eps)
 
 
 def layernorm(x, scale, bias, eps=1e-5):
@@ -149,15 +163,18 @@ def attention_full(p, dims: AttnDims, x):
     """Full-sequence attention (training / prefill).  Returns (out, (k, v)).
 
     The core is the flash-attention kernel on (B,H,T,hd) views of the
-    projections (no copy: the kernel reads strides).  Its causal mask is
-    top-left aligned, which is the reference's mask here because q and k
-    cover the same T positions.
+    projections (no copy: the kernel reads strides), or under autograd the
+    trainable one (forward with statistics, dQ and dK/dV kernels).  Its
+    causal mask is top-left aligned, which is the reference's mask here
+    because q and k cover the same T positions.
     """
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)
     q, k, v = _qkv(p, dims, x, positions)
-    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                            causal=True)
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    attend = ops.flash_attention_trainable if records_grad(qh, kh, vh) \
+        else ops.flash_attention
+    o = attend(qh, kh, vh, causal=True)
     out = torch.einsum("bthk,hkd->btd", o.transpose(1, 2), p["wo"].to(x.dtype))
     return out, (k, v)
 

@@ -1,0 +1,16 @@
+"""Global-norm gradient clipping (the reference's ``optim/clip.py``)."""
+from __future__ import annotations
+
+import torch
+
+from .tree import tree_leaves, tree_map
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled so their global float32 norm is at most ``max_norm``,
+    the norm before scaling)."""
+    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                        for g in tree_leaves(grads)))
+    scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+    return tree_map(lambda g: (g * scale).to(g.dtype), grads), gn

@@ -34,6 +34,19 @@ def test_port_has_modules():
     assert len(PORT_FILES) > 20
 
 
+# modules copied or ported from framework-free reference modules, and the
+# training path's: each must be among the files checked below
+TRAINING_MODULES = ["data/pipeline.py", "optim/__init__.py", "optim/adamw.py",
+                    "optim/clip.py", "optim/schedule.py", "optim/tree.py",
+                    "checkpoint/checkpoint.py", "launch/train.py", "launch/steps.py",
+                    "kernels/flash_attention_bwd.py"]
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_modules_are_checked(module):
+    assert PORT / module in PORT_FILES
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = _imported_roots(path) & set(FORBIDDEN)
