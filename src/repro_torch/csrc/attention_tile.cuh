@@ -1,8 +1,11 @@
-// Shared body of the dense attention kernels (flash_attention.cu,
-// decode_attention.cu, and the forward-with-statistics kernel of
-// flash_attention_bwd.cu): one thread block attends a tile of query rows to a
-// run of key/value rows with an float32 online softmax, walking the keys in
-// tiles of fixed order.
+// CUDA-core body of the dense attention kernels: one thread block attends a
+// tile of query rows to a run of key/value rows with a float32 online
+// softmax, walking the keys in tiles of fixed order.  Its callers: the
+// flash-decode kernel (decode_attention.cu, every launch), and the float32
+// launches, and bfloat16 ones at head dims the tensor-core body does not
+// take (d % 16 != 0 or d > 256, e.g. d = 960), of flash_attention.cu and of
+// flash_attention_bwd.cu's forward with statistics.  The bfloat16 launches
+// at d % 16 == 0, d <= 256 of those two run on attention_wgmma.cuh.
 //
 // Both TPU kernels it replaces keep (m, l, acc) in VMEM scratch across a
 // sequential grid axis over the keys.  On Hopper, blocks run in parallel and

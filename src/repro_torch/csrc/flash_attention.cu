@@ -8,23 +8,29 @@
 // kpos <= qpos (top-left aligned); s = (q.k) * scale; the denominator is
 // clamped at 1e-30.
 //
-// Design.  One block per (b*Hq + h, tile of query rows); the TPU's
-// sequential kv grid axis becomes a loop over key tiles inside the block
-// (attention_tile.cuh), in fixed order, and for a causal call the loop stops
-// at the tile holding the block's last query position, so tiles beyond the
-// diagonal are skipped.  The tile size depends on d alone (K+V tiles fit the
-// 227 KB of shared memory up to d = 960 and beyond), never on B, so row b of
-// a batched launch is bitwise equal to a solo launch of row b.  q, k and v
-// are read through their strides (the last axis contiguous), so the model's
-// (B,T,H,d) projections need no transposing copy.
+// Two routes, chosen by the wrapper from (dtype, d) alone:
+//   * flash_attention_fwd_wgmma: bfloat16 with d % 16 == 0, d <= 256 (the
+//     dense, hybrid and training prefills), on the tensor-core body of
+//     attention_wgmma.cuh: wgmma products, TMA tiles, a producer warp.
+//   * flash_attention_fwd: float32, and bfloat16 at other d, on the
+//     CUDA-core body of attention_tile.cuh: one block per (b*Hq + h, tile
+//     of query rows), the TPU's sequential kv grid axis a loop over key
+//     tiles inside the block, in fixed order, stopping at the tile holding
+//     the block's last query position for a causal call.  Its tile depends
+//     on d alone (K+V tiles fit 227 KB up to d = 960 and beyond).
+// Either way row b of a batched launch is bitwise equal to a solo launch of
+// row b, and q, k and v are read through their strides (last axis
+// contiguous), so the model's (B,T,H,d) projections need no transposing copy.
 //
 // Bound.  At the prefill shapes the work is 4*d flops per (query, visible
-// key) pair against reading q, k, v and writing o once.  This first kernel
-// computes on the CUDA cores in float32 from shared memory (two shared
-// loads per fused multiply-add), far below the tensor cores' bf16 rate that
-// bounds it; wgmma tiles fed by TMA are the later speed change.
+// key) pair against reading q, k, v and writing o once: at the card's
+// balance point in bf16 (see attention_wgmma.cuh for the numbers).  The
+// CUDA-core route computes in float32 from shared memory (two shared loads
+// per fused multiply-add); it keeps the float32 calls exact to 2e-5, which
+// TF32 tensor cores would not.
 
 #include "attention_tile.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -96,4 +102,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                  ksb, ksh, kst, vsb, vsh, vst, causal, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bfloat16 forward on the tensor-core body (attention_wgmma.cuh).
+// strides: (b, h, t) element strides of q, then k, then v, each with a
+// contiguous last axis; base addresses and strides 16-byte aligned (TMA;
+// the wrapper checks).  o: contiguous (B,Hq,T,d) bfloat16.
+extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
+                                         void* o, int B, int Hq, int Hkv, int T_len, int S,
+                                         int d, const long long* strides, int causal,
+                                         float scale, void* stream) {
+  return attn_wgmma::launch(q, k, v, o, nullptr, nullptr, B, Hq, Hkv, T_len, S, d, strides,
+                            causal, scale, static_cast<cudaStream_t>(stream));
 }

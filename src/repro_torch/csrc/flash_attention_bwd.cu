@@ -19,8 +19,11 @@
 // Design.  The TPU kernels carry their accumulators in VMEM scratch across a
 // sequential grid axis (kv innermost for dQ, q innermost for dK/dV).  Here
 // that axis is a loop inside one block, in fixed order:
-//   * fwd_stats: one block per (b*Hq + h, query tile), the shared online
-//     softmax body (attention_tile.cuh) with the statistics written out;
+//   * fwd_stats: one block per (b*Hq + h, query tile), an online softmax
+//     with the statistics written out: bfloat16 at d % 16 == 0, d <= 256
+//     (the training shapes) on the tensor-core body of attention_wgmma.cuh
+//     (flash_attention_fwd_stats_wgmma), float32 and other d on the
+//     CUDA-core body of attention_tile.cuh (flash_attention_fwd_stats);
 //   * dq: one block per (b*Hq + h, query tile), walking the key tiles up to
 //     the tile holding the block's last query position (tiles above the
 //     diagonal hold p = 0 exactly and are skipped);
@@ -38,12 +41,14 @@
 // Bound.  The work is 2*d flops per product per (query, visible key) pair:
 // two products in the forward, three in dq (q.k, dO.v, dS.k), four in dkv
 // (q.k, dO.v, p^T.dO, dS^T.q), against reading the inputs once; at the
-// training shapes the bf16 tensor-core rate bounds it.  These first kernels
-// compute on the CUDA cores in float32 from shared memory (two shared loads
-// per fused multiply-add); mma/wgmma tiles fed by TMA are the later speed
-// change.
+// training shapes the bf16 tensor-core rate bounds it.  The bfloat16
+// forward runs on wgmma tiles fed by TMA (attention_wgmma.cuh); dq, dkv and
+// the float32 forward compute on the CUDA cores in float32 from shared
+// memory (two shared loads per fused multiply-add); wgmma tiles for dq and
+// dkv are the next speed change.
 
 #include "attention_tile.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -490,4 +495,18 @@ extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v,
                                      S, d, strides, causal, scale, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bfloat16 forward with statistics on the tensor-core body
+// (attention_wgmma.cuh): arguments as flash_attention_fwd_stats without the
+// dtype; base addresses and strides 16-byte aligned (TMA; the wrapper checks).
+extern "C" int flash_attention_fwd_stats_wgmma(const void* q, const void* k, const void* v,
+                                               void* o, void* m, void* l, int B, int Hq,
+                                               int Hkv, int T_len, int S, int d,
+                                               const long long* strides, int causal,
+                                               float scale, void* stream) {
+  if (bad_shape(B, Hq, Hkv, T_len, S, d)) return static_cast<int>(cudaErrorInvalidValue);
+  return attn_wgmma::launch(q, k, v, o, static_cast<float*>(m), static_cast<float*>(l), B,
+                            Hq, Hkv, T_len, S, d, strides, causal, scale,
+                            static_cast<cudaStream_t>(stream));
 }

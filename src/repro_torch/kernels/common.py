@@ -45,6 +45,27 @@ def strides(t) -> tuple[int, ...]:
     return tuple(0 if n == 1 else s for n, s in zip(t.shape, t.stride()))
 
 
+def stride_array(*ts) -> ctypes.Array:
+    """The (b, h, t) element strides of each 4-d tensor, in order, as the
+    ``long long`` array the attention entry points take."""
+    return (ctypes.c_longlong * (3 * len(ts)))(*(s for t in ts for s in strides(t)[:3]))
+
+
+def check_tma(name, t) -> None:
+    """Raise unless a TMA tensor map can address ``t``: its base address and
+    the byte stride of every axis but the last (contiguous) one that is
+    longer than 1 must be multiples of 16."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the tensor-core route loads by TMA, which needs a "
+                         f"16-byte aligned base address, got {t.data_ptr():#x}")
+    size = t.element_size()
+    for n, s in zip(t.shape[:-1], t.stride()[:-1]):
+        if n > 1 and (s * size) % 16:
+            raise ValueError(f"{name}: the tensor-core route loads by TMA, which needs "
+                             f"16-byte multiples for strides, got {t.stride()} elements "
+                             f"of {size} bytes")
+
+
 def records_grad(*tensors) -> bool:
     """Whether autograd records an op on these inputs."""
     return torch.is_grad_enabled() and any(

@@ -10,6 +10,13 @@ when ``T == S``), float32 online softmax, output in q's dtype.  One block per
 (b, q head, query tile) with the key walk in fixed order, so row b of a
 batched launch is bitwise equal to a solo launch of row b.
 
+:func:`flash_route` picks the body from (dtype, d) alone: bfloat16 at
+``d % 16 == 0``, ``d <= 256`` runs on the tensor-core body
+(``csrc/attention_wgmma.cuh``: wgmma, TMA), everything else (float32, whose
+2e-5 tolerance TF32 would break, and bfloat16 at other d such as 960) on the
+CUDA-core body (``csrc/attention_tile.cuh``).  There is no fallback from one
+to the other: a tensor-core call whose strides TMA cannot address raises.
+
 ``flash_attention_plain`` is the same function in plain PyTorch: it serves
 CPU tensors (the tests) and is the yardstick the kernel is checked against
 on the card.  :func:`repro_torch.kernels.ops.flash_attention` picks by device.
@@ -25,16 +32,29 @@ from . import build
 from .common import (
     DTYPE_CODES,
     check_strided,
+    check_tma,
     ptr,
     raise_on_error,
     refuse_grad,
     require_cuda,
     stream,
+    stride_array,
     strides,
 )
 
 _SOURCE = "flash_attention"
 NEG_INF = -1e30
+
+
+ROUTES = ("wgmma", "simt")
+
+
+def flash_route(dtype, d: int) -> str:
+    """The body a flash forward launch runs on: ``"wgmma"`` (the tensor-core
+    body) for bfloat16 at a head dim that is a multiple of 16 up to 256,
+    ``"simt"`` (the CUDA-core body) otherwise."""
+    return "wgmma" if dtype == torch.bfloat16 and d % 16 == 0 and 16 <= d <= 256 \
+        else "simt"
 
 
 def _repeat_kv(t, group: int):
@@ -70,6 +90,8 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                        ll, ll, ll, ll, ll, ll, ll, ll, ll, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
+        lib.flash_attention_fwd_wgmma.argtypes = [p] * 4 + [i] * 6 + [p, i, ctypes.c_float, p]
+        lib.flash_attention_fwd_wgmma.restype = ctypes.c_int
     return lib
 
 
@@ -79,10 +101,12 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, scale: float | None 
     q: (B, Hq, T, d); k, v: (B, Hkv, S, d) with Hq a multiple of Hkv; all
     of one dtype (float32 or bfloat16), on one CUDA device, each with a
     contiguous last axis (other strides are free, so transposed views need
-    no copy).  Returns a contiguous
-    (B, Hq, T, d) tensor in q's dtype.  Launches on the current stream and
-    does not synchronise.  ``flash_attention_kernel.launches`` counts
-    launches.
+    no copy; on the ``"wgmma"`` route the base addresses and strides must be
+    16-byte multiples, or it raises).  Returns a contiguous (B, Hq, T, d)
+    tensor in q's dtype.  Launches on the current stream and does not
+    synchronise.  ``flash_attention_kernel.launches`` counts launches and
+    ``flash_attention_kernel.launches_by_route`` counts them per
+    :func:`flash_route`.
     """
     refuse_grad("flash attention", "differentiate through "
                 "ops.flash_attention_trainable (FlashAttentionFn)", q, k, v)
@@ -102,16 +126,26 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, scale: float | None 
     if B * Hq >= 2**31:
         raise ValueError(f"B*Hq = {B * Hq} exceeds the kernel's grid")
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    route = flash_route(q.dtype, d)
     out = torch.empty((B, Hq, T, d), dtype=q.dtype, device=device)
-    qs, ks, vs = strides(q), strides(k), strides(v)
     with torch.cuda.device(device):
-        err = _library().flash_attention_fwd(
-            ptr(q), ptr(k), ptr(v), ptr(out), DTYPE_CODES[q.dtype],
-            B, Hq, Hkv, T, S, d, *qs[:3], *ks[:3], *vs[:3],
-            int(causal), ctypes.c_float(scale), stream(device))
-    raise_on_error(err, "flash_attention")
+        if route == "wgmma":
+            for name, t in (("q", q), ("k", k), ("v", v)):
+                check_tma(name, t)
+            err = _library().flash_attention_fwd_wgmma(
+                ptr(q), ptr(k), ptr(v), ptr(out), B, Hq, Hkv, T, S, d,
+                stride_array(q, k, v), int(causal), ctypes.c_float(scale), stream(device))
+        else:
+            qs, ks, vs = strides(q), strides(k), strides(v)
+            err = _library().flash_attention_fwd(
+                ptr(q), ptr(k), ptr(v), ptr(out), DTYPE_CODES[q.dtype],
+                B, Hq, Hkv, T, S, d, *qs[:3], *ks[:3], *vs[:3],
+                int(causal), ctypes.c_float(scale), stream(device))
+    raise_on_error(err, f"flash_attention ({route})")
     flash_attention_kernel.launches += 1
+    flash_attention_kernel.launches_by_route[route] += 1
     return out
 
 
 flash_attention_kernel.launches = 0
+flash_attention_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)

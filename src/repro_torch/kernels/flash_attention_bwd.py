@@ -8,7 +8,9 @@ there:
 * ``flash_attention_fwd_stats_kernel`` replaces ``_fwd_stats_kernel``: the
   online-softmax forward that also writes, per query row, the running max
   ``m`` and the clamped denominator ``l = max(l, 1e-30)`` (float32,
-  ``(B,Hq,T)``), o in q's dtype;
+  ``(B,Hq,T)``), o in q's dtype.  Like the flash forward it runs on the
+  tensor-core body (``csrc/attention_wgmma.cuh``) or the CUDA-core one by
+  :func:`~repro_torch.kernels.flash_attention.flash_route`;
 * ``flash_attention_dq_kernel`` replaces ``_dq_kernel``:
   ``dQ = sum_k dS K * scale`` with ``dS = p * (dO V^T - delta)`` and
   ``p = exp(s - m) / l``, the keys walked inside the block;
@@ -43,14 +45,15 @@ from .common import (
     DTYPE_CODES,
     check_strided,
     check_tensor,
+    check_tma,
     ptr,
     raise_on_error,
     refuse_grad,
     require_cuda,
     stream,
-    strides,
+    stride_array,
 )
-from .flash_attention import NEG_INF
+from .flash_attention import NEG_INF, ROUTES, flash_route
 
 _SOURCE = "flash_attention_bwd"
 MAX_HEAD_DIM = 256    # the dq and dkv tiles fit shared memory up to here
@@ -146,8 +149,9 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_fwd_stats.argtypes = [p] * 6 + [i] * 7 + [p, i, f, p]
         lib.flash_attention_dq.argtypes = [p] * 8 + [i] * 7 + [p, i, f, p]
         lib.flash_attention_dkv.argtypes = [p] * 9 + [i] * 7 + [p, i, f, p]
+        lib.flash_attention_fwd_stats_wgmma.argtypes = [p] * 6 + [i] * 6 + [p, i, f, p]
         for fn in (lib.flash_attention_fwd_stats, lib.flash_attention_dq,
-                   lib.flash_attention_dkv):
+                   lib.flash_attention_dkv, lib.flash_attention_fwd_stats_wgmma):
             fn.restype = ctypes.c_int
     return lib
 
@@ -186,20 +190,18 @@ def _check_bwd(q, k, v, do, m, l, delta):
     return device, B, Hq, Hkv, T, S, d
 
 
-def _strides(*ts) -> ctypes.Array:
-    return (ctypes.c_longlong * (3 * len(ts)))(*(s for t in ts for s in strides(t)[:3]))
-
-
 def flash_attention_fwd_stats_kernel(q, k, v, *, causal: bool = True,
                                      scale: float | None = None):
     """Launch the CUDA forward with statistics on ``q``'s device.
 
     q: (B, Hq, T, d); k, v: (B, Hkv, S, d) with Hq a multiple of Hkv; one
     dtype (float32 or bfloat16), one CUDA device, each with a contiguous
-    last axis (other strides are free).  Returns (o, m, l): o contiguous
-    (B, Hq, T, d) in q's dtype, m and l contiguous (B, Hq, T) float32.
-    Launches on the current stream and does not synchronise;
-    ``flash_attention_fwd_stats_kernel.launches`` counts launches.
+    last axis (other strides are free; on the ``"wgmma"`` route the base
+    addresses and strides must be 16-byte multiples, or it raises).  Returns
+    (o, m, l): o contiguous (B, Hq, T, d) in q's dtype, m and l contiguous
+    (B, Hq, T) float32.  Launches on the current stream and does not
+    synchronise; ``flash_attention_fwd_stats_kernel.launches`` counts
+    launches, ``.launches_by_route`` counts them per ``flash_route``.
     """
     refuse_grad("flash attention forward-with-stats", "differentiate through "
                 "ops.flash_attention_trainable (FlashAttentionFn)", q, k, v)
@@ -207,13 +209,23 @@ def flash_attention_fwd_stats_kernel(q, k, v, *, causal: bool = True,
     o = torch.empty((B, Hq, T, d), dtype=q.dtype, device=device)
     m = torch.empty((B, Hq, T), dtype=torch.float32, device=device)
     l = torch.empty((B, Hq, T), dtype=torch.float32, device=device)
+    route = flash_route(q.dtype, d)
     with torch.cuda.device(device):
-        err = _library().flash_attention_fwd_stats(
-            ptr(q), ptr(k), ptr(v), ptr(o), ptr(m), ptr(l), DTYPE_CODES[q.dtype],
-            B, Hq, Hkv, T, S, d, _strides(q, k, v), int(causal),
-            ctypes.c_float(_scale(d, scale)), stream(device))
-    raise_on_error(err, "flash_attention_fwd_stats")
+        if route == "wgmma":
+            for name, t in (("q", q), ("k", k), ("v", v)):
+                check_tma(name, t)
+            err = _library().flash_attention_fwd_stats_wgmma(
+                ptr(q), ptr(k), ptr(v), ptr(o), ptr(m), ptr(l), B, Hq, Hkv, T, S, d,
+                stride_array(q, k, v), int(causal), ctypes.c_float(_scale(d, scale)),
+                stream(device))
+        else:
+            err = _library().flash_attention_fwd_stats(
+                ptr(q), ptr(k), ptr(v), ptr(o), ptr(m), ptr(l), DTYPE_CODES[q.dtype],
+                B, Hq, Hkv, T, S, d, stride_array(q, k, v), int(causal),
+                ctypes.c_float(_scale(d, scale)), stream(device))
+    raise_on_error(err, f"flash_attention_fwd_stats ({route})")
     flash_attention_fwd_stats_kernel.launches += 1
+    flash_attention_fwd_stats_kernel.launches_by_route[route] += 1
     return o, m, l
 
 
@@ -232,7 +244,7 @@ def flash_attention_dq_kernel(q, k, v, do, m, l, delta, *, causal: bool = True,
     with torch.cuda.device(device):
         err = _library().flash_attention_dq(
             ptr(q), ptr(k), ptr(v), ptr(do), ptr(m), ptr(l), ptr(delta), ptr(dq),
-            DTYPE_CODES[q.dtype], B, Hq, Hkv, T, S, d, _strides(q, k, v, do),
+            DTYPE_CODES[q.dtype], B, Hq, Hkv, T, S, d, stride_array(q, k, v, do),
             int(causal), ctypes.c_float(_scale(d, scale)), stream(device))
     raise_on_error(err, "flash_attention_dq")
     flash_attention_dq_kernel.launches += 1
@@ -256,7 +268,7 @@ def flash_attention_dkv_kernel(q, k, v, do, m, l, delta, *, causal: bool = True,
     with torch.cuda.device(device):
         err = _library().flash_attention_dkv(
             ptr(q), ptr(k), ptr(v), ptr(do), ptr(m), ptr(l), ptr(delta), ptr(dk),
-            ptr(dv), DTYPE_CODES[q.dtype], B, Hq, Hkv, T, S, d, _strides(q, k, v, do),
+            ptr(dv), DTYPE_CODES[q.dtype], B, Hq, Hkv, T, S, d, stride_array(q, k, v, do),
             int(causal), ctypes.c_float(_scale(d, scale)), stream(device))
     raise_on_error(err, "flash_attention_dkv")
     flash_attention_dkv_kernel.launches += 1
@@ -264,6 +276,7 @@ def flash_attention_dkv_kernel(q, k, v, do, m, l, delta, *, causal: bool = True,
 
 
 flash_attention_fwd_stats_kernel.launches = 0
+flash_attention_fwd_stats_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 flash_attention_dq_kernel.launches = 0
 flash_attention_dkv_kernel.launches = 0
 

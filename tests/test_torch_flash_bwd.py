@@ -25,7 +25,7 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_kernel,
     paged_decode_attention_kernel,
 )
-from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels.flash_attention import flash_attention_kernel, flash_route
 from repro_torch.kernels.flash_attention_bwd import (
     FlashAttentionFn,
     flash_attention_dkv_kernel,
@@ -47,6 +47,7 @@ CASES = [
     (1, 2, 1, 96, 16, False, 32, 32, "float32"),    # MQA, non-causal
     (2, 6, 2, 64, 32, True, 32, 32, "bfloat16"),
     (2, 3, 1, 80, 16, True, 16, 16, "float32"),
+    (1, 4, 2, 48, 80, True, 16, 16, "bfloat16"),    # Zamba2's head dim (d % 64 != 0)
 ]
 IDS = [f"B{c[0]}-H{c[1]}/{c[2]}-T{c[3]}-d{c[4]}-{'causal' if c[5] else 'full'}-{c[8]}"
        for c in CASES]
@@ -263,6 +264,9 @@ CARD_CASES = [c[:6] + (c[8],) for c in CASES] + [
     (1, 4, 4, 37, 64, False, "float32"),
     (8, 15, 5, 1024, 64, True, "bfloat16"),     # the SmolLM-360M train step
     (1, 2, 1, 50, 256, True, "float32"),        # the largest head dim the kernels take
+    # the tensor-core forward: T off its 128-row tiles, GQA 3:1 and 1:1
+    (2, 6, 2, 300, 80, True, "bfloat16"), (1, 3, 3, 513, 16, True, "bfloat16"),
+    (2, 4, 4, 100, 128, False, "bfloat16"), (1, 2, 1, 50, 256, True, "bfloat16"),
 ]
 
 
@@ -281,7 +285,11 @@ def test_kernels_match_plain_on_card(case):
         pytest.skip("needs a CUDA device")
     causal, dtype = case[5], case[6]
     q, k, v, do = _card_inputs(case)
+    route = flash_route(q.dtype, q.shape[-1])
+    before = dict(flash_attention_fwd_stats_kernel.launches_by_route)
     o, m, l = flash_attention_fwd_stats_kernel(q, k, v, causal=causal)
+    after = flash_attention_fwd_stats_kernel.launches_by_route
+    assert after == {**before, route: before[route] + 1}
     po, pm, pl = flash_attention_fwd_stats_plain(q, k, v, causal=causal)
     delta = (do.float() * po.float()).sum(-1)
     dq = flash_attention_dq_kernel(q, k, v, do, pm, pl, delta, causal=causal)
@@ -300,6 +308,8 @@ def test_kernels_match_plain_on_card(case):
     assert torch.equal(flash_attention_dkv_kernel(*one, causal=causal)[0][0], dk[0])
     # the model's (B, T, H, d) projections passed as transposed views
     tv = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v, do)]
+    for g, w in zip(flash_attention_fwd_stats_kernel(*tv[:3], causal=causal), (o, m, l)):
+        assert torch.equal(g, w)
     assert torch.equal(flash_attention_dq_kernel(*tv, pm, pl, delta, causal=causal), dq)
     assert torch.equal(flash_attention_dkv_kernel(*tv, pm, pl, delta, causal=causal)[1], dv)
 

@@ -24,9 +24,15 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_kernel,
     decode_attention_plain,
 )
+from repro_torch.kernels.common import check_tma
 from repro_torch.kernels.flash_attention import (
     flash_attention_kernel,
     flash_attention_plain,
+    flash_route,
+)
+from repro_torch.kernels.flash_attention_bwd import (
+    flash_attention_fwd_stats_kernel,
+    flash_attention_fwd_stats_plain,
 )
 from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
 
@@ -46,6 +52,14 @@ DECODE_CASES = [
     (1, 8, 2, 128, 16, 64, 32),
 ]
 RMS_SHAPES = [(8, 64), (3, 5, 128), (256, 32)]
+# (B, Hq, Hkv, T, S, d, causal, -, -): the tensor-core route's head dims (16,
+# 64, SmolLM's; 80, Zamba2's; 128) with T and S off its 128-row tiles, causal
+# with T < S and T > S, GQA 3:1 and 1:1, non-causal
+ROUTE_CASES = [
+    (2, 6, 2, 300, 300, 16, True, 0, 0), (1, 3, 3, 513, 513, 64, True, 0, 0),
+    (2, 6, 2, 300, 513, 80, True, 0, 0), (2, 3, 3, 513, 300, 128, True, 0, 0),
+    (1, 6, 2, 300, 513, 64, False, 0, 0), (1, 3, 3, 513, 300, 80, False, 0, 0),
+]
 DTYPES = ["float32", "bfloat16"]
 
 
@@ -180,6 +194,50 @@ def test_flash_causal_mask_is_top_left():
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype,d,want", [
+    *((torch.bfloat16, d, "wgmma") for d in (16, 64, 80, 128, 256)),
+    *((torch.float32, d, "simt") for d in (16, 64, 80, 128, 256)),
+    (torch.bfloat16, 8, "simt"), (torch.bfloat16, 24, "simt"),
+    (torch.bfloat16, 272, "simt"), (torch.bfloat16, 960, "simt"),
+])
+def test_flash_route_is_picked_by_dtype_and_head_dim(dtype, d, want):
+    """bfloat16 at d % 16 == 0, d <= 256 takes the tensor-core body; float32
+    (its 2e-5 tolerance) and every other head dim the CUDA-core one."""
+    assert flash_route(dtype, d) == want
+
+
+def test_flash_wrappers_count_launches_by_route():
+    for fn in (flash_attention_kernel, flash_attention_fwd_stats_kernel):
+        assert set(fn.launches_by_route) == {"wgmma", "simt"}
+        assert all(isinstance(n, int) for n in fn.launches_by_route.values())
+    before = dict(flash_attention_kernel.launches_by_route)
+    q = torch.zeros(1, 1, 4, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_kernel(q, q, q)
+    assert flash_attention_kernel.launches_by_route == before
+
+
+def _offset_view():
+    buf = torch.zeros(1 + 64, dtype=torch.bfloat16)
+    return buf[1:].view(1, 1, 4, 16)             # base 2 bytes past an aligned one
+
+
+@pytest.mark.parametrize("make,ok", [
+    (lambda: torch.zeros(2, 3, 40, 64, dtype=torch.bfloat16), True),
+    # the model's (B, T, H, d) projections, seen as (B, H, T, d)
+    (lambda: torch.zeros(2, 40, 3, 80, dtype=torch.bfloat16).transpose(1, 2), True),
+    (lambda: torch.zeros(1, 2, 8, 20, dtype=torch.bfloat16)[..., :16], False),  # 40-byte rows
+    (_offset_view, False),
+], ids=["contiguous", "model-view", "row-stride", "base-address"])
+def test_tensor_core_route_refuses_what_tma_cannot_address(make, ok):
+    t = make()
+    if ok:
+        check_tma("q", t)
+    else:
+        with pytest.raises(ValueError, match="TMA"):
+            check_tma("q", t)
+
+
 def test_kernels_refuse_cpu_tensors():
     x = torch.zeros(2, 8)
     with pytest.raises(ValueError, match="CUDA"):
@@ -210,16 +268,32 @@ def _dev(shape, dtype, seed, device):
 def test_flash_kernel_matches_plain_on_card(dtype):
     dev = _cuda()
     tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    stats_tol = 2e-2 if dtype == "bfloat16" else 2e-4
     for B, Hq, Hkv, T, S, d, causal, _, _ in ATTN_CASES + [
-            (2, 15, 5, 512, 512, 64, True, 0, 0), (2, 1, 1, 128, 128, 960, True, 0, 0)]:
+            (2, 15, 5, 512, 512, 64, True, 0, 0),
+            (2, 1, 1, 128, 128, 960, True, 0, 0)] + ROUTE_CASES:
         q, k, v = (_dev((B, Hq, T, d), dtype, 0, dev), _dev((B, Hkv, S, d), dtype, 1, dev),
                    _dev((B, Hkv, S, d), dtype, 2, dev))
+        route = flash_route(q.dtype, d)
+        before = dict(flash_attention_kernel.launches_by_route)
         got = flash_attention_kernel(q, k, v, causal=causal)
+        assert flash_attention_kernel.launches_by_route == {**before, route: before[route] + 1}
         want = flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
         solo = flash_attention_kernel(q[-1:], k[-1:], v[-1:], causal=causal)
         assert torch.equal(solo[0], got[-1])
+        # the model's (B, T, H, d) projections, passed as transposed views
+        tv = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+        assert torch.equal(flash_attention_kernel(*tv, causal=causal), got)
+        if d <= 256:
+            before = dict(flash_attention_fwd_stats_kernel.launches_by_route)
+            stats = flash_attention_fwd_stats_kernel(q, k, v, causal=causal)
+            after = flash_attention_fwd_stats_kernel.launches_by_route
+            assert after == {**before, route: before[route] + 1}
+            for g, w in zip(stats, flash_attention_fwd_stats_plain(q, k, v, causal=causal)):
+                torch.testing.assert_close(g.float(), w.float(), rtol=stats_tol,
+                                           atol=stats_tol)
 
 
 @pytest.mark.gpu
