@@ -90,12 +90,14 @@ Phases (any failure exits non-zero; the result lines print only at the end):
 13. The training kernels (forward with statistics, dQ, dK/dV) against their
    plain versions on the card: the reference's ``BWD_CASES``, a short last
    tile at d = 128 and the train step's shape, float32 at 2e-4 and bfloat16
-   at 2e-2; batched == solo bitwise and strided views at the train shape.
+   at 2e-2, each launch on the route ``flash_route`` / ``flash_bwd_route``
+   gives (bf16 at d % 16 == 0: the tensor-core bodies); batched == solo
+   bitwise and strided views at the train shape.
 14. The training path at full width: ``launch.train.train`` on SmolLM-360M
    uncut (float32 masters, bf16 compute, remat, tp=1, AdamW lr 3e-4, clip
    1.0), 6 steps of 8 x 1024 ``TokenPipeline`` tokens.  Gates: finite
-   losses and grad norms; 64 forward-with-statistics (32 + 32 recomputed,
-   all on the tensor-core body), 32 dQ and 32 dK/dV launches per step and
+   losses and grad norms; 64 forward-with-statistics (32 + 32 recomputed),
+   32 dQ and 32 dK/dV launches per step, all on the tensor-core bodies, and
    no plain-version call; one
    step's gradients through the kernels against the plain versions in
    their places (one run each, back to back) at a global relative error
@@ -105,12 +107,13 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    Step p50, tokens/s,
    peak memory, and a profiler window of one step.  Then the three kernels'
    times at the train shape against their bounds, their plain versions and
-   ``scaled_dot_product_attention``'s forward and backward (the forward
-   with statistics and the flash forward also on the CUDA-core body), and
-   RMSNorm's at the train step's (8, 1024, 960) rows against ``F.rms_norm``.
+   ``scaled_dot_product_attention``'s forward and backward (all three also
+   on the CUDA-core bodies through their C entries, and dQ + dK/dV together
+   against the backward), and RMSNorm's at the train step's (8, 1024, 960)
+   rows against ``F.rms_norm``.
 
-The last lines are a ``kernels`` JSON line (rows 3 and 4 with their
-``launches_by_route``), the card's name and power
+The last lines are a ``kernels`` JSON line (rows 3-6 with their
+``launches_by_route`` and ``cuda_core_ms``), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  The script needs the repo's
 ``src/`` beside it and a CUDA device; without either it exits non-zero and
 prints no result.
@@ -823,9 +826,10 @@ NO_TRAIN_LAUNCHES = {"flash_attention_fwd_stats": 0, "flash_attention_dq": 0,
                      "flash_attention_dkv": 0}
 
 
-# the flash forward wrappers also count their launches per body
+# the attention wrappers also count their launches per body
 # (``launches_by_route``: "wgmma", the tensor-core body; "simt", the CUDA-core one)
-ROUTED = ("flash_attention", "flash_attention_fwd_stats")
+ROUTED = ("flash_attention", "flash_attention_fwd_stats", "flash_attention_dq",
+          "flash_attention_dkv")
 
 
 def _reset_counts():
@@ -1622,32 +1626,42 @@ def phase_bwd_kernels(torch) -> dict:
     """The forward-with-statistics, dQ and dK/dV kernels against their plain
     versions: the reference's ``BWD_CASES``, a short last tile at Qwen2's
     head dim and the training shape, float32 at 2e-4 (the reference's own
-    tolerance) and bfloat16 at 2e-2; row 0 of a batched launch bitwise equal
-    to a solo launch, and the model's transposed views equal to contiguous
-    inputs, at the training shape."""
+    tolerance) and bfloat16 at 2e-2, each launch on its route (bf16 at
+    these d: the tensor-core bodies); row 0 of a batched launch bitwise
+    equal to a solo launch, and the model's transposed views equal to
+    contiguous inputs, at the training shape."""
     from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels.flash_attention import flash_route
 
     dev = torch.device("cuda")
     names = ("flash_attention_fwd_stats", "flash_attention_dq", "flash_attention_dkv")
     worst = dict.fromkeys(names, 0.0)
+    worst_bf16 = dict.fromkeys(names, 0.0)
     kernels = (fab.flash_attention_fwd_stats_kernel, fab.flash_attention_dq_kernel,
                fab.flash_attention_dkv_kernel)
     plains = (fab.flash_attention_fwd_stats_plain, fab.flash_attention_dq_plain,
               fab.flash_attention_dkv_plain)
+    saved = _snapshot()
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         tol = 2e-4 if dtype == torch.float32 else 2e-2
         for B, Hq, Hkv, T, d, causal in BWD_CASES:
             q, do = (_randn(torch, (B, Hq, T, d), dtype, s, dev) for s in (40, 41))
             k, v = (_randn(torch, (B, Hkv, T, d), dtype, s, dev) for s in (42, 43))
+            _reset_counts()
             got = _bwd_chain(*kernels, q, k, v, do, causal)
+            routes = _routes()
             want = _bwd_chain(*plains, q, k, v, do, causal)
             torch.cuda.synchronize()
+            for name, route in zip(names, (flash_route(dtype, d),
+                                           *[fab.flash_bwd_route(dtype, d)] * 2)):
+                check_routes(routes, name, int(route == "wgmma"), int(route == "simt"),
+                             f"{dtype}, d = {d}")
             for name, g, w in zip(names[:1] * 3 + names[1:2] + names[2:] * 2, got, want):
                 check(g.dtype == w.dtype and g.shape == w.shape, (name, g.shape, w.shape))
                 err = (g.float() - w.float()).abs().max().item()
-                if dtype == torch.float32:
-                    worst[name] = max(worst[name], err)
+                into = worst if dtype == torch.float32 else worst_bf16
+                into[name] = max(into[name], err)
                 torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
                 check(torch.isfinite(g.float()).all().item(), f"{name}: non-finite")
             cases += 1
@@ -1662,10 +1676,12 @@ def phase_bwd_kernels(torch) -> dict:
             check(all(torch.equal(a, b) for a, b in
                       zip(_bwd_chain(*kernels, *tv, causal), got)),
                   "training kernels: strided views differ from contiguous inputs")
-    log(f"# training kernels vs plain: {cases} cases (o, m, l, dq, dk, dv), max |err| "
-        f"in float32 {worst} (tol 2e-4; bf16 2e-2); batched row 0 == solo bitwise and "
-        f"strided views at the training shape: ok")
-    return worst
+    _restore(saved)                         # comparison launches are not a path's
+    log(f"# training kernels vs plain: {cases} cases (o, m, l, dq, dk, dv), each launch on "
+        f"its route (bf16: tensor-core bodies), max |err| in float32 {worst} (tol 2e-4), "
+        f"in bf16 {worst_bf16} (tol 2e-2); batched row 0 == solo bitwise and strided views "
+        f"at the training shape: ok")
+    return {name: max(worst[name], worst_bf16[name]) for name in names}
 
 
 # ---------------------------------------------------------------------------
@@ -1682,7 +1698,8 @@ def phase_train(torch) -> dict:
     compute, remat, tp=1, AdamW lr 3e-4, clip 1.0): 6 steps of 8 x 1024
     tokens from ``TokenPipeline``.  Gates: (a) every loss and grad norm
     finite; (b) per step 2L forward-with-statistics (L and L recomputed),
-    L dQ and L dK/dV launches and no plain-version call; (c) one step's
+    L dQ and L dK/dV launches, all on the tensor-core bodies, and no
+    plain-version call; (c) one step's
     gradients through the kernels against the same step with the plain
     versions in their places, back to back: global relative error <= 2e-2,
     every leaf finite and nonzero where the plain one is; (d) on the reduced
@@ -1742,8 +1759,8 @@ def phase_train(torch) -> dict:
         check(launches[name] == TRAIN_STEPS * n,
               f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps, want {n} per step")
     check(launches["flash_attention"] == launches["decode_attention"] == 0, launches)
-    check_routes(routes, "flash_attention_fwd_stats", TRAIN_STEPS * 2 * L, 0,
-                 "train steps (bf16, d = 64)")
+    for name, n in per_step.items():
+        check_routes(routes, name, TRAIN_STEPS * n, 0, "train steps (bf16, d = 64)")
     check(not plain_calls, f"plain versions called on the card: {plain_calls}")
     nparams = sum(t.numel() for t in _tensors(out["params"]))
     step_ms = [m["ms"] for m in metrics]
@@ -1757,8 +1774,8 @@ def phase_train(torch) -> dict:
         f"included); step p50 {p50:.1f} ms (min {min(step_ms):.1f}, max "
         f"{max(step_ms):.1f}) = {tokens / p50 * 1e3:.0f} tokens/s; losses "
         f"{[round(m['loss'], 4) for m in metrics]}, grad norms "
-        f"{[round(m['grad_norm'], 4) for m in metrics]}; launches {launches}, forward "
-        f"with statistics by route {routes['flash_attention_fwd_stats']}; "
+        f"{[round(m['grad_norm'], 4) for m in metrics]}; launches {launches}, by route "
+        f"{ {n: routes[n] for n in per_step} }; "
         f"max_memory_allocated {peak / 2**20:.1f} MiB")
 
     # where the time goes: one more step under the profiler
@@ -1803,7 +1820,7 @@ def phase_train(torch) -> dict:
                 zip(names, grads["kernel"][1], grads["plain"][1])}
     log(f"# train-step gradients, kernels vs plain versions (one step, {TRAIN_B} x "
         f"{TRAIN_SEQ}): loss {grads['kernel'][0]:.6f} / {grads['plain'][0]:.6f}, global "
-        f"relative error {rel:.3e} (tol 2e-2; 7.8e-3 with the CUDA-core forward); "
+        f"relative error {rel:.3e} (tol 2e-2; 8.494e-3 with the CUDA-core dQ and dK/dV); "
         f"per leaf "
         f"{ {n: float(f'{e:.2e}') for n, e in leaf_rel.items()} }; loss+gradient host time "
         f"{times['kernel']:.1f} ms with the kernels, then {times['plain']:.1f} ms with "
@@ -1844,10 +1861,46 @@ def phase_train(torch) -> dict:
     return {"launches": launches, "routes": routes, "p50_ms": p50}
 
 
+def _cuda_core_bwd_call(bwd, dq: bool):
+    """A call of the CUDA-core dQ or dK/dV body (``flash_attention_bwd.cu``'s
+    ``dq_kernel`` / ``dkv_kernel``, which ran every bfloat16 launch before
+    the tensor-core bodies) through its C entry, on inputs the wrappers route
+    to the tensor-core bodies: timed beside them in the same run, never on a
+    path.  Returns (call, outputs)."""
+    import ctypes
+    import math
+
+    import torch
+
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels.common import DTYPE_CODES, ptr, stream, stride_array
+
+    q, k, v, do, m, l, delta = bwd
+    B, Hq, T, d = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    lib = fab._library()
+    ins = [ptr(t) for t in bwd]
+    tail = (DTYPE_CODES[q.dtype], B, Hq, Hkv, T, S, d, stride_array(q, k, v, do), 1,
+            ctypes.c_float(1.0 / math.sqrt(d)), stream(q.device))
+    if dq:
+        out = (torch.empty((B, Hq, T, d), dtype=q.dtype, device=q.device),)
+        fn, what = lib.flash_attention_dq, "CUDA-core dQ"
+    else:
+        out = tuple(torch.empty((B, Hkv, S, d), dtype=k.dtype, device=k.device)
+                    for _ in "kv")
+        fn, what = lib.flash_attention_dkv, "CUDA-core dK/dV"
+    outs = [ptr(t) for t in out]
+
+    def call():
+        check(fn(*ins, *outs, *tail) == 0, f"{what} failed")
+    return call, out
+
+
 def phase_train_timing(torch) -> dict:
     """The three training kernels at the train step's attention shape: q
     (8,15,1024,64), k, v (8,5,1024,64) bf16, causal, against their bounds,
-    their plain versions and ``scaled_dot_product_attention``'s forward (row
+    their plain versions, their CUDA-core bodies through their C entries
+    (``cuda_core_ms``) and ``scaled_dot_product_attention``'s forward (row
     4) and backward (rows 5 and 6 together; timed for comparison only); and
     the RMSNorm kernel at the train step's rows against ``F.rms_norm``."""
     import torch.nn.functional as F
@@ -1882,10 +1935,10 @@ def phase_train_timing(torch) -> dict:
                                                          retain_graph=True), 20, flush)
     runs = {
         "flash_attention_dq": (lambda: fab.flash_attention_dq_kernel(*bwd),
-                               lambda: fab.flash_attention_dq_plain(*bwd), lib_bwd, errs[3]),
+                               lambda: fab.flash_attention_dq_plain(*bwd), errs[3], want[3:4]),
         "flash_attention_dkv": (lambda: fab.flash_attention_dkv_kernel(*bwd),
-                                lambda: fab.flash_attention_dkv_plain(*bwd), lib_bwd,
-                                max(errs[4:])),
+                                lambda: fab.flash_attention_dkv_plain(*bwd), max(errs[4:]),
+                                want[4:]),
     }
     # rows 4 and 3 on the tensor-core body, against sdpa's forward
     out = {"flash_attention_fwd_stats": flash_timing(torch, q, k, v, flush, 20, stats=True),
@@ -1893,14 +1946,26 @@ def phase_train_timing(torch) -> dict:
     out["flash_attention_fwd_stats"]["max_abs_err"] = max(
         out["flash_attention_fwd_stats"]["max_abs_err"], *errs[:3])
     shape = f"q {tuple(q.shape)}, k,v {tuple(k.shape)} bf16 causal"
-    for name, (kern, plain, lib, err) in runs.items():
+    for name, (kern, plain, err, plain_out) in runs.items():
         nbytes, flops = work[name]
         bound, by = _bound(nbytes, flops, H100_BF16_FLOPS)
+        core, core_out = _cuda_core_bwd_call(bwd, name == "flash_attention_dq")
+        core()
+        torch.cuda.synchronize()
         out[name] = dict(ms=time_ms(torch, kern, 20, flush),
-                         plain_ms=time_ms(torch, plain, 10, flush), library_ms=lib,
+                         cuda_core_ms=time_ms(torch, core, 5, flush),
+                         cuda_core_err=max((g.float() - w.float()).abs().max().item()
+                                           for g, w in zip(core_out, plain_out)),
+                         plain_ms=time_ms(torch, plain, 10, flush), library_ms=lib_bwd,
                          bound_ms=bound, bound_by=by, max_abs_err=err, shape=shape,
+                         route=fab.flash_bwd_route(q.dtype, d),
                          library="sdpa backward (dq, dk, dv)",
                          work=f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP")
+    dq_t, dkv_t = out["flash_attention_dq"], out["flash_attention_dkv"]
+    both, both_core = dq_t["ms"] + dkv_t["ms"], dq_t["cuda_core_ms"] + dkv_t["cuda_core_ms"]
+    log(f"# dQ + dK/dV at {shape}: {both:.4f} ms ({both / lib_bwd:.2f}x sdpa backward "
+        f"{lib_bwd:.4f} ms; bound {dq_t['bound_ms'] + dkv_t['bound_ms']:.5f} ms); on the "
+        f"CUDA-core bodies {both_core:.4f} ms ({both_core / lib_bwd:.1f}x)")
 
     # the RMSNorm forward kernel at the train step's rows (8 x 1024, 960) bf16,
     # 129 launches a step under ``RMSNormFn``
@@ -2025,7 +2090,7 @@ def main() -> int:
             "name": name,
             "route": "cuda",
             "source": "src/repro_torch/csrc/attention_wgmma.cuh" if stats
-            else "src/repro_torch/csrc/flash_attention_bwd.cu",
+            else "src/repro_torch/csrc/attention_wgmma_bwd.cuh",
             "replaces": f"src/repro/kernels/flash_attention_bwd.py:{line}",
             "launches": training["launches"][name],
             "max_abs_err": max(bwd_err[name], t["max_abs_err"],
@@ -2037,9 +2102,8 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "ok": True,
         })
-        if stats:
-            kernels[-1]["launches_by_route"] = training["routes"][name]
-            kernels[-1]["cuda_core_ms"] = t["cuda_core_ms"]
+        kernels[-1]["launches_by_route"] = training["routes"][name]
+        kernels[-1]["cuda_core_ms"] = t["cuda_core_ms"]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -16,14 +16,21 @@
 //   dS = p * (dO.V^T - delta),  dQ = dS.K * scale,  dK = dS^T.Q * scale,
 //   dV = p^T.dO.
 //
-// Design.  The TPU kernels carry their accumulators in VMEM scratch across a
-// sequential grid axis (kv innermost for dQ, q innermost for dK/dV).  Here
-// that axis is a loop inside one block, in fixed order:
+// Two bodies for each.  bfloat16 at d % 16 == 0 runs on the tensor cores
+// (wgmma products, tiles by TMA): the forward with statistics up to d = 256
+// on attention_wgmma.cuh (flash_attention_fwd_stats_wgmma), dQ and dK/dV up
+// to d = 128 on attention_wgmma_bwd.cuh (flash_attention_dq_wgmma,
+// flash_attention_dkv_wgmma).  Float32 and other d run the CUDA-core bodies
+// below (flash_attention_fwd_stats, flash_attention_dq, flash_attention_dkv),
+// which compute in float32 from shared memory (two shared loads per fused
+// multiply-add).  The wrapper picks the body by (dtype, d) alone.
+//
+// Design of the CUDA-core bodies.  The TPU kernels carry their accumulators
+// in VMEM scratch across a sequential grid axis (kv innermost for dQ, q
+// innermost for dK/dV).  Here that axis is a loop inside one block, in fixed
+// order:
 //   * fwd_stats: one block per (b*Hq + h, query tile), an online softmax
-//     with the statistics written out: bfloat16 at d % 16 == 0, d <= 256
-//     (the training shapes) on the tensor-core body of attention_wgmma.cuh
-//     (flash_attention_fwd_stats_wgmma), float32 and other d on the
-//     CUDA-core body of attention_tile.cuh (flash_attention_fwd_stats);
+//     with the statistics written out (attention_tile.cuh);
 //   * dq: one block per (b*Hq + h, query tile), walking the key tiles up to
 //     the tile holding the block's last query position (tiles above the
 //     diagonal hold p = 0 exactly and are skipped);
@@ -41,14 +48,12 @@
 // Bound.  The work is 2*d flops per product per (query, visible key) pair:
 // two products in the forward, three in dq (q.k, dO.v, dS.k), four in dkv
 // (q.k, dO.v, p^T.dO, dS^T.q), against reading the inputs once; at the
-// training shapes the bf16 tensor-core rate bounds it.  The bfloat16
-// forward runs on wgmma tiles fed by TMA (attention_wgmma.cuh); dq, dkv and
-// the float32 forward compute on the CUDA cores in float32 from shared
-// memory (two shared loads per fused multiply-add); wgmma tiles for dq and
-// dkv are the next speed change.
+// training shapes the bf16 tensor-core rate bounds it, which the CUDA-core
+// bodies stay ~190x away from (PERF.md).
 
 #include "attention_tile.cuh"
 #include "attention_wgmma.cuh"
+#include "attention_wgmma_bwd.cuh"
 
 namespace {
 
@@ -509,4 +514,33 @@ extern "C" int flash_attention_fwd_stats_wgmma(const void* q, const void* k, con
   return attn_wgmma::launch(q, k, v, o, static_cast<float*>(m), static_cast<float*>(l), B,
                             Hq, Hkv, T_len, S, d, strides, causal, scale,
                             static_cast<cudaStream_t>(stream));
+}
+
+// The bfloat16 dQ and dK/dV on the tensor-core bodies
+// (attention_wgmma_bwd.cuh): arguments as flash_attention_dq and
+// flash_attention_dkv without the dtype, d % 16 == 0 and 16 <= d <= 128;
+// base addresses and strides of q, k, v and dO 16-byte aligned (TMA; the
+// wrapper checks).
+extern "C" int flash_attention_dq_wgmma(const void* q, const void* k, const void* v,
+                                        const void* dout, const void* m, const void* l,
+                                        const void* delta, void* dq, int B, int Hq, int Hkv,
+                                        int T_len, int S, int d, const long long* strides,
+                                        int causal, float scale, void* stream) {
+  return attn_wgmma_bwd::launch_dq(q, k, v, dout, static_cast<const float*>(m),
+                                   static_cast<const float*>(l),
+                                   static_cast<const float*>(delta), dq, B, Hq, Hkv, T_len, S,
+                                   d, strides, causal, scale, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_attention_dkv_wgmma(const void* q, const void* k, const void* v,
+                                         const void* dout, const void* m, const void* l,
+                                         const void* delta, void* dk, void* dv, int B, int Hq,
+                                         int Hkv, int T_len, int S, int d,
+                                         const long long* strides, int causal, float scale,
+                                         void* stream) {
+  return attn_wgmma_bwd::launch_dkv(q, k, v, dout, static_cast<const float*>(m),
+                                    static_cast<const float*>(l),
+                                    static_cast<const float*>(delta), dk, dv, B, Hq, Hkv, T_len,
+                                    S, d, strides, causal, scale,
+                                    static_cast<cudaStream_t>(stream));
 }

@@ -21,9 +21,16 @@ there:
   partials afterwards; the kernel reads kv head ``h // g`` through strides
   and sums the group in float32, rounding once.
 
+dQ and dK/dV run on the tensor-core bodies (``csrc/attention_wgmma_bwd.cuh``:
+wgmma products, tiles by TMA; p and dS rounded to bf16 before the products
+they feed) or the CUDA-core ones by :func:`flash_bwd_route`: bfloat16 at
+``d % 16 == 0``, ``16 <= d <= 128`` (every training launch of the dense
+family) takes the first; float32, whose 2e-4 tolerance rules out bf16
+products, and other d the second.
+
 q ``(B,Hq,T,d)`` against k, v ``(B,Hkv,S,d)``; causal mask ``kpos <= qpos``
 (top-left aligned); ``scale = 1/sqrt(d)``; float32 or bfloat16 with float32
-math; any T and S (a short last tile is masked: the TPU wrapper needs
+sums; any T and S (a short last tile is masked: the TPU wrapper needs
 ``T % bq == 0``); d up to :data:`MAX_HEAD_DIM`.  ``delta = sum(dO * O)`` per
 row is one float32 PyTorch expression in :class:`FlashAttentionFn`, as it is
 outside any Pallas kernel in the reference.
@@ -57,6 +64,14 @@ from .flash_attention import NEG_INF, ROUTES, flash_route
 
 _SOURCE = "flash_attention_bwd"
 MAX_HEAD_DIM = 256    # the dq and dkv tiles fit shared memory up to here
+MAX_WGMMA_BWD_DIM = 128   # dK and dV accumulators fit a warpgroup's registers up to here
+
+
+def flash_bwd_route(dtype, d: int) -> str:
+    """The body a dQ or dK/dV launch runs on: ``"wgmma"`` (the tensor-core
+    body) for bfloat16 at a head dim that is a multiple of 16 from 16 to
+    :data:`MAX_WGMMA_BWD_DIM`, ``"simt"`` (the CUDA-core body) otherwise."""
+    return flash_route(dtype, d) if d <= MAX_WGMMA_BWD_DIM else "simt"
 
 
 def _scale(d: int, scale: float | None) -> float:
@@ -150,8 +165,11 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_dq.argtypes = [p] * 8 + [i] * 7 + [p, i, f, p]
         lib.flash_attention_dkv.argtypes = [p] * 9 + [i] * 7 + [p, i, f, p]
         lib.flash_attention_fwd_stats_wgmma.argtypes = [p] * 6 + [i] * 6 + [p, i, f, p]
+        lib.flash_attention_dq_wgmma.argtypes = [p] * 8 + [i] * 6 + [p, i, f, p]
+        lib.flash_attention_dkv_wgmma.argtypes = [p] * 9 + [i] * 6 + [p, i, f, p]
         for fn in (lib.flash_attention_fwd_stats, lib.flash_attention_dq,
-                   lib.flash_attention_dkv, lib.flash_attention_fwd_stats_wgmma):
+                   lib.flash_attention_dkv, lib.flash_attention_fwd_stats_wgmma,
+                   lib.flash_attention_dq_wgmma, lib.flash_attention_dkv_wgmma):
             fn.restype = ctypes.c_int
     return lib
 
@@ -178,6 +196,11 @@ def _check_qkv(q, k, v, what: str):
     if B * max(Hq, 1) >= 2**31:
         raise ValueError(f"B*Hq = {B * Hq} exceeds the kernels' grid")
     return device, B, Hq, Hkv, T, S, d
+
+
+def _check_tma(*tensors):
+    for name, t in zip(("q", "k", "v", "do"), tensors):
+        check_tma(name, t)
 
 
 def _check_bwd(q, k, v, do, m, l, delta):
@@ -212,8 +235,7 @@ def flash_attention_fwd_stats_kernel(q, k, v, *, causal: bool = True,
     route = flash_route(q.dtype, d)
     with torch.cuda.device(device):
         if route == "wgmma":
-            for name, t in (("q", q), ("k", k), ("v", v)):
-                check_tma(name, t)
+            _check_tma(q, k, v)
             err = _library().flash_attention_fwd_stats_wgmma(
                 ptr(q), ptr(k), ptr(v), ptr(o), ptr(m), ptr(l), B, Hq, Hkv, T, S, d,
                 stride_array(q, k, v), int(causal), ctypes.c_float(_scale(d, scale)),
@@ -234,20 +256,29 @@ def flash_attention_dq_kernel(q, k, v, do, m, l, delta, *, causal: bool = True,
     """Launch the CUDA dQ kernel on ``q``'s device.
 
     q, k, v as for the forward; do like q (same dtype, contiguous last
-    axis); m, l, delta contiguous (B, Hq, T) float32.  Returns dQ,
-    contiguous (B, Hq, T, d) in q's dtype.  Launches on the current stream;
-    ``flash_attention_dq_kernel.launches`` counts launches.
+    axis; on the ``"wgmma"`` route q, k, v and do must have 16-byte aligned
+    base addresses and strides, or it raises); m, l, delta contiguous
+    (B, Hq, T) float32.  Returns dQ, contiguous (B, Hq, T, d) in q's dtype.
+    Launches on the current stream; ``flash_attention_dq_kernel.launches``
+    counts launches, ``.launches_by_route`` counts them per
+    :func:`flash_bwd_route`.
     """
     refuse_grad("flash attention dQ", "second derivatives are not supported", q, k, v, do)
     device, B, Hq, Hkv, T, S, d = _check_bwd(q, k, v, do, m, l, delta)
     dq = torch.empty((B, Hq, T, d), dtype=q.dtype, device=device)
+    route = flash_bwd_route(q.dtype, d)
+    args = (ptr(q), ptr(k), ptr(v), ptr(do), ptr(m), ptr(l), ptr(delta), ptr(dq))
+    tail = (B, Hq, Hkv, T, S, d, stride_array(q, k, v, do), int(causal),
+            ctypes.c_float(_scale(d, scale)), stream(device))
     with torch.cuda.device(device):
-        err = _library().flash_attention_dq(
-            ptr(q), ptr(k), ptr(v), ptr(do), ptr(m), ptr(l), ptr(delta), ptr(dq),
-            DTYPE_CODES[q.dtype], B, Hq, Hkv, T, S, d, stride_array(q, k, v, do),
-            int(causal), ctypes.c_float(_scale(d, scale)), stream(device))
-    raise_on_error(err, "flash_attention_dq")
+        if route == "wgmma":
+            _check_tma(q, k, v, do)
+            err = _library().flash_attention_dq_wgmma(*args, *tail)
+        else:
+            err = _library().flash_attention_dq(*args, DTYPE_CODES[q.dtype], *tail)
+    raise_on_error(err, f"flash_attention_dq ({route})")
     flash_attention_dq_kernel.launches += 1
+    flash_attention_dq_kernel.launches_by_route[route] += 1
     return dq
 
 
@@ -258,27 +289,36 @@ def flash_attention_dkv_kernel(q, k, v, do, m, l, delta, *, causal: bool = True,
     Arguments as for :func:`flash_attention_dq_kernel`.  Returns (dK, dV),
     each contiguous (B, Hkv, S, d) in k's dtype, the g query heads of each
     kv head summed in float32.  Launches on the current stream;
-    ``flash_attention_dkv_kernel.launches`` counts launches.
+    ``flash_attention_dkv_kernel.launches`` counts launches,
+    ``.launches_by_route`` counts them per :func:`flash_bwd_route`.
     """
     refuse_grad("flash attention dK/dV", "second derivatives are not supported",
                 q, k, v, do)
     device, B, Hq, Hkv, T, S, d = _check_bwd(q, k, v, do, m, l, delta)
     dk = torch.empty((B, Hkv, S, d), dtype=k.dtype, device=device)
     dv = torch.empty((B, Hkv, S, d), dtype=k.dtype, device=device)
+    route = flash_bwd_route(q.dtype, d)
+    args = (ptr(q), ptr(k), ptr(v), ptr(do), ptr(m), ptr(l), ptr(delta), ptr(dk), ptr(dv))
+    tail = (B, Hq, Hkv, T, S, d, stride_array(q, k, v, do), int(causal),
+            ctypes.c_float(_scale(d, scale)), stream(device))
     with torch.cuda.device(device):
-        err = _library().flash_attention_dkv(
-            ptr(q), ptr(k), ptr(v), ptr(do), ptr(m), ptr(l), ptr(delta), ptr(dk),
-            ptr(dv), DTYPE_CODES[q.dtype], B, Hq, Hkv, T, S, d, stride_array(q, k, v, do),
-            int(causal), ctypes.c_float(_scale(d, scale)), stream(device))
-    raise_on_error(err, "flash_attention_dkv")
+        if route == "wgmma":
+            _check_tma(q, k, v, do)
+            err = _library().flash_attention_dkv_wgmma(*args, *tail)
+        else:
+            err = _library().flash_attention_dkv(*args, DTYPE_CODES[q.dtype], *tail)
+    raise_on_error(err, f"flash_attention_dkv ({route})")
     flash_attention_dkv_kernel.launches += 1
+    flash_attention_dkv_kernel.launches_by_route[route] += 1
     return dk, dv
 
 
 flash_attention_fwd_stats_kernel.launches = 0
 flash_attention_fwd_stats_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 flash_attention_dq_kernel.launches = 0
+flash_attention_dq_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 flash_attention_dkv_kernel.launches = 0
+flash_attention_dkv_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------

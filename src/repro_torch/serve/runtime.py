@@ -216,8 +216,10 @@ class DecodeScheduler:
     state buffers.  The compiled hybrids underneath are the thread-safe
     substrate from :mod:`repro_torch.core.api`.
 
-        planned = mixed.trace(export_decode_lm()).plan("tech-gfp")
-        with DecodeScheduler(planned, step="decode_step", capacity=8) as sched:
+        planned = mixed.trace(export_attn_decode_lm()).plan("tech-gfp")
+        spec = StateSpec(growing={0: 1, 1: 1}, max_context=32, page_size=4)
+        with DecodeScheduler(planned, step="decode_step", capacity=8,
+                             paged_step="paged_decode_step", state=spec) as sched:
             streams = [sched.submit(prompt, max_new_tokens=16)
                        for prompt in prompts]
             tokens = [s.result() for s in streams]

@@ -13,8 +13,13 @@ wrapper needs ``T % bq == 0``, so there the reference runs whole tiles).
 ``RMSNormFn``'s backward against ``jax.grad`` of ``layers.rmsnorm``.  A
 forward-only kernel wrapper refuses a call that autograd would record.
 
-On the card (``gpu``): each kernel against its plain version, bitwise
-batched == solo, strided inputs, and the training shape.
+The tensor-core backward's rounding (p and dS rounded to bf16 before the
+products they feed, float32 sums) modelled in float32 PyTorch against the
+reference VJP on the bf16 cases, and :func:`flash_bwd_route`.
+
+On the card (``gpu``): each kernel against its plain version, the route of
+every launch, bitwise batched == solo, strided inputs, and the training
+shape.
 """
 import numpy as np
 import pytest
@@ -25,7 +30,7 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_kernel,
     paged_decode_attention_kernel,
 )
-from repro_torch.kernels.flash_attention import flash_attention_kernel, flash_route
+from repro_torch.kernels.flash_attention import ROUTES, flash_attention_kernel, flash_route
 from repro_torch.kernels.flash_attention_bwd import (
     FlashAttentionFn,
     flash_attention_dkv_kernel,
@@ -34,6 +39,7 @@ from repro_torch.kernels.flash_attention_bwd import (
     flash_attention_dq_plain,
     flash_attention_fwd_stats_kernel,
     flash_attention_fwd_stats_plain,
+    flash_bwd_route,
 )
 from repro_torch.kernels.rmsnorm import RMSNormFn, rmsnorm_kernel
 from repro_torch.kernels.ssm_scan import ssd_scan_kernel
@@ -140,6 +146,79 @@ def test_gradients_match_autodiff_of_attention_ref(case):
     _, got = _port_grads(case, q, k, v, do)
     for g, w, name in zip(got, want, "qkv"):
         np.testing.assert_allclose(_np(g), np.asarray(w), err_msg=f"d{name}", **_tol(dtype))
+
+
+def _wgmma_bwd_model(q, k, v, do, m, l, delta, causal):
+    """(dQ, dK, dV) as the tensor-core bodies round them: float32 p from the
+    statistics and float32 dS = p * (dP - delta), each rounded to bf16 before
+    the product it feeds (dV = P^T dO, dQ = dS K, dK = dS^T Q), float32
+    sums, one rounding of each output."""
+    f32 = torch.float32
+
+    def bf(t):
+        return t.to(torch.bfloat16).to(f32)
+
+    B, Hq, T, d = q.shape
+    Hkv, S = k.shape[1:3]
+    g, scale = Hq // Hkv, 1.0 / np.sqrt(d)
+    kf, vf = (t.to(f32).repeat_interleave(g, dim=1) for t in (k, v))
+    qf, dof = q.to(f32), do.to(f32)
+    p = torch.exp(qf @ kf.transpose(-1, -2) * scale - m[..., None]) / l[..., None]
+    if causal:
+        p = p.masked_fill(torch.arange(S)[None, :] > torch.arange(T)[:, None], 0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    dq = bf(ds) @ kf * scale
+    dk = (bf(ds).transpose(-1, -2) @ qf * scale).reshape(B, Hkv, g, S, d).sum(2)
+    dv = (bf(p).transpose(-1, -2) @ dof).reshape(B, Hkv, g, S, d).sum(2)
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+BF16_CASES = [c for c in CASES if c[8] == "bfloat16"]
+
+
+@pytest.mark.parametrize("case", BF16_CASES, ids=[IDS[CASES.index(c)] for c in BF16_CASES])
+def test_tensor_core_rounding_matches_reference_vjp(case):
+    """The bf16 cases take the tensor-core backward; its rounding, modelled
+    here, stays within the 2e-2 gate of the reference VJP (interpret
+    mode), as the kernel must on the card."""
+    import jax
+    from repro.kernels.flash_attention_bwd import flash_attention_trainable as ref_fa
+
+    B, Hq, Hkv, T, d, causal, bq, bk, dtype = case
+    assert flash_bwd_route(torch.bfloat16, d) == "wgmma"
+    q, k, v, do = _inputs(case)
+    _, vjp = jax.vjp(lambda q, k, v: ref_fa(q, k, v, causal, bq, bk, True),
+                     _jax(q, dtype), _jax(k, dtype), _jax(v, dtype))
+    want = vjp(_jax(do, dtype))
+    tq, tk, tv, tdo = (_torch(a, dtype) for a in (q, k, v, do))
+    o, m, l = flash_attention_fwd_stats_plain(tq, tk, tv, causal=causal)
+    delta = (tdo.float() * o.float()).sum(-1)
+    got = _wgmma_bwd_model(tq, tk, tv, tdo, m, l, delta, causal)
+    for g, w, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(_np(g), _np(w), err_msg=f"d{name}", **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [16, 64, 80, 128, 130, 960])
+def test_flash_bwd_route_is_picked_by_dtype_and_head_dim(dtype, d):
+    want = "wgmma" if dtype == "bfloat16" and d <= 128 and d % 16 == 0 else "simt"
+    assert flash_bwd_route(getattr(torch, dtype), d) == want
+    assert want in ROUTES
+
+
+def test_bwd_wrappers_count_launches_by_route():
+    for fn in (flash_attention_dq_kernel, flash_attention_dkv_kernel):
+        assert set(fn.launches_by_route) == set(ROUTES)
+        assert all(isinstance(n, int) for n in fn.launches_by_route.values())
+    q = torch.zeros(1, 2, 4, 16, dtype=torch.bfloat16)
+    before = [dict(fn.launches_by_route) for fn in (flash_attention_dq_kernel,
+                                                     flash_attention_dkv_kernel)]
+    s = q[..., 0].float()
+    for fn in (flash_attention_dq_kernel, flash_attention_dkv_kernel):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(q, q, q, q, s, s, s)     # a refused call counts nothing
+    assert [flash_attention_dq_kernel.launches_by_route,
+            flash_attention_dkv_kernel.launches_by_route] == before
 
 
 def test_plain_backward_matches_its_own_autograd():
@@ -267,6 +346,11 @@ CARD_CASES = [c[:6] + (c[8],) for c in CASES] + [
     # the tensor-core forward: T off its 128-row tiles, GQA 3:1 and 1:1
     (2, 6, 2, 300, 80, True, "bfloat16"), (1, 3, 3, 513, 16, True, "bfloat16"),
     (2, 4, 4, 100, 128, False, "bfloat16"), (1, 2, 1, 50, 256, True, "bfloat16"),
+    # the tensor-core backward: d = 80, 96, 128 (one warpgroup for dK/dV), T
+    # off its 64- and 128-row tiles, non-causal, GQA 1:1, 3:1 and 6:1
+    (1, 6, 1, 513, 96, True, "bfloat16"), (2, 3, 1, 300, 128, False, "bfloat16"),
+    (1, 4, 4, 513, 80, False, "bfloat16"), (2, 6, 1, 300, 64, True, "bfloat16"),
+    (1, 2, 2, 300, 128, True, "bfloat16"), (2, 6, 2, 513, 96, False, "bfloat16"),
 ]
 
 
@@ -292,8 +376,13 @@ def test_kernels_match_plain_on_card(case):
     assert after == {**before, route: before[route] + 1}
     po, pm, pl = flash_attention_fwd_stats_plain(q, k, v, causal=causal)
     delta = (do.float() * po.float()).sum(-1)
+    bwd_route = flash_bwd_route(q.dtype, q.shape[-1])
+    bwd = (flash_attention_dq_kernel, flash_attention_dkv_kernel)
+    before = [dict(fn.launches_by_route) for fn in bwd]
     dq = flash_attention_dq_kernel(q, k, v, do, pm, pl, delta, causal=causal)
     dk, dv = flash_attention_dkv_kernel(q, k, v, do, pm, pl, delta, causal=causal)
+    for fn, b in zip(bwd, before):
+        assert fn.launches_by_route == {**b, bwd_route: b[bwd_route] + 1}
     pdq = flash_attention_dq_plain(q, k, v, do, pm, pl, delta, causal=causal)
     pdk, pdv = flash_attention_dkv_plain(q, k, v, do, pm, pl, delta, causal=causal)
     torch.cuda.synchronize()
@@ -312,6 +401,29 @@ def test_kernels_match_plain_on_card(case):
         assert torch.equal(g, w)
     assert torch.equal(flash_attention_dq_kernel(*tv, pm, pl, delta, causal=causal), dq)
     assert torch.equal(flash_attention_dkv_kernel(*tv, pm, pl, delta, causal=causal)[1], dv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,S", [(300, 513), (513, 300)])
+def test_bwd_kernels_take_any_t_and_s_on_card(T, S):
+    """Causal with T != S (top-left aligned) on the tensor-core backward, at
+    the train step's head dim and GQA 3:1: keys past every query get zero
+    gradients, queries past S see all keys."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(7)
+    q, do = (torch.from_numpy(rng.standard_normal((2, 6, T, 64)).astype(np.float32))
+             .to("cuda", torch.bfloat16) for _ in "qd")
+    k, v = (torch.from_numpy(rng.standard_normal((2, 2, S, 64)).astype(np.float32))
+            .to("cuda", torch.bfloat16) for _ in "kv")
+    o, m, l = flash_attention_fwd_stats_plain(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, m, l, delta)
+    got = (flash_attention_dq_kernel(*args), *flash_attention_dkv_kernel(*args))
+    want = (flash_attention_dq_plain(*args), *flash_attention_dkv_plain(*args))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), **_tol("bfloat16"))
 
 
 @pytest.mark.gpu

@@ -301,6 +301,26 @@ def test_prefix_shared_burst_matches_reference(planned, paged_step):
     assert sched._paged.pool.refs_outstanding == 0
 
 
+def test_decode_scheduler_docstring_example_runs():
+    """The usage example in ``DecodeScheduler``'s docstring runs as written,
+    on the CPU, so the names it calls cannot drift from the port's."""
+    import functools
+    import textwrap
+
+    lines = DecodeScheduler.__doc__.splitlines()
+    start = next(i for i, line in enumerate(lines) if "mixed.trace(" in line)
+    code = textwrap.dedent("\n".join(lines[start:]))
+    printed = []
+    names = {"mixed": mixed, "export_attn_decode_lm": export_attn_decode_lm,
+             "StateSpec": StateSpec,
+             "DecodeScheduler": functools.partial(DecodeScheduler, backend="cpu"),
+             "prompts": [np.arange(n, dtype=np.int32) for n in (3, 6, 9)],
+             "print": printed.append}
+    exec(compile(code, "DecodeScheduler.__doc__", "exec"), names)
+    assert [len(t) for t in names["tokens"]] == [16, 16, 16]
+    assert len(printed) == 1 and printed[0].kernel_steps > 0
+
+
 def test_default_backend_raises_without_cuda(planned):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
