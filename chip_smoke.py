@@ -24,11 +24,12 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    shortest and longest stream equal ``paged_decode_reference`` bitwise,
    every step went through the kernel and every batched prefill through the
    flash kernel (the launch counts cover them; d = 960 in float32 takes the
-   CUDA-core body), the page-visit accounting
+   3xTF32 tensor-core body, ``"tf32x3"``), the page-visit accounting
    covers the table walk, the pool drains leak-free.  The batched prefill is
    timed with the flash kernel and with its plain version in its place.
-   The longest stream's solo reference run is profiled (device time by
-   operation per step, and the device's idle share).  Then the kernel's time
+   The longest stream's solo reference run and one batched prefill are
+   profiled (device time by operation per step, and the device's idle
+   share).  Then the kernel's time
    at the step shape against its bound, the plain version's time, and the
    per-step host-to-device copy of the page pools.
 4. A small input checked by the repo's own means: the 4-stream
@@ -42,15 +43,17 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    step's (8, 1024, 960) rows, float32 at
    2e-5 (RMSNorm 1e-5) and bfloat16 at 2e-2; the forward with statistics
    (o, m, l) on the same attention cases (float32 2e-4); every flash launch
-   on the route ``flash_route`` gives (bf16 at d % 16 == 0: the tensor-core
-   body); decode with pos < 0 gives exact
-   zeros; row b of a batched flash launch is bitwise equal to a solo launch;
-   a causal ``sdpa`` op with T != S is refused on the card.
+   on the route ``flash_route`` gives (bf16 at d % 16 == 0: ``"wgmma"``;
+   float32 at d % 8 == 0: ``"tf32x3"``), every RMSNorm launch at a path
+   shape on ``"vec"`` and at an odd D and an offset view on ``"scalar"``;
+   decode with pos < 0 gives exact zeros; row b of a batched flash launch,
+   and the last row of an RMSNorm launch, are bitwise equal to a solo
+   launch; a causal ``sdpa`` op with T != S is refused on the card.
 6. The dense standard path at full size: ``launch.serve.greedy_generate`` on
    SmolLM-360M (all 32 layers and widths, bf16 compute, tp=1, random weights
    from a seeded generator): 8 prompts of 512 tokens, 32 new tokens each.
    Gates: 32 flash + 65 RMSNorm launches per prefill (all 32 flash on the
-   tensor-core body) and 32 decode + 65
+   tensor-core body, every RMSNorm on ``"vec"``) and 32 decode + 65
    RMSNorm launches per step; timed tokens equal greedy_generate's; on a
    float32 copy of the config, prefill + one decode step equals the
    teacher-forcing logits at 5e-3.  A profiler window splits the prefill's
@@ -59,13 +62,18 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    batch 2, seq 256, host check, tp=1): ``native`` is refused, ``tech-gfp``
    on the card gives the model's logits (2e-3/2e-4), on the card and on a
    CPU copy of the weights (the plain versions), and the RMSNorm and flash
-   kernels ran (flash on the CUDA-core body: float32).
-8. The dense kernels' times at the path's shapes (and the flash kernel at
-   the attn LM's d=960 prefill) against their bounds,
+   kernels ran (flash on ``"tf32x3"``: float32 at d = 64; RMSNorm on
+   ``"vec"``).  A profiler window of one call (device time by operation and
+   the idle share).
+8. The dense kernels' times at the path's shapes against their bounds,
    their plain versions and the one PyTorch call that computes the same
-   function (timed for comparison only; the port never calls it); the flash
-   forward and the forward with statistics at the prefill's shape, each
-   also on the CUDA-core body through its C entry (``cuda_core_ms``).
+   function (timed for comparison only; the port never calls it): the flash
+   forward and the forward with statistics at the prefill's bf16 shape and
+   at the mixed forward's float32 (2,15,256,64), the flash forward at the
+   attn LM's float32 d = 960 prefill, each also on the CUDA-core body
+   through its C entry (``cuda_core_ms``; float32 bounds at the 3xTF32
+   rate, the TF32 peak over three); RMSNorm at the prefill's (4096, 960)
+   and the decode step's (8, 960) rows against ``F.rms_norm``.
 9. The SSD scan kernel against its plain version on the card: the
    reference's ``SSD_CASES`` and the hybrid path's shapes ((8,1024,80,64),
    and its float32 gate's T=300 and 304, not multiples of the 256 chunk),
@@ -78,31 +86,35 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    Zamba2-2.7B (all 54 Mamba2 layers, the shared block 9 times, bf16
    compute, tp=1, random weights from a seeded generator): 8 prompts of
    1024 tokens, 32 new tokens each.  Gates: 54 SSD + 9 flash + 73 RMSNorm
-   launches per prefill (all 9 flash on the tensor-core body), 9 decode +
-   73 RMSNorm per step; timed tokens equal
+   launches per prefill (all 9 flash on the tensor-core body, every RMSNorm
+   on ``"vec"``), 9 decode + 73 RMSNorm per step; timed tokens equal
    greedy_generate's; on a float32 copy of the config, 2 prompts of 300
    tokens, prefill + 4 decode steps equal the teacher-forcing logits at
    5e-3.  Profiler windows of one prefill and of 8 decode steps.
 12. The SSD kernel's time at the path's shape against its bound and its
    plain version (no single PyTorch call computes it), and the flash
    forward, the forward with statistics (both also on the CUDA-core body),
-   flash-decode and RMSNorm kernels' times at the hybrid shapes.
+   flash-decode and RMSNorm kernels' times at the hybrid shapes (RMSNorm at
+   the prefill's (8192, 2560) bf16 and the decode step's (8, 2560) float32
+   rows against ``F.rms_norm``).
 13. The training kernels (forward with statistics, dQ, dK/dV) against their
    plain versions on the card: the reference's ``BWD_CASES``, a short last
    tile at d = 128 and the train step's shape, float32 at 2e-4 and bfloat16
    at 2e-2, each launch on the route ``flash_route`` / ``flash_bwd_route``
-   gives (bf16 at d % 16 == 0: the tensor-core bodies); batched == solo
-   bitwise and strided views at the train shape.
+   gives (bf16 at d % 16 == 0: the tensor-core bodies; the float32 forward
+   with statistics on ``"tf32x3"``, float32 dQ and dK/dV on ``"simt"``);
+   batched == solo bitwise and strided views at the train shape.
 14. The training path at full width: ``launch.train.train`` on SmolLM-360M
    uncut (float32 masters, bf16 compute, remat, tp=1, AdamW lr 3e-4, clip
    1.0), 6 steps of 8 x 1024 ``TokenPipeline`` tokens.  Gates: finite
    losses and grad norms; 64 forward-with-statistics (32 + 32 recomputed),
-   32 dQ and 32 dK/dV launches per step, all on the tensor-core bodies, and
-   no plain-version call; one
+   32 dQ and 32 dK/dV launches per step, all on the tensor-core bodies,
+   every RMSNorm on ``"vec"``, and no plain-version call; one
    step's gradients through the kernels against the plain versions in
    their places (one run each, back to back) at a global relative error
    <= 2e-2, every leaf finite and nonzero where the plain one is; on the
-   reduced config in float32 the card's step equals the CPU's (1e-4) and a
+   reduced config in float32 the card's step equals the CPU's (1e-4; its
+   forward with statistics on ``"tf32x3"``, dQ and dK/dV on ``"simt"``) and a
    3 + 3 resumed run equals 6 uninterrupted steps (rtol 1e-5, atol 1e-6).
    Step p50, tokens/s,
    peak memory, and a profiler window of one step.  Then the three kernels'
@@ -112,8 +124,9 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    against the backward), and RMSNorm's at the train step's (8, 1024, 960)
    rows against ``F.rms_norm``.
 
-The last lines are a ``kernels`` JSON line (rows 3-6 with their
-``launches_by_route`` and ``cuda_core_ms``), the card's name and power
+The last lines are a ``kernels`` JSON line (rows 3-7 with their
+``launches_by_route``, rows 3-6 with ``cuda_core_ms``, rows 3 and 4 with
+their float32 route's readings under ``tf32x3``), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  The script needs the repo's
 ``src/`` beside it and a CUDA device; without either it exits non-zero and
 prints no result.
@@ -141,6 +154,7 @@ MAX_NEW = tuple(int(n) for n in np.linspace(16, 64, CAPACITY))
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
 H100_BF16_FLOPS = 989e12         # bf16 tensor cores, dense
+H100_TF32X3_FLOPS = 494e12 / 3   # float32 as 3xTF32: the dense TF32 peak over three products
 
 KERNEL_SOURCES = ("paged_decode_attention", "rmsnorm", "flash_attention",
                   "decode_attention", "ssm_scan", "flash_attention_bwd")
@@ -418,7 +432,8 @@ def phase_main(torch) -> dict:
     # the prefill's sdpa op runs the flash kernel, once per batched prefill
     check(launches["flash_attention"] == rep.prefills > 0, (launches, rep.prefills))
     # d = 960 in float32: the CUDA-core body
-    check_routes(routes, "flash_attention", 0, rep.prefills, "attn-LM prefill")
+    check_routes(routes, "flash_attention", "attn-LM prefill (f32, d = 960)",
+                 tf32x3=rep.prefills)
     check(launches["rmsnorm"] == launches["decode_attention"] == launches["ssd_scan"] == 0,
           launches)
     walk = rep.kernel_steps * CAPACITY * spec.pages_per_stream
@@ -437,9 +452,14 @@ def phase_main(torch) -> dict:
         f"visited {rep.pages_visited} of {walk}; max_memory_allocated "
         f"{peak / 2**20:.1f} MiB")
     prefill_routes(torch, sched.prefill, np.stack(prompts))
+    saved = _snapshot()
+    profile_steps(torch, lambda: sched.prefill(np.stack(prompts)), 1,
+                  "attn-LM batched prefill (8 x 128 tokens, sdpa q (8,1,128,960) f32)")
+    _restore(saved)                       # the profiled prefill is not the path's run
     pools = [sched._paged.backing(k) for k in sorted(spec.growing)]
     return {"launches": launches["paged_decode_attention"], "pools": pools,
-            "lengths": [PROMPT + n // 2 for n in MAX_NEW]}
+            "lengths": [PROMPT + n // 2 for n in MAX_NEW],
+            "flash_routes": routes["flash_attention"]}
 
 
 PREFILL_REPS = 10
@@ -707,7 +727,7 @@ def phase_dense_kernels(torch) -> dict:
         decode_attention_kernel, decode_attention_plain)
     from repro_torch.kernels.flash_attention import (
         flash_attention_kernel, flash_attention_plain, flash_route)
-    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain, rmsnorm_route
 
     dev = torch.device("cuda")
     worst = {"flash_attention": 0.0, "flash_attention_fwd_stats": 0.0,
@@ -752,7 +772,7 @@ def phase_dense_kernels(torch) -> dict:
                 want = fab.flash_attention_fwd_stats_plain(q, k, v, causal=causal)
                 for g, w in zip(stats, want):
                     compare("flash_attention_fwd_stats", g, w, dtype, 2e-4)
-                if route == "wgmma":     # one body: the same o
+                if route in ("wgmma", "tf32x3"):     # one body: the same o
                     check(torch.equal(stats[0], got), "fwd_stats o != flash o")
             for b in range(B):
                 solo = flash_attention_kernel(q[b:b + 1], k[b:b + 1], v[b:b + 1],
@@ -778,10 +798,23 @@ def phase_dense_kernels(torch) -> dict:
                             torch.bfloat16 if torch.bfloat16 in (qd, kd) else qd, TOL)
                     if p < 0:
                         check(torch.all(got == 0.0), "decode: pos < 0 not exact zeros")
-        for shape in RMS_SHAPES:
+        # every shape of the paths on the vec body; an odd D and an offset
+        # view (one element past a 16-byte boundary) on the scalar one
+        for shape, offset, route in ([(shape, False, "vec") for shape in RMS_SHAPES]
+                                     + [((7, 963), False, "scalar"),
+                                        ((4, 960), True, "scalar")]):
             x = _randn(torch, shape, dtype, 6, dev)
+            if offset:
+                x = torch.zeros(1 + x.numel(), dtype=dtype, device=dev)[1:].view(
+                    *shape).copy_(x)
             w = _randn(torch, shape[-1:], torch.float32, 7, dev)
-            compare("rmsnorm", rmsnorm_kernel(x, w), rmsnorm_plain(x, w), dtype, 1e-5)
+            check(rmsnorm_route(x, w) == route, (shape, offset, rmsnorm_route(x, w)))
+            got = routed("rmsnorm", route, lambda: rmsnorm_kernel(x, w))
+            compare("rmsnorm", got, rmsnorm_plain(x, w), dtype, 1e-5)
+            rows = x.reshape(-1, shape[-1])
+            check(torch.equal(rmsnorm_kernel(rows[-1:].contiguous(), w)[0],
+                              got.reshape(-1, shape[-1])[-1]),
+                  f"rmsnorm: batched last row != solo {shape}")
 
     sdpa = REGISTRY["sdpa"].torch_fn
     q = _randn(torch, (1, 2, 4, 16), torch.float32, 8, dev)
@@ -796,8 +829,10 @@ def phase_dense_kernels(torch) -> dict:
     torch.cuda.synchronize()
     log(f"# dense kernels vs plain: {cases} cases, max |err| in float32 "
         f"{worst}; flash and forward-with-statistics launches on the route "
-        f"flash_route gives (bf16 at d % 16 == 0: wgmma), pos<0 exact zeros, "
-        f"flash batched==solo bitwise, strided views, causal sdpa T!=S refused: ok")
+        f"flash_route gives (bf16 at d % 16 == 0: wgmma; f32 at d % 8 == 0: tf32x3), "
+        f"RMSNorm on vec at every path shape and on scalar at odd D and an offset "
+        f"view, pos<0 exact zeros, flash and RMSNorm batched==solo bitwise, strided "
+        f"views, causal sdpa T!=S refused: ok")
     return worst
 
 
@@ -827,9 +862,10 @@ NO_TRAIN_LAUNCHES = {"flash_attention_fwd_stats": 0, "flash_attention_dq": 0,
 
 
 # the attention wrappers also count their launches per body
-# (``launches_by_route``: "wgmma", the tensor-core body; "simt", the CUDA-core one)
+# (``launches_by_route``: "wgmma", the bf16 tensor-core body; "tf32x3", the
+# float32 one; "simt", the CUDA-core one), and RMSNorm per body ("vec", "scalar")
 ROUTED = ("flash_attention", "flash_attention_fwd_stats", "flash_attention_dq",
-          "flash_attention_dkv")
+          "flash_attention_dkv", "rmsnorm")
 
 
 def _reset_counts():
@@ -863,10 +899,10 @@ def _restore(saved) -> None:
         fns[name].launches_by_route = dict(r)
 
 
-def check_routes(routes: dict, name: str, wgmma: int, simt: int, what: str) -> None:
-    """Fail unless ``name``'s launches went ``wgmma`` / ``simt`` times to the
-    tensor-core / CUDA-core body."""
-    want = {"wgmma": wgmma, "simt": simt}
+def check_routes(routes: dict, name: str, what: str, **want) -> None:
+    """Fail unless ``name``'s launches went to each route as many times as
+    ``want`` says (routes it does not name: none)."""
+    want = {r: want.get(r, 0) for r in routes[name]}
     check(routes[name] == want, f"{what}: {name} routes {routes[name]} != {want}")
 
 
@@ -909,7 +945,8 @@ def phase_dense_standard(torch) -> dict:
             "decode_attention": L * DENSE_NEW, "paged_decode_attention": 0, "ssd_scan": 0,
             **NO_TRAIN_LAUNCHES}
     check(launches == want, f"launches {launches} != {want}")
-    check_routes(routes, "flash_attention", L, 0, "dense prefill (bf16, d = 64)")
+    check_routes(routes, "flash_attention", "dense prefill (bf16, d = 64)", wgmma=L)
+    check_routes(routes, "rmsnorm", "dense serving (bf16, D = 960)", vec=want["rmsnorm"])
 
     # the same steps timed one by one, with their launch counts
     cache = api.init_cache(cfg, DENSE_B, DENSE_PROMPT + DENSE_NEW + 1, tp=1, device=dev)
@@ -995,7 +1032,7 @@ def _tensors(tree):
 # phase 7: the dense mixed path at full size
 # ---------------------------------------------------------------------------
 
-def phase_dense_mixed(torch, dense: dict) -> None:
+def phase_dense_mixed(torch, dense: dict) -> dict:
     import dataclasses
 
     from repro_torch import mixed
@@ -1044,7 +1081,8 @@ def phase_dense_mixed(torch, dense: dict) -> None:
     check(launches == {"rmsnorm": 2 * L + 1, "flash_attention": L, "decode_attention": 0,
                        "paged_decode_attention": 0, "ssd_scan": 0, **NO_TRAIN_LAUNCHES},
           f"mixed path launches {launches}")
-    check_routes(routes, "flash_attention", 0, L, "float32 mixed forward")
+    check_routes(routes, "flash_attention", "float32 mixed forward (d = 64)", tf32x3=L)
+    check_routes(routes, "rmsnorm", "float32 mixed forward (D = 960)", vec=2 * L + 1)
     cov = hybrid.plan_for(tokens).coverage
     log(f"# dense mixed path (tech-gfp, batch {MIXED_B} x {MIXED_SEQ}): logits == "
         f"api.logits, max |err| {err:.3e} (2e-3/2e-4); crossings guest->host "
@@ -1054,6 +1092,12 @@ def phase_dense_mixed(torch, dense: dict) -> None:
         f"then {', '.join(f'{w:.1f}' for w in walls)} ms per call")
     log(f"# dense mixed path == api.logits on a CPU copy of the weights (plain "
         f"versions, {cpu_s:.1f} s): max |err| {err_cpu:.3e} (2e-3/2e-4)")
+    saved = _snapshot()
+    profile_steps(torch, lambda: hybrid(tokens), 1,
+                  f"float32 mixed forward call (tech-gfp, {MIXED_B} x {MIXED_SEQ}, "
+                  f"{L} layers)")
+    _restore(saved)
+    return {"routes": routes}
 
 
 # ---------------------------------------------------------------------------
@@ -1110,7 +1154,8 @@ def flash_timing(torch, q, k, v, flush, reps: int, *, stats: bool) -> dict:
     routed, the CUDA-core body on the same inputs (``cuda_core_ms``), the
     plain version, and ``scaled_dot_product_attention``'s forward, beside the
     bound: q, k, v read once, o (and m, l) written once, 4*d flops per
-    visible (query, key) pair on the bf16 tensor cores."""
+    visible (query, key) pair on the tensor cores (bf16: 989 TFLOP/s;
+    float32 on the ``"tf32x3"`` route: the TF32 peak over three)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention_bwd as fab
@@ -1137,9 +1182,12 @@ def flash_timing(torch, q, k, v, flush, reps: int, *, stats: bool) -> dict:
     err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
     core_err = max((g.float() - w.float()).abs().max().item()
                    for g, w in zip(core_out, want))
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + (8 * B * Hq * T if stats else 0)
+    nbytes = (q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+              + (8 * B * Hq * T if stats else 0))
     flops = 4 * B * Hq * d * (T * (T + 1) // 2)
-    bound, by = _bound(nbytes, flops, H100_BF16_FLOPS)
+    route = flash_route(q.dtype, d)
+    bound, by = _bound(nbytes, flops,
+                       H100_TF32X3_FLOPS if route == "tf32x3" else H100_BF16_FLOPS)
     return dict(
         ms=time_ms(torch, kern, reps, flush),
         cuda_core_ms=time_ms(torch, core, max(reps // 5, 3), flush),
@@ -1147,7 +1195,7 @@ def flash_timing(torch, q, k, v, flush, reps: int, *, stats: bool) -> dict:
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), reps, flush),
         library="sdpa forward", bound_ms=bound, bound_by=by, max_abs_err=err,
-        cuda_core_err=core_err, route=flash_route(q.dtype, d),
+        cuda_core_err=core_err, route=route,
         shape=f"q {tuple(q.shape)}, k,v {tuple(k.shape)} {str(q.dtype)[6:]} causal",
         work=f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP")
 
@@ -1170,9 +1218,7 @@ def phase_dense_timing(torch, dense: dict) -> dict:
 
     from repro_torch.kernels.decode_attention import (
         decode_attention_kernel, decode_attention_plain)
-    from repro_torch.kernels.flash_attention import (
-        flash_attention_kernel, flash_attention_plain)
-    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain, rmsnorm_route
 
     dev = torch.device("cuda")
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1190,22 +1236,17 @@ def phase_dense_timing(torch, dense: dict) -> dict:
     out["flash_attention_fwd_stats@dense"] = flash_timing(torch, q, k, v, flush, 50,
                                                           stats=True)
 
-    # flash at the attn LM's prefill (configuration 1): one head of d = 960,
-    # float32, q, k, v (8,1,128,960); the kernel's d = 960 tile
+    # rows 3 and 4 on the float32 route: the attn LM's prefill
+    # (configuration 1), one head of d = 960, q, k, v (8,1,128,960); the mixed
+    # forward (configuration 3), (2,15,256,64) against (2,5,256,64)
     qa, ka, va = (_randn(torch, (CAPACITY, 1, PROMPT, D_MODEL), f32, s, dev)
                   for s in (18, 19, 20))
-    err = (flash_attention_kernel(qa, ka, va) - flash_attention_plain(qa, ka, va)).abs().max().item()
-    nbytes = 4 * 4 * qa.numel()
-    flops = 4 * CAPACITY * D_MODEL * (PROMPT * (PROMPT + 1) // 2)
-    bound, by = _bound(nbytes, flops, H100_FP32_FLOPS)
-    out["flash_attention@attn-lm"] = dict(
-        ms=time_ms(torch, lambda: flash_attention_kernel(qa, ka, va), 50, flush),
-        plain_ms=time_ms(torch, lambda: flash_attention_plain(qa, ka, va), 20, flush),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qa, ka, va, is_causal=True), 50, flush),
-        bound_ms=bound, bound_by=by, max_abs_err=err,
-        shape=f"q,k,v {tuple(qa.shape)} f32 causal",
-        work=f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP")
+    out["flash_attention@attn-lm"] = flash_timing(torch, qa, ka, va, flush, 50, stats=False)
+    qm = _randn(torch, (MIXED_B, Hq, MIXED_SEQ, d), f32, 21, dev)
+    km, vm = (_randn(torch, (MIXED_B, Hkv, MIXED_SEQ, d), f32, s, dev) for s in (22, 23))
+    out["flash_attention@mixed"] = flash_timing(torch, qm, km, vm, flush, 50, stats=False)
+    out["flash_attention_fwd_stats@mixed"] = flash_timing(torch, qm, km, vm, flush, 50,
+                                                          stats=True)
 
     # decode: one step's attention, q (8,15,1,64) bf16 against the model's
     # (8,545,5,64) float32 cache, at the middle step of the 32 (pos 528)
@@ -1244,8 +1285,9 @@ def phase_dense_timing(torch, dense: dict) -> dict:
             ms=time_ms(torch, lambda: rmsnorm_kernel(x, w), 200, flush),
             plain_ms=time_ms(torch, lambda: rmsnorm_plain(x, w), 50, flush),
             library_ms=time_ms(torch, lambda: F.rms_norm(x, (960,), wb, 1e-6), 200, flush),
-            bound_ms=bound, bound_by=by, max_abs_err=err,
-            shape=f"x ({rows}, 960) bf16, w f32", work=f"{nbytes / 1e6:.3f} MB")
+            bound_ms=bound, bound_by=by, max_abs_err=err, route=rmsnorm_route(x, w),
+            library="F.rms_norm", shape=f"x ({rows}, 960) bf16, w f32",
+            work=f"{nbytes / 1e6:.3f} MB")
 
     _restore(saved)                         # timing launches are not the path's
     log_timing(out)
@@ -1434,7 +1476,8 @@ def phase_hybrid_standard(torch) -> dict:
     check(np.all((0 <= tokens) & (tokens < cfg.vocab)), "token out of range")
     want = _hybrid_launches(L, G, prefills=1, steps=HYBRID_NEW)
     check(launches == want, f"hybrid launches {launches} != {want}")
-    check_routes(routes, "flash_attention", G, 0, "hybrid prefill (bf16, d = 80)")
+    check_routes(routes, "flash_attention", "hybrid prefill (bf16, d = 80)", wgmma=G)
+    check_routes(routes, "rmsnorm", "hybrid serving (D = 2560)", vec=launches["rmsnorm"])
 
     # the same steps timed one by one, with their launch counts
     cache = api.init_cache(cfg, HYBRID_B, HYB_CACHE, tp=1, device=dev)
@@ -1526,7 +1569,7 @@ def phase_hybrid_timing(torch) -> dict:
 
     from repro_torch.kernels.decode_attention import (
         decode_attention_kernel, decode_attention_plain)
-    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain, rmsnorm_route
     from repro_torch.kernels.ssm_scan import ssd_scan_kernel, ssd_scan_plain
 
     dev = torch.device("cuda")
@@ -1599,7 +1642,8 @@ def phase_hybrid_timing(torch) -> dict:
             ms=time_ms(torch, lambda: rmsnorm_kernel(xr, w), 100, flush),
             plain_ms=time_ms(torch, lambda: rmsnorm_plain(xr, w), 50, flush),
             library_ms=time_ms(torch, lambda: F.rms_norm(xr, (HYB_D,), wl, 1e-6), 100, flush),
-            bound_ms=bound, bound_by=by, max_abs_err=err,
+            bound_ms=bound, bound_by=by, max_abs_err=err, route=rmsnorm_route(xr, w),
+            library="F.rms_norm",
             shape=f"x ({rows}, {HYB_D}) {str(dtype).removeprefix('torch.')}, w f32",
             work=f"{nbytes / 1e6:.3f} MB")
 
@@ -1655,8 +1699,7 @@ def phase_bwd_kernels(torch) -> dict:
             torch.cuda.synchronize()
             for name, route in zip(names, (flash_route(dtype, d),
                                            *[fab.flash_bwd_route(dtype, d)] * 2)):
-                check_routes(routes, name, int(route == "wgmma"), int(route == "simt"),
-                             f"{dtype}, d = {d}")
+                check_routes(routes, name, f"{dtype}, d = {d}", **{route: 1})
             for name, g, w in zip(names[:1] * 3 + names[1:2] + names[2:] * 2, got, want):
                 check(g.dtype == w.dtype and g.shape == w.shape, (name, g.shape, w.shape))
                 err = (g.float() - w.float()).abs().max().item()
@@ -1760,7 +1803,9 @@ def phase_train(torch) -> dict:
               f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps, want {n} per step")
     check(launches["flash_attention"] == launches["decode_attention"] == 0, launches)
     for name, n in per_step.items():
-        check_routes(routes, name, TRAIN_STEPS * n, 0, "train steps (bf16, d = 64)")
+        check_routes(routes, name, "train steps (bf16, d = 64)", wgmma=TRAIN_STEPS * n)
+    check(launches["rmsnorm"] > 0, launches)
+    check_routes(routes, "rmsnorm", "train steps (bf16, D = 960)", vec=launches["rmsnorm"])
     check(not plain_calls, f"plain versions called on the card: {plain_calls}")
     nparams = sum(t.numel() for t in _tensors(out["params"]))
     step_ms = [m["ms"] for m in metrics]
@@ -1832,7 +1877,17 @@ def phase_train(torch) -> dict:
     card = _tree_map(lambda t: t.to(dev), cpu)
     batch_r = TokenPipeline(DataConfig(vocab=cfg_r.vocab, seq_len=64, global_batch=4,
                                        seed=SEED)).batch_at(0)
-    (lc, gc), (lg, gg) = (loss_and_grads(cfg_r, p, batch_r, tp=1) for p in (cpu, card))
+    lc, gc = loss_and_grads(cfg_r, cpu, batch_r, tp=1)
+    before = _routes()
+    lg, gg = loss_and_grads(cfg_r, card, batch_r, tp=1)
+    after = _routes()
+    # float32 at the reduced head dim: the forward with statistics on the
+    # 3xTF32 body, dQ and dK/dV on the CUDA cores
+    for name, route in (("flash_attention_fwd_stats", "tf32x3"), ("flash_attention_dq", "simt"),
+                        ("flash_attention_dkv", "simt")):
+        delta = {r: after[name][r] - before[name][r] for r in after[name]}
+        check(delta[route] > 0 and sum(delta.values()) == delta[route],
+              f"reduced float32 step: {name} routes {delta}, want {route} only")
     errs = []
     for (name, a), (_, b) in zip(api._leaves(gc), api._leaves(gg)):
         err = (b.cpu() - a).abs().max().item()
@@ -1906,7 +1961,7 @@ def phase_train_timing(torch) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention_bwd as fab
-    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain, rmsnorm_route
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
@@ -1980,10 +2035,22 @@ def phase_train_timing(torch) -> dict:
         library_ms=time_ms(torch, lambda: F.rms_norm(x, (960,), wb, 1e-6), 200, flush),
         bound_ms=bound, bound_by=by, shape=f"x {tuple(x.shape)} bf16, w f32",
         max_abs_err=(rmsnorm_kernel(x, w).float() - rmsnorm_plain(x, w).float()).abs().max().item(),
-        library="F.rms_norm", work=f"{nbytes / 1e6:.3f} MB")
+        library="F.rms_norm", route=rmsnorm_route(x, w), work=f"{nbytes / 1e6:.3f} MB")
     _restore(saved)                         # timing launches are not the path's
     log_timing(out)
     return out
+
+
+def _tf32x3_rows(timing: dict, name: str, launches: dict) -> dict:
+    """The float32 route's readings of row ``name`` for the JSON line: each
+    timed shape's kernel, old-body, library and bound times, and the paths'
+    route counts."""
+    rows = {key.split("@")[1]: {k: r[k] for k in ("ms", "cuda_core_ms", "plain_ms",
+                                                   "library_ms", "bound_ms", "bound_by",
+                                                   "max_abs_err")}
+            for key, r in timing.items()
+            if key.split("@")[0] == name and r.get("route") == "tf32x3"}
+    return {"shapes": rows, "launches_by_route": launches}
 
 
 def main() -> int:
@@ -2019,7 +2086,7 @@ def main() -> int:
     run(phase_small)
     run(phase_multimodel)
     dense = run(phase_dense_standard)
-    run(phase_dense_mixed, dense)
+    mixed = run(phase_dense_mixed, dense)
     dense_timing = run(phase_dense_timing, dense)
     hybrid = run(phase_hybrid_standard)
     hybrid_timing = run(phase_hybrid_timing)
@@ -2064,9 +2131,18 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "ok": True,
         })
-        if name == "flash_attention":
+        if name in dense["routes"]:
             kernels[-1]["launches_by_route"] = dense["routes"][name]
+        if name == "flash_attention":
             kernels[-1]["cuda_core_ms"] = t["cuda_core_ms"]
+            kernels[-1]["tf32x3"] = _tf32x3_rows(
+                dense_timing, "flash_attention",
+                {"attn-lm prefill": main_run["flash_routes"],
+                 "mixed forward": mixed["routes"]["flash_attention"]})
+        if name == "rmsnorm":
+            kernels[-1]["routes_by_shape"] = {
+                k: r["route"] for k, r in {**dense_timing, **hybrid_timing,
+                                           **train_timing}.items() if k.startswith("rmsnorm")}
     t = hybrid_timing["ssd_scan"]
     kernels.append({
         "name": "ssd_scan",
@@ -2104,6 +2180,8 @@ def main() -> int:
         })
         kernels[-1]["launches_by_route"] = training["routes"][name]
         kernels[-1]["cuda_core_ms"] = t["cuda_core_ms"]
+        if stats:
+            kernels[-1]["tf32x3"] = _tf32x3_rows(dense_timing, name, {})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
 // CUDA-core body of the dense attention kernels: one thread block attends a
 // tile of query rows to a run of key/value rows with a float32 online
 // softmax, walking the keys in tiles of fixed order.  Its callers: the
-// flash-decode kernel (decode_attention.cu, every launch), and the float32
-// launches, and bfloat16 ones at head dims the tensor-core body does not
-// take (d % 16 != 0 or d > 256, e.g. d = 960), of flash_attention.cu and of
-// flash_attention_bwd.cu's forward with statistics.  The bfloat16 launches
-// at d % 16 == 0, d <= 256 of those two run on attention_wgmma.cuh.
+// flash-decode kernel (decode_attention.cu, every launch), and the launches
+// of flash_attention.cu and of flash_attention_bwd.cu's forward with
+// statistics that neither tensor-core body takes: bfloat16 at d % 16 != 0
+// or d > 256 (e.g. d = 960), float32 at d % 8 != 0 or d > 960.  bfloat16
+// at d % 16 == 0, d <= 256 runs on attention_wgmma.cuh, float32 at d % 8 ==
+// 0, d <= 960 on attention_tf32.cuh.
 //
 // Both TPU kernels it replaces keep (m, l, acc) in VMEM scratch across a
 // sequential grid axis over the keys.  On Hopper, blocks run in parallel and

@@ -8,11 +8,15 @@
 // kpos <= qpos (top-left aligned); s = (q.k) * scale; the denominator is
 // clamped at 1e-30.
 //
-// Two routes, chosen by the wrapper from (dtype, d) alone:
+// Three routes, chosen by the wrapper from (dtype, d) alone:
 //   * flash_attention_fwd_wgmma: bfloat16 with d % 16 == 0, d <= 256 (the
 //     dense, hybrid and training prefills), on the tensor-core body of
 //     attention_wgmma.cuh: wgmma products, TMA tiles, a producer warp.
-//   * flash_attention_fwd: float32, and bfloat16 at other d, on the
+//   * flash_attention_fwd_tf32: float32 with d % 8 == 0, 8 <= d <= 960 (the
+//     attn LM's d = 960 prefill, the float32 mixed forward), on the
+//     tensor-core body of attention_tf32.cuh: mma.sync products in 3xTF32,
+//     cp.async tiles, o in column chunks of 64 or 128.
+//   * flash_attention_fwd: float32 and bfloat16 at other d, on the
 //     CUDA-core body of attention_tile.cuh: one block per (b*Hq + h, tile
 //     of query rows), the TPU's sequential kv grid axis a loop over key
 //     tiles inside the block, in fixed order, stopping at the tile holding
@@ -24,12 +28,14 @@
 //
 // Bound.  At the prefill shapes the work is 4*d flops per (query, visible
 // key) pair against reading q, k, v and writing o once: at the card's
-// balance point in bf16 (see attention_wgmma.cuh for the numbers).  The
-// CUDA-core route computes in float32 from shared memory (two shared loads
-// per fused multiply-add); it keeps the float32 calls exact to 2e-5, which
-// TF32 tensor cores would not.
+// balance point in bf16 (see attention_wgmma.cuh for the numbers), and near
+// it in float32 at the 3xTF32 rate (see attention_tf32.cuh).  The CUDA-core
+// route computes in float32 from shared memory (two shared loads per fused
+// multiply-add); one-pass TF32 would break the float32 calls' 2e-5 gate,
+// which the three-term split keeps.
 
 #include "attention_tile.cuh"
+#include "attention_tf32.cuh"
 #include "attention_wgmma.cuh"
 
 namespace {
@@ -114,4 +120,17 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const voi
                                          float scale, void* stream) {
   return attn_wgmma::launch(q, k, v, o, nullptr, nullptr, B, Hq, Hkv, T_len, S, d, strides,
                             causal, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The float32 forward on the 3xTF32 tensor-core body (attention_tf32.cuh).
+// strides: (b, h, t) element strides of q, then k, then v, each with a
+// contiguous last axis; base addresses and strides 16-byte aligned
+// (cp.async; the wrapper checks); d % 8 == 0, 8 <= d <= 960.  o: contiguous
+// (B,Hq,T,d) float32.
+extern "C" int flash_attention_fwd_tf32(const void* q, const void* k, const void* v,
+                                        void* o, int B, int Hq, int Hkv, int T_len, int S,
+                                        int d, const long long* strides, int causal,
+                                        float scale, void* stream) {
+  return attn_tf32::launch(q, k, v, o, nullptr, nullptr, B, Hq, Hkv, T_len, S, d, strides,
+                           causal, scale, static_cast<cudaStream_t>(stream));
 }

@@ -16,14 +16,18 @@
 //   dS = p * (dO.V^T - delta),  dQ = dS.K * scale,  dK = dS^T.Q * scale,
 //   dV = p^T.dO.
 //
-// Two bodies for each.  bfloat16 at d % 16 == 0 runs on the tensor cores
-// (wgmma products, tiles by TMA): the forward with statistics up to d = 256
-// on attention_wgmma.cuh (flash_attention_fwd_stats_wgmma), dQ and dK/dV up
-// to d = 128 on attention_wgmma_bwd.cuh (flash_attention_dq_wgmma,
-// flash_attention_dkv_wgmma).  Float32 and other d run the CUDA-core bodies
-// below (flash_attention_fwd_stats, flash_attention_dq, flash_attention_dkv),
-// which compute in float32 from shared memory (two shared loads per fused
-// multiply-add).  The wrapper picks the body by (dtype, d) alone.
+// Two or three bodies for each.  bfloat16 at d % 16 == 0 runs on the tensor
+// cores (wgmma products, tiles by TMA): the forward with statistics up to
+// d = 256 on attention_wgmma.cuh (flash_attention_fwd_stats_wgmma), dQ and
+// dK/dV up to d = 128 on attention_wgmma_bwd.cuh (flash_attention_dq_wgmma,
+// flash_attention_dkv_wgmma).  The float32 forward with statistics at d % 8
+// == 0, d <= 960 runs on the 3xTF32 tensor-core body attention_tf32.cuh
+// (flash_attention_fwd_stats_tf32), writing m and l in the units the float32
+// dQ and dK/dV below read back.  Float32 dQ and dK/dV and other d run the
+// CUDA-core bodies below (flash_attention_fwd_stats, flash_attention_dq,
+// flash_attention_dkv), which compute in float32 from shared memory (two
+// shared loads per fused multiply-add).  The wrapper picks the body by
+// (dtype, d) alone.
 //
 // Design of the CUDA-core bodies.  The TPU kernels carry their accumulators
 // in VMEM scratch across a sequential grid axis (kv innermost for dQ, q
@@ -51,6 +55,7 @@
 // training shapes the bf16 tensor-core rate bounds it, which the CUDA-core
 // bodies stay ~190x away from (PERF.md).
 
+#include "attention_tf32.cuh"
 #include "attention_tile.cuh"
 #include "attention_wgmma.cuh"
 #include "attention_wgmma_bwd.cuh"
@@ -514,6 +519,21 @@ extern "C" int flash_attention_fwd_stats_wgmma(const void* q, const void* k, con
   return attn_wgmma::launch(q, k, v, o, static_cast<float*>(m), static_cast<float*>(l), B,
                             Hq, Hkv, T_len, S, d, strides, causal, scale,
                             static_cast<cudaStream_t>(stream));
+}
+
+// The float32 forward with statistics on the 3xTF32 tensor-core body
+// (attention_tf32.cuh): arguments as flash_attention_fwd_stats without the
+// dtype; d % 8 == 0, 8 <= d <= 960; base addresses and strides 16-byte
+// aligned (cp.async; the wrapper checks).
+extern "C" int flash_attention_fwd_stats_tf32(const void* q, const void* k, const void* v,
+                                              void* o, void* m, void* l, int B, int Hq,
+                                              int Hkv, int T_len, int S, int d,
+                                              const long long* strides, int causal,
+                                              float scale, void* stream) {
+  if (bad_shape(B, Hq, Hkv, T_len, S, d)) return static_cast<int>(cudaErrorInvalidValue);
+  return attn_tf32::launch(q, k, v, o, static_cast<float*>(m), static_cast<float*>(l), B, Hq,
+                           Hkv, T_len, S, d, strides, causal, scale,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // The bfloat16 dQ and dK/dV on the tensor-core bodies

@@ -51,17 +51,18 @@ def stride_array(*ts) -> ctypes.Array:
     return (ctypes.c_longlong * (3 * len(ts)))(*(s for t in ts for s in strides(t)[:3]))
 
 
-def check_tma(name, t) -> None:
-    """Raise unless a TMA tensor map can address ``t``: its base address and
-    the byte stride of every axis but the last (contiguous) one that is
-    longer than 1 must be multiples of 16."""
+def check_tma(name, t, loads: str = "TMA") -> None:
+    """Raise unless 16-byte loads can address ``t`` (a TMA tensor map, or
+    the ``cp.async`` copies of the float32 tensor-core route, named by
+    ``loads``): its base address and the byte stride of every axis but the
+    last (contiguous) one that is longer than 1 must be multiples of 16."""
     if t.data_ptr() % 16:
-        raise ValueError(f"{name}: the tensor-core route loads by TMA, which needs a "
+        raise ValueError(f"{name}: the tensor-core route loads by {loads}, which needs a "
                          f"16-byte aligned base address, got {t.data_ptr():#x}")
     size = t.element_size()
     for n, s in zip(t.shape[:-1], t.stride()[:-1]):
         if n > 1 and (s * size) % 16:
-            raise ValueError(f"{name}: the tensor-core route loads by TMA, which needs "
+            raise ValueError(f"{name}: the tensor-core route loads by {loads}, which needs "
                              f"16-byte multiples for strides, got {t.stride()} elements "
                              f"of {size} bytes")
 

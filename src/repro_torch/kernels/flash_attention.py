@@ -12,10 +12,13 @@ batched launch is bitwise equal to a solo launch of row b.
 
 :func:`flash_route` picks the body from (dtype, d) alone: bfloat16 at
 ``d % 16 == 0``, ``d <= 256`` runs on the tensor-core body
-(``csrc/attention_wgmma.cuh``: wgmma, TMA), everything else (float32, whose
-2e-5 tolerance TF32 would break, and bfloat16 at other d such as 960) on the
-CUDA-core body (``csrc/attention_tile.cuh``).  There is no fallback from one
-to the other: a tensor-core call whose strides TMA cannot address raises.
+(``csrc/attention_wgmma.cuh``: wgmma, TMA), float32 at ``d % 8 == 0``,
+``d <= 960`` on the 3xTF32 tensor-core body (``csrc/attention_tf32.cuh``:
+mma.sync with every float32 operand split into two TF32 halves, which
+keeps the 2e-5 float32 tolerance that one-pass TF32 would break), and
+every other head dim on the CUDA-core body (``csrc/attention_tile.cuh``).
+There is no fallback from one to another: a tensor-core call whose base
+addresses or strides its 16-byte loads cannot address raises.
 
 ``flash_attention_plain`` is the same function in plain PyTorch: it serves
 CPU tensors (the tests) and is the yardstick the kernel is checked against
@@ -46,15 +49,21 @@ _SOURCE = "flash_attention"
 NEG_INF = -1e30
 
 
-ROUTES = ("wgmma", "simt")
+ROUTES = ("wgmma", "tf32x3", "simt")
+MAX_TF32_DIM = 960       # the 3xTF32 body's o column chunks and grid cover d up to here
 
 
 def flash_route(dtype, d: int) -> str:
-    """The body a flash forward launch runs on: ``"wgmma"`` (the tensor-core
-    body) for bfloat16 at a head dim that is a multiple of 16 up to 256,
-    ``"simt"`` (the CUDA-core body) otherwise."""
-    return "wgmma" if dtype == torch.bfloat16 and d % 16 == 0 and 16 <= d <= 256 \
-        else "simt"
+    """The body a flash forward launch runs on: ``"wgmma"`` (the bf16
+    tensor-core body) for bfloat16 at a head dim that is a multiple of 16 up
+    to 256, ``"tf32x3"`` (the 3xTF32 tensor-core body) for float32 at a
+    multiple of 8 up to :data:`MAX_TF32_DIM`, ``"simt"`` (the CUDA-core
+    body) otherwise."""
+    if dtype == torch.bfloat16 and d % 16 == 0 and 16 <= d <= 256:
+        return "wgmma"
+    if dtype == torch.float32 and d % 8 == 0 and 8 <= d <= MAX_TF32_DIM:
+        return "tf32x3"
+    return "simt"
 
 
 def _repeat_kv(t, group: int):
@@ -92,6 +101,8 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.flash_attention_fwd_wgmma.argtypes = [p] * 4 + [i] * 6 + [p, i, ctypes.c_float, p]
         lib.flash_attention_fwd_wgmma.restype = ctypes.c_int
+        lib.flash_attention_fwd_tf32.argtypes = lib.flash_attention_fwd_wgmma.argtypes
+        lib.flash_attention_fwd_tf32.restype = ctypes.c_int
     return lib
 
 
@@ -101,10 +112,11 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, scale: float | None 
     q: (B, Hq, T, d); k, v: (B, Hkv, S, d) with Hq a multiple of Hkv; all
     of one dtype (float32 or bfloat16), on one CUDA device, each with a
     contiguous last axis (other strides are free, so transposed views need
-    no copy; on the ``"wgmma"`` route the base addresses and strides must be
-    16-byte multiples, or it raises).  Returns a contiguous (B, Hq, T, d)
-    tensor in q's dtype.  Launches on the current stream and does not
-    synchronise.  ``flash_attention_kernel.launches`` counts launches and
+    no copy; on the tensor-core routes, ``"wgmma"`` and ``"tf32x3"``, the
+    base addresses and strides must be 16-byte multiples, or it raises).
+    Returns a contiguous (B, Hq, T, d) tensor in q's dtype.  Launches on the
+    current stream and does not synchronise.
+    ``flash_attention_kernel.launches`` counts launches and
     ``flash_attention_kernel.launches_by_route`` counts them per
     :func:`flash_route`.
     """
@@ -129,12 +141,16 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, scale: float | None 
     route = flash_route(q.dtype, d)
     out = torch.empty((B, Hq, T, d), dtype=q.dtype, device=device)
     with torch.cuda.device(device):
-        if route == "wgmma":
+        if route in ("wgmma", "tf32x3"):
+            loads = "TMA" if route == "wgmma" else "cp.async"
             for name, t in (("q", q), ("k", k), ("v", v)):
-                check_tma(name, t)
-            err = _library().flash_attention_fwd_wgmma(
-                ptr(q), ptr(k), ptr(v), ptr(out), B, Hq, Hkv, T, S, d,
-                stride_array(q, k, v), int(causal), ctypes.c_float(scale), stream(device))
+                check_tma(name, t, loads)
+            lib = _library()
+            fn = lib.flash_attention_fwd_wgmma if route == "wgmma" \
+                else lib.flash_attention_fwd_tf32
+            err = fn(ptr(q), ptr(k), ptr(v), ptr(out), B, Hq, Hkv, T, S, d,
+                     stride_array(q, k, v), int(causal), ctypes.c_float(scale),
+                     stream(device))
         else:
             qs, ks, vs = strides(q), strides(k), strides(v)
             err = _library().flash_attention_fwd(

@@ -9,7 +9,8 @@ there:
   online-softmax forward that also writes, per query row, the running max
   ``m`` and the clamped denominator ``l = max(l, 1e-30)`` (float32,
   ``(B,Hq,T)``), o in q's dtype.  Like the flash forward it runs on the
-  tensor-core body (``csrc/attention_wgmma.cuh``) or the CUDA-core one by
+  bf16 tensor-core body (``csrc/attention_wgmma.cuh``), the float32 3xTF32
+  one (``csrc/attention_tf32.cuh``) or the CUDA-core one by
   :func:`~repro_torch.kernels.flash_attention.flash_route`;
 * ``flash_attention_dq_kernel`` replaces ``_dq_kernel``:
   ``dQ = sum_k dS K * scale`` with ``dS = p * (dO V^T - delta)`` and
@@ -26,7 +27,8 @@ wgmma products, tiles by TMA; p and dS rounded to bf16 before the products
 they feed) or the CUDA-core ones by :func:`flash_bwd_route`: bfloat16 at
 ``d % 16 == 0``, ``16 <= d <= 128`` (every training launch of the dense
 family) takes the first; float32, whose 2e-4 tolerance rules out bf16
-products, and other d the second.
+products, and other d the second (there is no 3xTF32 backward: float32
+launches come from the reduced float32 gates alone).
 
 q ``(B,Hq,T,d)`` against k, v ``(B,Hkv,S,d)``; causal mask ``kpos <= qpos``
 (top-left aligned); ``scale = 1/sqrt(d)``; float32 or bfloat16 with float32
@@ -70,8 +72,11 @@ MAX_WGMMA_BWD_DIM = 128   # dK and dV accumulators fit a warpgroup's registers u
 def flash_bwd_route(dtype, d: int) -> str:
     """The body a dQ or dK/dV launch runs on: ``"wgmma"`` (the tensor-core
     body) for bfloat16 at a head dim that is a multiple of 16 from 16 to
-    :data:`MAX_WGMMA_BWD_DIM`, ``"simt"`` (the CUDA-core body) otherwise."""
-    return flash_route(dtype, d) if d <= MAX_WGMMA_BWD_DIM else "simt"
+    :data:`MAX_WGMMA_BWD_DIM`, ``"simt"`` (the CUDA-core body) otherwise;
+    float32 always (the backward has no 3xTF32 body)."""
+    if dtype != torch.bfloat16 or d > MAX_WGMMA_BWD_DIM:
+        return "simt"
+    return flash_route(dtype, d)
 
 
 def _scale(d: int, scale: float | None) -> float:
@@ -165,10 +170,12 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_dq.argtypes = [p] * 8 + [i] * 7 + [p, i, f, p]
         lib.flash_attention_dkv.argtypes = [p] * 9 + [i] * 7 + [p, i, f, p]
         lib.flash_attention_fwd_stats_wgmma.argtypes = [p] * 6 + [i] * 6 + [p, i, f, p]
+        lib.flash_attention_fwd_stats_tf32.argtypes = [p] * 6 + [i] * 6 + [p, i, f, p]
         lib.flash_attention_dq_wgmma.argtypes = [p] * 8 + [i] * 6 + [p, i, f, p]
         lib.flash_attention_dkv_wgmma.argtypes = [p] * 9 + [i] * 6 + [p, i, f, p]
         for fn in (lib.flash_attention_fwd_stats, lib.flash_attention_dq,
                    lib.flash_attention_dkv, lib.flash_attention_fwd_stats_wgmma,
+                   lib.flash_attention_fwd_stats_tf32,
                    lib.flash_attention_dq_wgmma, lib.flash_attention_dkv_wgmma):
             fn.restype = ctypes.c_int
     return lib
@@ -198,9 +205,9 @@ def _check_qkv(q, k, v, what: str):
     return device, B, Hq, Hkv, T, S, d
 
 
-def _check_tma(*tensors):
+def _check_tma(*tensors, loads: str = "TMA"):
     for name, t in zip(("q", "k", "v", "do"), tensors):
-        check_tma(name, t)
+        check_tma(name, t, loads)
 
 
 def _check_bwd(q, k, v, do, m, l, delta):
@@ -219,10 +226,10 @@ def flash_attention_fwd_stats_kernel(q, k, v, *, causal: bool = True,
 
     q: (B, Hq, T, d); k, v: (B, Hkv, S, d) with Hq a multiple of Hkv; one
     dtype (float32 or bfloat16), one CUDA device, each with a contiguous
-    last axis (other strides are free; on the ``"wgmma"`` route the base
-    addresses and strides must be 16-byte multiples, or it raises).  Returns
-    (o, m, l): o contiguous (B, Hq, T, d) in q's dtype, m and l contiguous
-    (B, Hq, T) float32.  Launches on the current stream and does not
+    last axis (other strides are free; on the tensor-core routes, ``"wgmma"``
+    and ``"tf32x3"``, the base addresses and strides must be 16-byte
+    multiples, or it raises).  Returns (o, m, l): o contiguous
+    (B, Hq, T, d) in q's dtype, m and l contiguous (B, Hq, T) float32.  Launches on the current stream and does not
     synchronise; ``flash_attention_fwd_stats_kernel.launches`` counts
     launches, ``.launches_by_route`` counts them per ``flash_route``.
     """
@@ -234,12 +241,14 @@ def flash_attention_fwd_stats_kernel(q, k, v, *, causal: bool = True,
     l = torch.empty((B, Hq, T), dtype=torch.float32, device=device)
     route = flash_route(q.dtype, d)
     with torch.cuda.device(device):
-        if route == "wgmma":
-            _check_tma(q, k, v)
-            err = _library().flash_attention_fwd_stats_wgmma(
-                ptr(q), ptr(k), ptr(v), ptr(o), ptr(m), ptr(l), B, Hq, Hkv, T, S, d,
-                stride_array(q, k, v), int(causal), ctypes.c_float(_scale(d, scale)),
-                stream(device))
+        if route in ("wgmma", "tf32x3"):
+            _check_tma(q, k, v, loads="TMA" if route == "wgmma" else "cp.async")
+            lib = _library()
+            fn = lib.flash_attention_fwd_stats_wgmma if route == "wgmma" \
+                else lib.flash_attention_fwd_stats_tf32
+            err = fn(ptr(q), ptr(k), ptr(v), ptr(o), ptr(m), ptr(l), B, Hq, Hkv, T, S, d,
+                     stride_array(q, k, v), int(causal), ctypes.c_float(_scale(d, scale)),
+                     stream(device))
         else:
             err = _library().flash_attention_fwd_stats(
                 ptr(q), ptr(k), ptr(v), ptr(o), ptr(m), ptr(l), DTYPE_CODES[q.dtype],

@@ -6,7 +6,11 @@
 ``f32(x) * rsqrt(mean(f32(x)^2) + eps) * f32(w)``, cast to x's dtype, over
 the last axis.  It is memory-bound (x read once, out written once); see the
 source for its design.  CUDA C++ rather than Triton only to share the one
-``nvcc`` build path of the port's other kernels.
+``nvcc`` build path of the port's other kernels.  Two bodies, picked by
+:func:`rmsnorm_route` from D and the pointers' alignment: ``"vec"`` (one to
+eight warps per row, the row held in registers, 16-byte loads) where D is a
+multiple of 16 bytes' worth of elements and x, w are 16-byte aligned;
+``"scalar"`` (a block per row, scalar loads) for an odd D or an offset view.
 
 ``rmsnorm_plain`` is the same function in plain PyTorch: it serves CPU
 tensors (the tests) and is the yardstick the kernel is checked against on
@@ -38,6 +42,20 @@ from .common import (
 from .ref import rmsnorm_ref
 
 _SOURCE = "rmsnorm"
+ROUTES = ("vec", "scalar")
+MAX_VEC_VECTORS = 8 * 32 * 4     # 16-byte vectors of a row the vec body holds in a block
+
+
+def rmsnorm_route(x, w) -> str:
+    """The body a launch on ``x`` (rows, D) and ``w`` (D,) runs on:
+    ``"vec"`` where D is a multiple of 16 bytes' worth of x's elements (8
+    bf16, 4 float32), at most :data:`MAX_VEC_VECTORS` such vectors, and x
+    and w start at 16-byte aligned addresses; ``"scalar"`` otherwise."""
+    per = 16 // x.element_size()
+    D = x.shape[-1]
+    if D % per or not 0 < D // per <= MAX_VEC_VECTORS:
+        return "scalar"
+    return "vec" if x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0 else "scalar"
 
 
 def rmsnorm_plain(x, w, eps: float = 1e-6):
@@ -51,7 +69,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.rmsnorm_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, i, i, i, ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -62,7 +80,8 @@ def rmsnorm_kernel(x, w, eps: float = 1e-6):
     x: (..., D) contiguous, float32 or bfloat16; w: (D,) contiguous float32
     on the same device.  Returns a new tensor like x.  Launches on the
     current stream and does not synchronise.  ``rmsnorm_kernel.launches``
-    counts launches.
+    counts launches and ``rmsnorm_kernel.launches_by_route`` counts them per
+    :func:`rmsnorm_route`.
     """
     refuse_grad("rmsnorm", "differentiate through ops.rmsnorm_trainable (RMSNormFn)",
                 x, w)
@@ -76,17 +95,20 @@ def rmsnorm_kernel(x, w, eps: float = 1e-6):
     rows = x.numel() // D if D else 0
     if rows >= 2**31:
         raise ValueError(f"{rows} rows exceed the kernel's grid")
-    out = torch.empty_like(x)
+    out = torch.empty_like(x)          # a fresh allocation: 16-byte aligned
+    route = rmsnorm_route(x, w)
     with torch.cuda.device(device):
         err = _library().rmsnorm_fwd(ptr(x), ptr(w), ptr(out), rows, D,
                                      DTYPE_CODES[x.dtype], ctypes.c_float(eps),
-                                     stream(device))
-    raise_on_error(err, "rmsnorm")
+                                     int(route == "vec"), stream(device))
+    raise_on_error(err, f"rmsnorm ({route})")
     rmsnorm_kernel.launches += 1
+    rmsnorm_kernel.launches_by_route[route] += 1
     return out
 
 
 rmsnorm_kernel.launches = 0
+rmsnorm_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 class RMSNormFn(torch.autograd.Function):

@@ -206,6 +206,14 @@ def test_flash_bwd_route_is_picked_by_dtype_and_head_dim(dtype, d):
     assert want in ROUTES
 
 
+@pytest.mark.parametrize("d", [8, 12, 16, 32, 64, 80, 128, 256, 960])
+def test_flash_bwd_route_keeps_float32_on_the_cuda_cores(d):
+    """The float32 forward takes the 3xTF32 body at d % 8 == 0, but dQ and
+    dK/dV have no such body: their float32 launches stay on the CUDA cores
+    at every head dim, whatever ``flash_route`` gives the forward."""
+    assert flash_bwd_route(torch.float32, d) == "simt"
+
+
 def test_bwd_wrappers_count_launches_by_route():
     for fn in (flash_attention_dq_kernel, flash_attention_dkv_kernel):
         assert set(fn.launches_by_route) == set(ROUTES)

@@ -34,7 +34,8 @@ from repro_torch.kernels.flash_attention_bwd import (
     flash_attention_fwd_stats_kernel,
     flash_attention_fwd_stats_plain,
 )
-from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+from repro_torch.kernels.rmsnorm import ROUTES as RMS_ROUTES
+from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain, rmsnorm_route
 
 ATTN_CASES = [
     # (B, Hq, Hkv, T, S, d, causal, bq, bk) -- tests/test_kernels.py; the
@@ -196,25 +197,31 @@ def test_flash_causal_mask_is_top_left():
 
 @pytest.mark.parametrize("dtype,d,want", [
     *((torch.bfloat16, d, "wgmma") for d in (16, 64, 80, 128, 256)),
-    *((torch.float32, d, "simt") for d in (16, 64, 80, 128, 256)),
+    *((torch.float32, d, "tf32x3") for d in (16, 64, 80, 128, 256)),
+    (torch.float32, 960, "tf32x3"), (torch.float32, 12, "simt"),
     (torch.bfloat16, 8, "simt"), (torch.bfloat16, 24, "simt"),
     (torch.bfloat16, 272, "simt"), (torch.bfloat16, 960, "simt"),
 ])
 def test_flash_route_is_picked_by_dtype_and_head_dim(dtype, d, want):
-    """bfloat16 at d % 16 == 0, d <= 256 takes the tensor-core body; float32
-    (its 2e-5 tolerance) and every other head dim the CUDA-core one."""
+    """bfloat16 at d % 16 == 0, d <= 256 takes the bf16 tensor-core body,
+    float32 at d % 8 == 0, d <= 960 the 3xTF32 one, every other head dim
+    the CUDA-core one."""
     assert flash_route(dtype, d) == want
 
 
 def test_flash_wrappers_count_launches_by_route():
     for fn in (flash_attention_kernel, flash_attention_fwd_stats_kernel):
-        assert set(fn.launches_by_route) == {"wgmma", "simt"}
+        assert set(fn.launches_by_route) == {"wgmma", "tf32x3", "simt"}
         assert all(isinstance(n, int) for n in fn.launches_by_route.values())
     before = dict(flash_attention_kernel.launches_by_route)
     q = torch.zeros(1, 1, 4, 16, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_kernel(q, q, q)
     assert flash_attention_kernel.launches_by_route == before
+    before = dict(flash_attention_fwd_stats_kernel.launches_by_route)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_fwd_stats_kernel(q.float(), q.float(), q.float())
+    assert flash_attention_fwd_stats_kernel.launches_by_route == before
 
 
 def _offset_view():
@@ -247,6 +254,134 @@ def test_kernels_refuse_cpu_tensors():
         flash_attention_kernel(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention_kernel(q[:, :, :1], q, q, torch.tensor([2], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("make,ok", [
+    (lambda: torch.zeros(2, 3, 40, 64), True),
+    (lambda: torch.zeros(2, 40, 3, 80).transpose(1, 2), True),     # the model's view
+    (lambda: torch.zeros(1, 2, 8, 10)[..., :8], False),             # 40-byte rows
+    (lambda: torch.zeros(1 + 64)[1:].view(1, 1, 4, 16), False),      # base 4 bytes off
+], ids=["contiguous", "model-view", "row-stride", "base-address"])
+def test_tf32_route_refuses_what_cp_async_cannot_address(make, ok):
+    """The float32 tensor-core route copies 16-byte pieces with cp.async:
+    the wrapper refuses unaligned bases and strides instead of falling back."""
+    t = make()
+    if ok:
+        check_tma("q", t, "cp.async")
+    else:
+        with pytest.raises(ValueError, match="cp.async"):
+            check_tma("q", t, "cp.async")
+
+
+# ---------------------------------------------------------------------------
+# the 3xTF32 split, modelled in plain PyTorch
+# ---------------------------------------------------------------------------
+
+def _tf32(x):
+    """Round float32 to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as cvt.rna.tf32.f32 does: add half of the 13 dropped bits to the
+    sign-magnitude pattern, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """What the tensor core reads of a float32 operand: its top 19 bits."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split_matmul(a, b, terms: int):
+    """a @ b on the modelled tensor cores: one pass (hi.hi, hi rounded to
+    TF32) or the 3xTF32 split (lo = x - hi, read truncated; lo.hi + hi.lo +
+    hi.hi, small terms first), float32 sums."""
+    ah, bh = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ah @ bh
+    al, bl = _tf32_truncated(a - ah), _tf32_truncated(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _tf32_attention(q, k, v, terms: int):
+    """(o, m, l) of causal attention with both products on the modelled
+    tensor cores (``terms`` 3: the tf32x3 route; 1: one-pass TF32)."""
+    Hq, T, d = q.shape[1:]
+    g = Hq // k.shape[1]
+    kf, vf = (torch.repeat_interleave(t, g, dim=1) for t in (k, v))
+    s = _split_matmul(q, kf.transpose(-1, -2), terms) / d ** 0.5
+    mask = torch.ones(T, k.shape[2], dtype=torch.bool).tril()
+    s = s.masked_fill(~mask, -1e30)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None]).masked_fill(~mask, 0.0)
+    l = p.sum(-1).clamp_min(1e-30)
+    return _split_matmul(p, vf, terms) / l[..., None], m, l
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 1, 64, 960), (1, 3, 3, 64, 64), (2, 6, 2, 40, 64)],
+                         ids=["attn-lm-d960", "1x3x64x64", "gqa"])
+def test_tf32x3_split_keeps_the_float32_gate(shape):
+    """The design's numerics where no card is present: with every product
+    split into three TF32 products, o stays within the 2e-5 float32 gate of
+    the plain version (m, l within 2e-4); one-pass TF32 does not."""
+    B, Hq, Hkv, T, d = shape
+    q = torch.from_numpy(_np((B, Hq, T, d), 30))
+    k, v = (torch.from_numpy(_np((B, Hkv, T, d), s)) for s in (31, 32))
+    want_o, want_m, want_l = flash_attention_fwd_stats_plain(q, k, v, causal=True)
+    o, m, l = _tf32_attention(q, k, v, terms=3)
+    torch.testing.assert_close(o, want_o, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(m, want_m, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(l, want_l, rtol=2e-4, atol=2e-4)
+    one, _, _ = _tf32_attention(q, k, v, terms=1)
+    assert (one - want_o).abs().max().item() > 2e-5
+
+
+def test_tf32_rounding_model():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11, -(1.0 + 2 ** -11),
+                      1.0 + 2 ** -12])
+    assert _tf32(x).tolist() == [1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9, -(1.0 + 2 ** -10), 1.0]
+    hi = _tf32(x)
+    assert torch.equal(hi + _tf32(x - hi), x)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm's two bodies
+# ---------------------------------------------------------------------------
+
+def _offset(shape, dtype):
+    """A contiguous tensor whose base is one element past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(1 + n, dtype=dtype)[1:].view(*shape)
+
+
+@pytest.mark.parametrize("make,want", [
+    (lambda: (torch.zeros(4096, 960, dtype=torch.bfloat16), torch.zeros(960)), "vec"),
+    (lambda: (torch.zeros(8, 1024, 960, dtype=torch.bfloat16), torch.zeros(960)), "vec"),
+    (lambda: (torch.zeros(8192, 2560, dtype=torch.bfloat16), torch.zeros(2560)), "vec"),
+    (lambda: (torch.zeros(8, 2560), torch.zeros(2560)), "vec"),
+    (lambda: (torch.zeros(8, 960, dtype=torch.bfloat16), torch.zeros(960)), "vec"),
+    (lambda: (torch.zeros(8, 64), torch.zeros(64)), "vec"),
+    (lambda: (torch.zeros(8, 12, dtype=torch.bfloat16), torch.zeros(12)), "scalar"),
+    (lambda: (torch.zeros(7, 963), torch.zeros(963)), "scalar"),
+    (lambda: (torch.zeros(2, 4 * 8 * 32 * 4 + 4), torch.zeros(4 * 8 * 32 * 4 + 4)), "scalar"),
+    (lambda: (_offset((4, 960), torch.float32), torch.zeros(960)), "scalar"),
+    (lambda: (_offset((4, 960), torch.bfloat16), torch.zeros(960)), "scalar"),
+    (lambda: (torch.zeros(4, 960), _offset((960,), torch.float32)), "scalar"),
+], ids=["dense-prefill", "train", "hybrid-prefill", "hybrid-decode-f32", "decode",
+        "narrow", "odd-bf16", "odd-f32", "too-wide", "offset-x-f32", "offset-x-bf16",
+        "offset-w"])
+def test_rmsnorm_route_is_picked_by_d_and_alignment(make, want):
+    x, w = make()
+    assert rmsnorm_route(x, w) == want
+    assert want in RMS_ROUTES
+
+
+def test_rmsnorm_counts_launches_by_route():
+    assert set(rmsnorm_kernel.launches_by_route) == set(RMS_ROUTES)
+    assert all(isinstance(n, int) for n in rmsnorm_kernel.launches_by_route.values())
+    before = (rmsnorm_kernel.launches, dict(rmsnorm_kernel.launches_by_route))
+    for x in (torch.zeros(2, 960), _offset((2, 960), torch.float32)):
+        with pytest.raises(ValueError, match="CUDA"):
+            rmsnorm_kernel(x, torch.ones(960))     # a refused call counts nothing
+    assert (rmsnorm_kernel.launches, rmsnorm_kernel.launches_by_route) == before
 
 
 # ---------------------------------------------------------------------------
@@ -325,3 +460,82 @@ def test_rmsnorm_kernel_matches_plain_on_card(dtype):
         got, want = rmsnorm_kernel(x, w), rmsnorm_plain(x, w)
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# (B, Hq, Hkv, T, S, d, causal): the float32 launches the 3xTF32 body takes
+# on the paths (the attn LM's d = 960 prefill, the mixed forward's
+# (2,15,256,64)), a short d = 960 tile, the smallest head dim, and short last
+# tiles with causal T < S and T > S
+TF32_CASES = [(8, 1, 1, 128, 128, 960, True), (2, 1, 1, 70, 70, 960, True),
+              (2, 15, 5, 256, 256, 64, True), (1, 2, 1, 33, 40, 8, True),
+              (2, 6, 2, 300, 513, 80, True), (2, 3, 3, 513, 300, 128, True),
+              (1, 2, 2, 65, 65, 200, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ATTN_CASES + TF32_CASES, ids=str)
+def test_tf32x3_route_matches_plain_on_card(case):
+    """The float32 tensor-core body: o within 2e-5 of the plain version, m
+    and l within 2e-4, every launch on ``"tf32x3"``; the forward with
+    statistics gives the flash forward's o bitwise (one body); batched ==
+    solo and strided views == contiguous inputs, bitwise."""
+    dev = _cuda()
+    B, Hq, Hkv, T, S, d, causal = case[:7]
+    q, k, v = (_dev((B, Hq, T, d), "float32", 20, dev),
+               _dev((B, Hkv, S, d), "float32", 21, dev),
+               _dev((B, Hkv, S, d), "float32", 22, dev))
+    assert flash_route(torch.float32, d) == "tf32x3"
+    before = flash_attention_kernel.launches_by_route["tf32x3"]
+    got = flash_attention_kernel(q, k, v, causal=causal)
+    assert flash_attention_kernel.launches_by_route["tf32x3"] == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    for b in range(B):
+        solo = flash_attention_kernel(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=causal)
+        assert torch.equal(solo[0], got[b])
+    tv = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    assert torch.equal(flash_attention_kernel(*tv, causal=causal), got)
+    if d <= 256:
+        before = flash_attention_fwd_stats_kernel.launches_by_route["tf32x3"]
+        o, m, l = flash_attention_fwd_stats_kernel(q, k, v, causal=causal)
+        assert flash_attention_fwd_stats_kernel.launches_by_route["tf32x3"] == before + 1
+        assert torch.equal(o, got)
+        _, pm, pl = flash_attention_fwd_stats_plain(q, k, v, causal=causal)
+        torch.testing.assert_close(m, pm, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(l, pl, rtol=2e-4, atol=2e-4)
+        for g, w in zip(flash_attention_fwd_stats_kernel(*tv, causal=causal), (o, m, l)):
+            assert torch.equal(g, w)
+
+
+# every RMSNorm shape of the paths (dense prefill and decode, the train
+# step, the hybrid prefill and its float32 decode), a narrow D, an odd D and
+# offset views: (shape, dtype, offset, route)
+RMS_CARD_CASES = [((4096, 960), "bfloat16", False, "vec"), ((8, 960), "bfloat16", False, "vec"),
+                  ((8, 1024, 960), "bfloat16", False, "vec"),
+                  ((8192, 2560), "bfloat16", False, "vec"), ((8, 2560), "float32", False, "vec"),
+                  ((2, 256, 960), "float32", False, "vec"), ((8, 64), "float32", False, "vec"),
+                  ((7, 963), "float32", False, "scalar"), ((5, 12), "bfloat16", False, "scalar"),
+                  ((4, 960), "float32", True, "scalar"), ((4, 960), "bfloat16", True, "scalar")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RMS_CARD_CASES, ids=str)
+def test_rmsnorm_routes_match_plain_on_card(case):
+    dev = _cuda()
+    shape, dtype, offset, route = case
+    x = _dev(shape, dtype, 23, dev)
+    if offset:        # the same values one element past a 16-byte boundary
+        x = torch.zeros(1 + x.numel(), dtype=x.dtype, device=dev)[1:].view(*shape).copy_(x)
+    w = _dev(shape[-1:], "float32", 24, dev)
+    assert rmsnorm_route(x, w) == route
+    before = rmsnorm_kernel.launches_by_route[route]
+    got = rmsnorm_kernel(x, w)
+    assert rmsnorm_kernel.launches_by_route[route] == before + 1
+    want = rmsnorm_plain(x, w)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    rows = x.reshape(-1, shape[-1])
+    solo = rmsnorm_kernel(rows[-1:].contiguous(), w)
+    assert torch.equal(solo[0], got.reshape(-1, shape[-1])[-1])

@@ -515,10 +515,15 @@ def test_train_step_on_card_matches_cpu(remat):
     kernels = (fab.flash_attention_fwd_stats_kernel, fab.flash_attention_dq_kernel,
                fab.flash_attention_dkv_kernel)
     before = [f.launches for f in kernels]
+    routes = [dict(f.launches_by_route) for f in kernels]
     new, _, m_card = step(on_card, adamw_init(on_card), batch)
     L = cfg.n_layers
     assert [f.launches - b for f, b in zip(kernels, before)] == \
         [L * (2 if remat else 1), L, L]
+    # float32 at the reduced head dim: the forward on the 3xTF32 body, the
+    # backward on the CUDA cores
+    assert [f.launches_by_route["tf32x3"] - r["tf32x3"] for f, r in zip(kernels, routes)] \
+        == [L * (2 if remat else 1), 0, 0]
     np.testing.assert_allclose(float(m_card["loss"]), float(m_cpu["loss"]), rtol=1e-4)
     np.testing.assert_allclose(float(m_card["grad_norm"]), float(m_cpu["grad_norm"]),
                                rtol=1e-4)
