@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    (``nvidia-smi``), and an ``nvcc`` build of every kernel source of the
    path (one compiler per source, all started together), with the build time
    and each kernel's registers and spills from the compiler's report (the
-   tensor-core attention body once per head dim it is built for).
+   tensor-core attention body once per head dim it is built for, the SSD
+   tensor-core body once per type).
 2. Kernel against its plain PyTorch version on the card: page sizes
    {1, 2, 8, 16} x five tail states x contiguous/gapped/permuted tables x
    with and without a fresh row, at d=16 and d=960, to 2e-5 (the
@@ -74,11 +75,17 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    through its C entry (``cuda_core_ms``; float32 bounds at the 3xTF32
    rate, the TF32 peak over three); RMSNorm at the prefill's (4096, 960)
    and the decode step's (8, 960) rows against ``F.rms_norm``.
-9. The SSD scan kernel against its plain version on the card: the
-   reference's ``SSD_CASES`` and the hybrid path's shapes ((8,1024,80,64),
-   and its float32 gate's T=300 and 304, not multiples of the 256 chunk),
-   float32 at 2e-4 and bfloat16 at 2e-2, y and the final state; row 0 of a
-   batched launch bitwise equal to a solo launch; the model's strided x.
+9. The SSD scan kernel against its plain version on the card, on both
+   bodies: the reference's ``SSD_CASES``, short last chunks and the hybrid
+   path's shapes ((8,1024,80,64), and its float32 gate's T=300 and 304, not
+   multiples of the 256 chunk) on the tensor-core body (``"mma"``), N or P
+   off 8 on the CUDA-core body (``"simt"``), and on each a case whose
+   exp(cs_i - cs_j) is inf above the diagonal (y finite); float32 at 2e-4
+   and bfloat16 at 2e-2, y and the final state (float32 in both dtypes: on
+   ``"mma"`` held at 2e-4 in bfloat16 too); each launch on the route
+   ``ssd_route`` gives, whose chunk table equals the built body's
+   (``ssd_scan_mma_max_chunk``); row 0 of a batched launch bitwise equal to
+   a solo launch; the model's strided x.
 10. ``decode_multimodel`` on the card: the mamba2 SSM and the attention LM
    co-served over one shared page pool give ``BENCH_serve.json``'s counters
    exactly and every model's solo ``decode_reference`` tokens.
@@ -86,13 +93,18 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    Zamba2-2.7B (all 54 Mamba2 layers, the shared block 9 times, bf16
    compute, tp=1, random weights from a seeded generator): 8 prompts of
    1024 tokens, 32 new tokens each.  Gates: 54 SSD + 9 flash + 73 RMSNorm
-   launches per prefill (all 9 flash on the tensor-core body, every RMSNorm
-   on ``"vec"``), 9 decode + 73 RMSNorm per step; timed tokens equal
-   greedy_generate's; on a float32 copy of the config, 2 prompts of 300
-   tokens, prefill + 4 decode steps equal the teacher-forcing logits at
-   5e-3.  Profiler windows of one prefill and of 8 decode steps.
-12. The SSD kernel's time at the path's shape against its bound and its
-   plain version (no single PyTorch call computes it), and the flash
+   launches per prefill (all 54 SSD and 9 flash on the tensor-core bodies,
+   every RMSNorm on ``"vec"``), 9 decode + 73 RMSNorm per step; timed
+   tokens equal greedy_generate's; on a float32 copy of the config, 2
+   prompts of 300 tokens, prefill + 4 decode steps equal the
+   teacher-forcing logits at 5e-3, its 108 SSD launches (T = 304 and 300)
+   all on ``"mma"``.  Profiler windows of one prefill and of 8 decode steps.
+12. The SSD kernel's time at the path's bf16 shape and at its float32
+   gate's (2,304,80,64) against its bound (the float32-operand products at
+   the rate of the TF32 terms they need: two in bf16, 494/2 TFLOP/s, three
+   in float32; C.B^T once per (b, chunk)), its plain version (no single
+   PyTorch call computes it) and the CUDA-core body through its C entry
+   (``cuda_core_ms``), and the flash
    forward, the forward with statistics (both also on the CUDA-core body),
    flash-decode and RMSNorm kernels' times at the hybrid shapes (RMSNorm at
    the prefill's (8192, 2560) bf16 and the decode step's (8, 2560) float32
@@ -124,9 +136,11 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    against the backward), and RMSNorm's at the train step's (8, 1024, 960)
    rows against ``F.rms_norm``.
 
-The last lines are a ``kernels`` JSON line (rows 3-7 with their
-``launches_by_route``, rows 3-6 with ``cuda_core_ms``, rows 3 and 4 with
-their float32 route's readings under ``tf32x3``), the card's name and power
+The last lines are a ``kernels`` JSON line (rows 3-8 with their
+``launches_by_route``, rows 3-6 and 8 with ``cuda_core_ms``, rows 3 and 4
+with their float32 route's readings under ``tf32x3``, row 8 with its
+float32 gate's routes and its float32 timing under ``float32``), the
+card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  The script needs the repo's
 ``src/`` beside it and a CUDA device; without either it exits non-zero and
 prints no result.
@@ -155,6 +169,7 @@ H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
 H100_BF16_FLOPS = 989e12         # bf16 tensor cores, dense
 H100_TF32X3_FLOPS = 494e12 / 3   # float32 as 3xTF32: the dense TF32 peak over three products
+H100_TF32X2_FLOPS = 494e12 / 2   # float32 times a bf16 operand (exact in TF32): two products
 
 KERNEL_SOURCES = ("paged_decode_attention", "rmsnorm", "flash_attention",
                   "decode_attention", "ssm_scan", "flash_attention_bwd")
@@ -212,7 +227,16 @@ RMS_SHAPES = [(8, 64), (3, 5, 128), (256, 32),
 SSD_CASES = [(1, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32), (1, 96, 1, 64, 64, 32),
              (HYBRID_B, HYBRID_PROMPT, SSD_H, SSD_P, SSD_N, SSD_Q),    # Zamba2 prefill
              (GATE_B, GATE_PROMPT, SSD_H, SSD_P, SSD_N, SSD_Q),        # T % 256 != 0
-             (GATE_B, GATE_PROMPT + GATE_STEPS, SSD_H, SSD_P, SSD_N, SSD_Q)]
+             (GATE_B, GATE_PROMPT + GATE_STEPS, SSD_H, SSD_P, SSD_N, SSD_Q),
+             # short last chunks and T below one chunk (tests/test_torch_ssm_scan.py)
+             (2, 100, 3, 16, 8, 32), (1, 300, 2, 64, 16, 256), (2, 11, 2, 16, 8, 16)]
+# N or P not a multiple of 8: the CUDA-core body ("simt")
+SSD_SIMT_CASES = [(2, 64, 2, 12, 8, 16), (1, 100, 3, 16, 12, 32)]
+# steps of dt*A from -6 to -216: exp(cs_i - cs_j) overflows float32 within 15
+# rows above the diagonal
+SSD_OVERFLOW_CASES = [(GATE_B, GATE_PROMPT, SSD_H, SSD_P, SSD_N, SSD_Q),
+                      (2, 64, 2, 12, 8, 16)]
+SSD_OVERFLOW_A = 300.0
 
 
 def log(msg: str) -> None:
@@ -863,9 +887,10 @@ NO_TRAIN_LAUNCHES = {"flash_attention_fwd_stats": 0, "flash_attention_dq": 0,
 
 # the attention wrappers also count their launches per body
 # (``launches_by_route``: "wgmma", the bf16 tensor-core body; "tf32x3", the
-# float32 one; "simt", the CUDA-core one), and RMSNorm per body ("vec", "scalar")
+# float32 one; "simt", the CUDA-core one), RMSNorm per body ("vec", "scalar")
+# and the SSD scan per body ("mma", the tensor-core body; "simt")
 ROUTED = ("flash_attention", "flash_attention_fwd_stats", "flash_attention_dq",
-          "flash_attention_dkv", "rmsnorm")
+          "flash_attention_dkv", "rmsnorm", "ssd_scan")
 
 
 def _reset_counts():
@@ -1298,43 +1323,70 @@ def phase_dense_timing(torch, dense: dict) -> dict:
 # phase 9: the SSD kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def _ssd_inputs(torch, case, dtype, seed, dev):
-    """x, dt, A, B, C as in tests/test_kernels.py, on the card."""
+def _ssd_inputs(torch, case, dtype, seed, dev, a_scale=1.0):
+    """x, dt, A, B, C as in tests/test_kernels.py, on the card; ``a_scale``
+    scales A (the overflow cases)."""
     B, T, H, P, N, _ = case
     rng = np.random.default_rng(seed)
     f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
     x = f(rng.standard_normal((B, T, H, P))).to(dtype)
     dt = f(rng.random((B, T, H)) * 0.5 + 0.1)
-    A = f(-rng.random(H) - 0.2)
+    A = f((-rng.random(H) - 0.2) * a_scale)
     Bm = f(rng.standard_normal((B, T, N)) * 0.3).to(dtype)
     Cm = f(rng.standard_normal((B, T, N)) * 0.3).to(dtype)
     return x, dt, A, Bm, Cm
 
 
 def phase_ssd_kernel(torch) -> float:
-    """The SSD kernel against its plain version: the reference's cases in
-    float32 at 2e-4, the hybrid path's shapes in float32 and bfloat16 (2e-2),
-    a T that is not a multiple of the chunk; y and the final state; row 0 of
-    a batched launch bitwise equal to a solo launch; the model's strided
-    (B,T,H,P) view equal to contiguous input."""
-    from repro_torch.kernels.ssm_scan import ssd_scan_kernel, ssd_scan_plain
+    """The SSD kernel against its plain version, on both bodies: the
+    reference's cases and short last chunks on the tensor-core body
+    ("mma"), N or P off 8 on the CUDA-core body ("simt"), the hybrid path's
+    shapes, and pairs whose decay overflows above the diagonal (y finite);
+    float32 at 2e-4 and bfloat16 at 2e-2, y and the final state (on "mma"
+    the bf16 state at 2e-4 too: float32 from inputs exact in TF32); each
+    launch on the route ``ssd_route`` gives, whose chunk table equals the
+    built body's; row 0 of a batched launch bitwise equal to a solo launch;
+    the model's strided (B,T,H,P) view equal to contiguous input.  Returns
+    the largest error held to 2e-4."""
+    from repro_torch.kernels import ssm_scan
+    from repro_torch.kernels.common import DTYPE_CODES
+    from repro_torch.kernels.ssm_scan import (
+        mma_max_chunk, ssd_route, ssd_scan_kernel, ssd_scan_plain)
 
     dev = torch.device("cuda")
+    saved = _snapshot()
     worst, cases = 0.0, 0
+    runs = ([(c, 1.0, "mma") for c in SSD_CASES] + [(c, 1.0, "simt") for c in SSD_SIMT_CASES]
+            + [(c, SSD_OVERFLOW_A, None) for c in SSD_OVERFLOW_CASES])
+    lib = ssm_scan._library()
+    for dtype in (torch.float32, torch.bfloat16):
+        for N in range(0, 80):               # the route's chunk table is the body's
+            check(lib.ssd_scan_mma_max_chunk(DTYPE_CODES[dtype], N)
+                  == mma_max_chunk(dtype, N), f"ssd: chunk table differs at {dtype}, N {N}")
     for dtype in (torch.float32, torch.bfloat16):
         tol = 2e-4 if dtype == torch.float32 else 2e-2
-        for case in SSD_CASES:
+        for case, a_scale, want_route in runs:
             chunk = case[5]
-            args = _ssd_inputs(torch, case, dtype, 20 + cases, dev)
+            route = ssd_route(dtype, case[4], case[3], chunk)
+            check(want_route is None or route == want_route,
+                  f"ssd: {case} {dtype} routed {route}, not {want_route}")
+            args = _ssd_inputs(torch, case, dtype, 20 + cases, dev, a_scale)
+            before = dict(ssd_scan_kernel.launches_by_route)
             y, S = ssd_scan_kernel(*args, chunk=chunk, return_state=True)
+            check(ssd_scan_kernel.launches_by_route[route] == before[route] + 1,
+                  f"ssd: {case} {dtype} not counted on {route}")
             wy, wS = ssd_scan_plain(*args, chunk=chunk, return_state=True)
             torch.cuda.synchronize()
-            for got, want in ((y, wy), (S, wS)):
+            # the state is float32 in both dtypes; the tensor-core body
+            # computes it from bf16 inputs (exact in TF32) to float32 accuracy
+            tol_S = 2e-4 if route == "mma" else tol
+            for got, want, t in ((y, wy, tol), (S, wS, tol_S)):
                 err = (got.float() - want.float()).abs().max().item()
-                if dtype == torch.float32:
+                if t == 2e-4:
                     worst = max(worst, err)
-                torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-            check(torch.isfinite(y.float()).all().item(), f"ssd: non-finite y {case}")
+                torch.testing.assert_close(got.float(), want.float(), rtol=t, atol=t)
+            check(torch.isfinite(y.float()).all().item() and torch.isfinite(S).all().item(),
+                  f"ssd: non-finite y or S {case} A x {a_scale}")
             solo, S_solo = ssd_scan_kernel(*(a[:1] if a.dim() > 1 else a for a in args),
                                            chunk=chunk, return_state=True)
             check(torch.equal(solo[0], y[0]) and torch.equal(S_solo[0], S[0]),
@@ -1348,9 +1400,13 @@ def phase_ssd_kernel(torch) -> float:
                   f"ssd: strided x differs from contiguous {case}")
             cases += 1
     torch.cuda.synchronize()
-    log(f"# ssd kernel vs plain: {cases} cases (y and final state), max |err| in "
-        f"float32 {worst:.3e} (tol 2e-4; bf16 2e-2); batched row 0 == solo bitwise, "
-        f"strided x, T % chunk != 0: ok")
+    by_route = dict(ssd_scan_kernel.launches_by_route)
+    _restore(saved)                         # comparison launches are not a path's
+    log(f"# ssd kernel vs plain: {cases} cases (y and final state; "
+        f"{2 * len(SSD_OVERFLOW_CASES)} with exp(cs_i - cs_j) = inf above the diagonal), "
+        f"max |err| at 2e-4 {worst:.3e} (float32 y and S, bf16 S on mma; bf16 y at "
+        f"2e-2); launches by route {by_route}; chunk table == ssd_scan_mma_max_chunk, "
+        f"batched row 0 == solo bitwise, strided x, T % chunk != 0, finite y: ok")
     return worst
 
 
@@ -1478,6 +1534,7 @@ def phase_hybrid_standard(torch) -> dict:
     check(launches == want, f"hybrid launches {launches} != {want}")
     check_routes(routes, "flash_attention", "hybrid prefill (bf16, d = 80)", wgmma=G)
     check_routes(routes, "rmsnorm", "hybrid serving (D = 2560)", vec=launches["rmsnorm"])
+    check_routes(routes, "ssd_scan", "hybrid prefill (bf16, N = P = 64, chunk 256)", mma=L)
 
     # the same steps timed one by one, with their launch counts
     cache = api.init_cache(cfg, HYBRID_B, HYB_CACHE, tp=1, device=dev)
@@ -1533,6 +1590,7 @@ def phase_hybrid_standard(torch) -> dict:
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     gate = np.random.default_rng(SEED + 5).integers(
         0, cfg.vocab, (GATE_B, GATE_PROMPT + GATE_STEPS), dtype=np.int32)
+    gate_routes = _routes()["ssd_scan"]
     full = api.logits(cfg32, params, {"tokens": gate}, tp=1)
     cache = api.init_cache(cfg32, GATE_B, GATE_PROMPT + GATE_STEPS + 1, tp=1, device=dev)
     got, cache = api.prefill(cfg32, params, {"tokens": gate[:, :GATE_PROMPT]}, cache, tp=1)
@@ -1543,9 +1601,15 @@ def phase_hybrid_standard(torch) -> dict:
         errs.append((got[:, 0] - full[:, t]).abs().max().item())
         torch.testing.assert_close(got[:, 0], full[:, t], rtol=5e-3, atol=5e-3)
     check(torch.isfinite(full).all().item(), "hybrid float32 logits not finite")
+    # the gate's SSD launches (T = 304 teacher forcing, T = 300 prefill), all
+    # on the tensor-core body in float32
+    gate_routes = {r: n - gate_routes[r] for r, n in _routes()["ssd_scan"].items()}
+    check(gate_routes == {"mma": 2 * L, "simt": 0},
+          f"hybrid float32 gate: ssd_scan routes {gate_routes} != mma {2 * L}")
     log(f"# hybrid float32 copy ({GATE_B} x {GATE_PROMPT} tokens, {GATE_STEPS} steps): "
-        f"prefill + decode == teacher forcing, max |err| {max(errs):.3e} (tol 5e-3)")
-    return {"launches": launches, "routes": routes, "cfg": cfg}
+        f"prefill + decode == teacher forcing, max |err| {max(errs):.3e} (tol 5e-3); "
+        f"ssd_scan routes {gate_routes}")
+    return {"launches": launches, "routes": routes, "cfg": cfg, "gate_routes": gate_routes}
 
 
 # ---------------------------------------------------------------------------
@@ -1553,15 +1617,87 @@ def phase_hybrid_standard(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 def ssd_work(B, T, H, P, N, Q, x_bytes):
-    """(bytes, flops) of one SSD scan: x, dt, B, C read once, y and the final
-    state written once; flops over the pairs this input's chunks hold."""
+    """(bytes, flops, C.B^T flops) of one SSD scan: x, dt, B, C read once, y
+    and the final state written once; over the pairs this input's chunks
+    hold, the flops of the three products with a float32 operand per head
+    (p.(dt x), the state update, and C.S_prev in every chunk but the first,
+    where S_prev = 0), and those of C.B^T, which depends on (b, chunk)
+    alone."""
     nbytes = (2 * B * T * H * P * x_bytes + B * T * H * 4 + 2 * B * T * N * x_bytes
               + H * 4 + B * H * N * P * 4)
-    flops = 0
+    flops = cb = 0
     for t0 in range(0, T, Q):
         n = min(Q, T - t0)
-        flops += n * (n + 1) // 2 * 2 * (N + P) + 4 * n * N * P
-    return nbytes, flops * B * H
+        flops += n * (n + 1) * P + 2 * n * N * P * (2 if t0 else 1)
+        cb += n * (n + 1) * N
+    return nbytes, flops * B * H, cb * B
+
+
+def ssd_timing(torch, case, dtype, seed: int, flush, reps: int) -> dict:
+    """Row 8 at one shape: the kernel as routed, the CUDA-core body on the
+    same inputs (``cuda_core_ms``) and the plain version, against the
+    bound.  Each float32-operand product runs at the rate of the TF32 terms
+    it needs (bf16 operands are exact in TF32: two terms, 494/2 TFLOP/s;
+    float32: three, 494/3); C.B^T once per (b, chunk) (bf16: exact on the
+    bf16 tensor cores; float32: three terms)."""
+    from repro_torch.kernels.ssm_scan import ssd_route, ssd_scan_kernel, ssd_scan_plain
+
+    chunk = case[5]
+    args = _ssd_inputs(torch, case, dtype, seed, torch.device("cuda"))
+    x, Bm = args[0], args[3]
+    y, S = ssd_scan_kernel(*args, chunk=chunk, return_state=True)
+    wy, wS = ssd_scan_plain(*args, chunk=chunk, return_state=True)
+    core, (cy, cS) = _ssd_core_call(args, chunk)
+    core()
+    torch.cuda.synchronize()
+    err = max((y.float() - wy.float()).abs().max().item(), (S - wS).abs().max().item())
+    core_err = max((cy.float() - wy.float()).abs().max().item(), (cS - wS).abs().max().item())
+    bf16 = dtype == torch.bfloat16
+    nbytes, flops, cb = ssd_work(*case, x_bytes=x.element_size())
+    rate, cb_rate = ((H100_TF32X2_FLOPS, H100_BF16_FLOPS) if bf16
+                     else (H100_TF32X3_FLOPS, H100_TF32X3_FLOPS))
+    by_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    by_ops = (flops / rate + cb / cb_rate) * 1e3
+    name = str(dtype).removeprefix("torch.")
+    return dict(
+        ms=time_ms(torch, lambda: ssd_scan_kernel(*args, chunk=chunk, return_state=True),
+                   reps, flush),
+        cuda_core_ms=time_ms(torch, core, max(reps // 10, 3), flush), cuda_core_err=core_err,
+        plain_ms=time_ms(torch, lambda: ssd_scan_plain(*args, chunk=chunk, return_state=True),
+                         max(reps // 5, 3), flush),
+        library_ms=None, bound_ms=max(by_bytes, by_ops),
+        bound_by="bytes" if by_bytes >= by_ops else "operations", max_abs_err=err,
+        route=ssd_route(dtype, case[4], case[3], chunk),
+        shape=f"x {tuple(x.shape)} {name}, B, C {tuple(Bm.shape)} {name}, chunk {chunk}",
+        work=f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at "
+             f"{'two' if bf16 else 'three'} TF32 terms + {cb / 1e9:.4f} GFLOP C.B^T "
+             f"{'on bf16' if bf16 else 'at three terms'}")
+
+
+def _ssd_core_call(args, chunk: int):
+    """A call of the CUDA-core SSD body (``ssm_scan.cu``'s ``ssd_scan_fwd``,
+    which ran every launch before the tensor-core body) through its C
+    entry, on inputs the wrapper routes to the tensor-core body: timed
+    beside it in the same run, never on a path.  Returns (call, outputs)."""
+    import torch
+
+    from repro_torch.kernels import ssm_scan
+    from repro_torch.kernels.common import DTYPE_CODES, ptr, stream
+
+    x, dt, A, Bm, Cm = args
+    Bsz, T, H, P = x.shape
+    N = Bm.shape[-1]
+    y = torch.empty_like(x)
+    S = torch.empty((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    xs, ds, bs, cs, ys = x.stride(), dt.stride(), Bm.stride(), Cm.stride(), y.stride()
+    fn, st = ssm_scan._library().ssd_scan_fwd, stream(x.device)
+
+    def call():
+        check(fn(ptr(x), xs[0], xs[1], xs[2], ptr(dt), ds[0], ds[1], ds[2], ptr(A),
+                 ptr(Bm), bs[0], bs[1], ptr(Cm), cs[0], cs[1], ptr(y), ys[0], ys[1], ys[2],
+                 ptr(S), DTYPE_CODES[x.dtype], Bsz, T, H, P, N, min(chunk, T), st) == 0,
+              "CUDA-core SSD scan failed")
+    return call, (y, S)
 
 
 def phase_hybrid_timing(torch) -> dict:
@@ -1570,7 +1706,6 @@ def phase_hybrid_timing(torch) -> dict:
     from repro_torch.kernels.decode_attention import (
         decode_attention_kernel, decode_attention_plain)
     from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain, rmsnorm_route
-    from repro_torch.kernels.ssm_scan import ssd_scan_kernel, ssd_scan_plain
 
     dev = torch.device("cuda")
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1578,23 +1713,15 @@ def phase_hybrid_timing(torch) -> dict:
     saved = _snapshot()
     out = {}
 
-    # the SSD scan of one Mamba2 layer's prefill: x (8,1024,80,64) bf16
-    case = (HYBRID_B, HYBRID_PROMPT, SSD_H, SSD_P, SSD_N, SSD_Q)
-    x, dt, A, Bm, Cm = _ssd_inputs(torch, case, bf16, 30, dev)
-    args = (x, dt, A, Bm, Cm)
-    y, S = ssd_scan_kernel(*args, chunk=SSD_Q, return_state=True)
-    wy, wS = ssd_scan_plain(*args, chunk=SSD_Q, return_state=True)
-    err = max((y.float() - wy.float()).abs().max().item(), (S - wS).abs().max().item())
-    nbytes, flops = ssd_work(*case, x_bytes=2)
-    bound, by = _bound(nbytes, flops, H100_BF16_FLOPS)
-    out["ssd_scan"] = dict(
-        ms=time_ms(torch, lambda: ssd_scan_kernel(*args, chunk=SSD_Q, return_state=True),
-                   20, flush),
-        plain_ms=time_ms(torch, lambda: ssd_scan_plain(*args, chunk=SSD_Q,
-                                                       return_state=True), 10, flush),
-        library_ms=None, bound_ms=bound, bound_by=by, max_abs_err=err,
-        shape=f"x {tuple(x.shape)} bf16, B, C {tuple(Bm.shape)} bf16, chunk {SSD_Q}",
-        work=f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP")
+    # the SSD scan of one Mamba2 layer's prefill, x (8,1024,80,64) bf16, and
+    # of the float32 gate's teacher forcing, x (2,304,80,64) float32: the
+    # tensor-core body, the CUDA-core body through its C entry, the plain
+    # version
+    out["ssd_scan"] = ssd_timing(
+        torch, (HYBRID_B, HYBRID_PROMPT, SSD_H, SSD_P, SSD_N, SSD_Q), bf16, 30, flush, 50)
+    out["ssd_scan@gate-f32"] = ssd_timing(
+        torch, (GATE_B, GATE_PROMPT + GATE_STEPS, SSD_H, SSD_P, SSD_N, SSD_Q), f32, 39,
+        flush, 50)
 
     # rows 3 and 4 at the shared block's prefill attention, (8,32,1024,80)
     # bf16, MHA, on the tensor-core body
@@ -2147,7 +2274,7 @@ def main() -> int:
     kernels.append({
         "name": "ssd_scan",
         "route": "cuda",
-        "source": "src/repro_torch/csrc/ssm_scan.cu",
+        "source": "src/repro_torch/csrc/ssd_mma.cuh",
         "replaces": "src/repro/kernels/ssm_scan.py:28",
         "launches": hybrid["launches"]["ssd_scan"],
         "max_abs_err": max(ssd_err, t["max_abs_err"]),
@@ -2157,6 +2284,11 @@ def main() -> int:
         "bound_by": t["bound_by"],
         "library_ms": None,
         "ok": True,
+        "launches_by_route": hybrid["routes"]["ssd_scan"],
+        "float32_gate_launches_by_route": hybrid["gate_routes"],
+        "cuda_core_ms": t["cuda_core_ms"],
+        "float32": {k: hybrid_timing["ssd_scan@gate-f32"][k] for k in (
+            "ms", "cuda_core_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
     })
     for name, line in (("flash_attention_fwd_stats", 27), ("flash_attention_dq", 65),
                        ("flash_attention_dkv", 96)):

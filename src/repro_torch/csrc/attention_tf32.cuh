@@ -92,6 +92,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace attn_tf32 {
 
 constexpr int kWarps = 4;
@@ -125,44 +127,15 @@ struct Strides {
   long long s[9];
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-fills the destination when !valid.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
+using tf32::cp_async16;
+using tf32::cp_async_commit;
+using tf32::mma;
+using tf32::smem_u32;
+using tf32::split;
 
 // Wait until at most kAhead - 1 committed groups are still in flight.
 __device__ __forceinline__ void cp_async_wait_ahead() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kAhead - 1) : "memory");
-}
-
-// x = hi + lo.  hi is x rounded to TF32 (10 mantissa bits), to nearest with
-// ties away from zero, as cvt.rna.tf32.f32 rounds, in two integer
-// instructions (cvt.rna is emulated on sm_90a, with checks for infinities
-// and NaN the finite operands here do not need).  lo = x - hi is exact; the
-// tensor core reads its top 19 bits (the low 13 mantissa bits are ignored,
-// a truncation of lo, 2^-21 of x at most).
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // c[n] += a.b[n] for 8 n-tiles in 3xTF32: b[n] holds the B fragment (k-slots

@@ -11,8 +11,35 @@
 //   y_i    = sum_{j<=i} (C_i.B_j) exp(cs_i - cs_j) dt_j x_j + exp(cs_i) C_i.S_prev
 //   S      = exp(cs_last) S_prev + sum_j exp(cs_last - cs_j) B_j (x) dt_j x_j
 //
-// Design.  One block per (b, h); the TPU's sequential chunk grid axis
-// becomes a loop over chunks inside the block, with the (N,P) state in
+// Two routes, chosen by the wrapper (kernels/ssm_scan.py:ssd_route) from
+// (dtype, N, P, chunk) alone, never from the batch or T:
+//   * ssd_scan_fwd_mma: float32 and bfloat16 at N and P multiples of 8 up
+//     to 64 and a chunk up to ssd_scan_mma_max_chunk(dtype, N), the most
+//     rows whose tiles fit one block's shared memory (every path shape:
+//     the Zamba2 prefill's (8,1024,80,64) bf16, its float32 gate at T =
+//     300 and 304, chunk 256), on the tensor-core body of ssd_mma.cuh:
+//     mma.sync products with float32 accuracy (a float32 operand split
+//     into TF32 hi + lo, bf16 operands exact: C.B^T on bf16 m16n8k16, the
+//     rest in two TF32 terms in bf16 and three in float32), a chunk loaded
+//     by cp.async in one wait, 16-row query strips balanced over the causal
+//     triangle, two blocks an SM in bf16.  The wrapper raises where 16-byte
+//     copies cannot address x, B or C; it never falls back.
+//   * ssd_scan_fwd: other shapes, on the CUDA-core body below, the port's
+//     first, kept as it was; chip_smoke.py also times it beside the
+//     tensor-core body through this entry.
+//
+// Bound.  Per (b, h) and chunk of n rows: n(n+1)*P flops of p.(dt x),
+// 2nNP of the state update and, after the first chunk (S_prev = 0 before
+// it), 2nNP of C.S_prev, all products with a float32 operand, against
+// reading x, dt, B, C and writing y and the final state once; C.B^T
+// (n(n+1)*N) is shared across heads.  On the tensor cores each such
+// product takes two TF32 terms where its other operand is bf16 (exact in
+// TF32) and three in float32, so bf16 runs them at 494/2 TFLOP/s on the
+// H100 SXM: at the Zamba2 prefill's shape 20.17 GFLOP, 0.0817 ms, against
+// 183.0 MB, 0.0546 ms at 3.35 TB/s; operations bound it.
+//
+// The CUDA-core body.  One block per (b, h); the TPU's sequential chunk grid
+// axis becomes a loop over chunks inside the block, with the (N,P) state in
 // shared memory between them.  Where the TPU wrapper copies B and C once per
 // head and transposes x and y, this kernel indexes B and C by batch and reads
 // x and writes y through the strides of the model's (B,T,H,P) layout.  The
@@ -26,17 +53,15 @@
 // its last real row ends the state, as dt=0 padding would.  The state is
 // written out after the last chunk when asked for.  Every sum runs in a
 // fixed order inside one block and R depends on (Q, N, P) alone, so row b
-// of a batched launch is bitwise equal to a solo launch of row b.
-//
-// Bound.  About 2*Q*(N+P) flops per (row, head) of intra-chunk work plus
-// 4*N*P of inter-chunk and state work, against reading x, y, dt, B, C once:
-// at the serving shapes the work dominates the bytes even on the tensor
-// cores.  This first kernel computes on the CUDA cores in float32 from
-// shared memory (up to two shared loads per fused multiply-add); tensor-core
-// (mma/wgmma) tiles for the three products are the later speed change.
+// of a batched launch is bitwise equal to a solo launch of row b.  It
+// computes on the CUDA cores in float32 from shared memory, up to two
+// shared loads per fused multiply-add: 7.43 ms at the Zamba2 prefill's
+// shape, slower than its plain version (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "ssd_mma.cuh"
 
 namespace {
 
@@ -233,4 +258,39 @@ extern "C" int ssd_scan_fwd(const void* x, long long xsb, long long xst, long lo
                                  N, Q, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core body (ssd_mma.cuh), arguments as ssd_scan_fwd; x, B and C
+// with 16-byte aligned bases and strides (the wrapper checks).  A shape the
+// body does not take (ssd_mma::fits) is refused with cudaErrorInvalidValue.
+extern "C" int ssd_scan_fwd_mma(const void* x, long long xsb, long long xst, long long xsh,
+                                const void* dt, long long dsb, long long dst, long long dsh,
+                                const void* A, const void* Bm, long long bsb, long long bst,
+                                const void* Cm, long long csb, long long cst, void* y,
+                                long long ysb, long long yst, long long ysh, void* s_out,
+                                int dtype, int batch, int T_len, int H, int P, int N, int Q,
+                                void* stream) {
+  if (batch == 0 || T_len == 0 || H == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* Af = static_cast<const float*>(A);
+  float* so = static_cast<float*>(s_out);
+  if (dtype == 0) {
+    return ssd_mma::launch<float>(x, xsb, xst, xsh, dtf, dsb, dst, dsh, Af, Bm, bsb, bst, Cm,
+                                  csb, cst, y, ysb, yst, ysh, so, batch, T_len, H, P, N, Q, s);
+  }
+  if (dtype == 1) {
+    return ssd_mma::launch<__nv_bfloat16>(x, xsb, xst, xsh, dtf, dsb, dst, dsh, Af, Bm, bsb,
+                                          bst, Cm, csb, cst, y, ysb, yst, ysh, so, batch, T_len,
+                                          H, P, N, Q, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The longest chunk ssd_scan_fwd_mma takes at (dtype, N), 0 where it takes
+// no chunk (ssd_mma::max_chunk): the table kernels/ssm_scan.py's ssd_route
+// routes by, which chip_smoke.py and a gpu test compare with this.
+extern "C" int ssd_scan_mma_max_chunk(int dtype, int N) {
+  if (dtype != 0 && dtype != 1) return 0;
+  return ssd_mma::max_chunk(dtype == 1 ? 2 : 4, N);
 }

@@ -17,6 +17,16 @@ of row b.  CUDA C++ rather than Triton: the work is three matmul-shaped
 products with an (N,P) state carried across chunks, not an elementwise pass,
 and it keeps the port's single ``nvcc`` build path.
 
+:func:`ssd_route` picks the body from (dtype, N, P, chunk) alone:
+``"mma"``, the tensor-core body (``csrc/ssd_mma.cuh``: mma.sync with
+float32 accuracy, each float32 operand split into TF32 hi + lo, bfloat16
+operands exact and C.B^T on bfloat16 tiles), for float32 and bfloat16 at
+N and P multiples of 8 up to 64 and a chunk up to :func:`mma_max_chunk`
+(the most rows that fit one block's shared memory); ``"simt"``, the
+CUDA-core body, otherwise.  There is no fallback from one to the other:
+an ``"mma"`` call whose x, B or C its 16-byte copies cannot address
+raises.
+
 ``ssd_scan_plain`` is the same function in plain PyTorch, the chunked form
 of the reference's ``models/mamba2.py:ssd_chunked``: it serves CPU tensors
 (the tests) and is the yardstick the kernel is checked against on the card.
@@ -34,6 +44,7 @@ from .common import (
     DTYPE_CODES,
     check_strided,
     check_tensor,
+    check_tma,
     ptr,
     raise_on_error,
     refuse_grad,
@@ -42,6 +53,36 @@ from .common import (
 )
 
 _SOURCE = "ssm_scan"
+
+ROUTES = ("mma", "simt")
+MMA_MAX_P = 64                 # the tensor-core body holds 64 columns of x, y and S
+MMA_MAX_N = 64                 # ... and 64 rows of S (the C fragments of a strip)
+# The longest chunk the tensor-core body takes, by dtype and N rounded up to
+# 16 (16, 32, 48, 64): ``ssd_mma::kMaxChunk``, the most rows whose tiles fit
+# one block's shared memory, which ``csrc/ssd_mma.cuh`` holds to its layout
+# at compile time; ``ssd_scan_mma_max_chunk`` returns it from the library.
+MMA_MAX_CHUNK = {torch.bfloat16: (1088, 896, 768, 640),
+                 torch.float32: (512, 384, 256, 256)}
+
+
+def mma_max_chunk(dtype, N: int) -> int:
+    """The longest chunk the tensor-core body takes at (dtype, N), 0 where
+    it takes none (N not a multiple of 8 up to :data:`MMA_MAX_N`, or
+    another dtype)."""
+    if dtype not in MMA_MAX_CHUNK or not (8 <= N <= MMA_MAX_N and N % 8 == 0):
+        return 0
+    return MMA_MAX_CHUNK[dtype][(N + 15) // 16 - 1]
+
+
+def ssd_route(dtype, N: int, P: int, Q: int) -> str:
+    """The body an SSD launch with state dim N, head dim P and chunk Q runs
+    on: ``"mma"`` (the tensor-core body) for float32 and bfloat16 at N and
+    P multiples of 8 up to :data:`MMA_MAX_N` and :data:`MMA_MAX_P` and Q up
+    to :func:`mma_max_chunk` (at N = 64: 256 in float32, 640 in bfloat16),
+    ``"simt"`` (the CUDA-core body) otherwise."""
+    if 8 <= P <= MMA_MAX_P and P % 8 == 0 and 1 <= Q <= mma_max_chunk(dtype, N):
+        return "mma"
+    return "simt"
 
 
 def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 256, return_state: bool = False):
@@ -103,6 +144,10 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [p, ll, ll, ll, p, ll, ll, ll, p, p, ll, ll, p, ll, ll,
                        p, ll, ll, ll, p, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
+        lib.ssd_scan_fwd_mma.argtypes = fn.argtypes
+        lib.ssd_scan_fwd_mma.restype = ctypes.c_int
+        lib.ssd_scan_mma_max_chunk.argtypes = [i, i]
+        lib.ssd_scan_mma_max_chunk.restype = ctypes.c_int
     return lib
 
 
@@ -112,13 +157,15 @@ def ssd_scan_kernel(x, dt, A, B, C, *, chunk: int = 256, return_state: bool = Fa
     x: (B, T, H, P), float32 or bfloat16; dt: (B, T, H) float32; A: (H,)
     contiguous float32; B, C: (B, T, N) in x's dtype; all on one CUDA
     device, each with a contiguous last axis (other strides are free, so the
-    model's (B,T,H,P) view of its (B,T,H*P) activations needs no copy).
-    Returns y, a contiguous (B, T, H, P) tensor in x's dtype, and with
-    ``return_state`` also the final state, a contiguous (B, H, N, P) float32
-    tensor.  Launches on the current stream and does not synchronise; a
-    shape whose chunk does not fit one block's shared memory is refused by
-    the launch (``RuntimeError``).  ``ssd_scan_kernel.launches`` counts
-    launches.
+    model's (B,T,H,P) view of its (B,T,H*P) activations needs no copy; on
+    the ``"mma"`` route the base addresses and strides of x, B and C must be
+    16-byte multiples, or it raises).  Returns y, a contiguous (B, T, H, P)
+    tensor in x's dtype, and with ``return_state`` also the final state, a
+    contiguous (B, H, N, P) float32 tensor.  Launches on the current stream
+    and does not synchronise; a shape whose chunk does not fit one block's
+    shared memory is refused by the launch (``RuntimeError``).
+    ``ssd_scan_kernel.launches`` counts launches and
+    ``ssd_scan_kernel.launches_by_route`` counts them per :func:`ssd_route`.
     """
     refuse_grad("ssd scan", "the SSD scan has no backward yet (the hybrid family "
                 "does not train, ROADMAP Queue 1 item 10): call it under "
@@ -142,18 +189,26 @@ def ssd_scan_kernel(x, dt, A, B, C, *, chunk: int = 256, return_state: bool = Fa
         raise ValueError(f"chunk must be positive, got {chunk}")
     if Bsz * H >= 2**31:
         raise ValueError(f"B*H = {Bsz * H} exceeds the kernel's grid")
+    route = ssd_route(x.dtype, N, P, chunk)
+    if route == "mma":
+        for name, t in (("x", x), ("B", B), ("C", C)):
+            check_tma(name, t, "cp.async")
     y = torch.empty((Bsz, T, H, P), dtype=x.dtype, device=device)
     S = torch.empty((Bsz, H, N, P), dtype=torch.float32, device=device) \
         if return_state else None
     xs, ds, bs, cs, ys = x.stride(), dt.stride(), B.stride(), C.stride(), y.stride()
     with torch.cuda.device(device):
-        err = _library().ssd_scan_fwd(
-            ptr(x), xs[0], xs[1], xs[2], ptr(dt), ds[0], ds[1], ds[2], ptr(A),
-            ptr(B), bs[0], bs[1], ptr(C), cs[0], cs[1], ptr(y), ys[0], ys[1], ys[2],
-            ptr(S), DTYPE_CODES[x.dtype], Bsz, T, H, P, N, min(chunk, T), stream(device))
-    raise_on_error(err, "ssd_scan")
+        lib = _library()
+        fn = lib.ssd_scan_fwd_mma if route == "mma" else lib.ssd_scan_fwd
+        err = fn(ptr(x), xs[0], xs[1], xs[2], ptr(dt), ds[0], ds[1], ds[2], ptr(A),
+                 ptr(B), bs[0], bs[1], ptr(C), cs[0], cs[1], ptr(y), ys[0], ys[1], ys[2],
+                 ptr(S), DTYPE_CODES[x.dtype], Bsz, T, H, P, N, min(chunk, T),
+                 stream(device))
+    raise_on_error(err, f"ssd_scan ({route})")
     ssd_scan_kernel.launches += 1
+    ssd_scan_kernel.launches_by_route[route] += 1
     return (y, S) if return_state else y
 
 
 ssd_scan_kernel.launches = 0
+ssd_scan_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
