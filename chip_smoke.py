@@ -14,25 +14,32 @@ Phases (any failure exits non-zero; the result lines print only at the end):
 2. Kernel against its plain PyTorch version on the card: page sizes
    {1, 2, 8, 16} x five tail states x contiguous/gapped/permuted tables x
    with and without a fresh row, at d=16 and d=960, to 2e-5 (the
-   reference's float32 kernel tolerance); empty streams give exact zeros, a
-   length-0 stream with a fresh row gives exactly its v row, and row b of a
-   batched launch is bitwise equal to a solo launch of row b.
+   reference's float32 kernel tolerance); then the split's edges at the
+   serving shape (lengths on page boundaries and on the boundaries of the
+   cluster's page runs, a full 128-page table) and an odd d; every launch
+   on ``paged_route``'s body (``"split"``; d = 18 on ``"simt"``); empty
+   streams give exact zeros, a length-0 stream with a fresh row gives
+   exactly its v row, a repeat launch and row b's solo launch are bitwise
+   equal to the batched one.
 3. The main path at real width: ``export_attn_decode_lm`` at SmolLM-360M's
    widths (d_model 960, vocab 49152; one layer, one head), planned
    ``tech-gfp``, served by ``DecodeScheduler`` in ``paged_step`` mode on
    the card (capacity 8, page size 16, max_context 2048, a 1024-page pool):
    8 streams of 128-token prompts decoding 16..64 tokens.  Gates: the
    shortest and longest stream equal ``paged_decode_reference`` bitwise,
-   every step went through the kernel and every batched prefill through the
-   flash kernel (the launch counts cover them; d = 960 in float32 takes the
-   3xTF32 tensor-core body, ``"tf32x3"``), the page-visit accounting
+   every step went through the kernel, all on its split body (``"split"``),
+   and every batched prefill through the flash kernel (the launch counts
+   cover them; d = 960 in float32 takes the 3xTF32 tensor-core body,
+   ``"tf32x3"``), the page-visit accounting
    covers the table walk, the pool drains leak-free.  The batched prefill is
    timed with the flash kernel and with its plain version in its place.
    The longest stream's solo reference run and one batched prefill are
    profiled (device time by operation per step, and the device's idle
-   share).  Then the kernel's time
-   at the step shape against its bound, the plain version's time, and the
-   per-step host-to-device copy of the page pools.
+   share).  Then the kernel's time at the step shape against its bound,
+   the old CUDA-core body's through its C entry (``simt_ms``), the split
+   body's at each cluster size of ``CLUSTER_SIZES`` (``ms_by_cluster``),
+   the plain version's time, and the per-step host-to-device copy of the
+   page pools.
 4. A small input checked by the repo's own means: the 4-stream
    ``decode_paged_kernel`` workload on the card gives the tokens of the same
    run on the CPU and the counters recorded in ``BENCH_serve.json``.
@@ -49,13 +56,18 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    shape on ``"vec"`` and at an odd D and an offset view on ``"scalar"``;
    decode with pos < 0 gives exact zeros; row b of a batched flash launch,
    and the last row of an RMSNorm launch, are bitwise equal to a solo
-   launch; a causal ``sdpa`` op with T != S is refused on the card.
+   launch; every flash-decode launch at a path shape on ``decode_route``'s
+   ``"split"``, at d = 18 on ``"simt"``; flash-decode's split edges at the
+   dense and hybrid step shapes (one key, the first tile's and the ranks'
+   run edges, pos >= S - 1) with a repeat launch and row b's solo launch
+   bitwise equal to the batched one; a causal ``sdpa`` op with T != S is
+   refused on the card.
 6. The dense standard path at full size: ``launch.serve.greedy_generate`` on
    SmolLM-360M (all 32 layers and widths, bf16 compute, tp=1, random weights
    from a seeded generator): 8 prompts of 512 tokens, 32 new tokens each.
    Gates: 32 flash + 65 RMSNorm launches per prefill (all 32 flash on the
-   tensor-core body, every RMSNorm on ``"vec"``) and 32 decode + 65
-   RMSNorm launches per step; timed tokens equal greedy_generate's; on a
+   tensor-core body, every RMSNorm on ``"vec"``) and 32 decode (all on
+   ``"split"``) + 65 RMSNorm launches per step; timed tokens equal greedy_generate's; on a
    float32 copy of the config, prefill + one decode step equals the
    teacher-forcing logits at 5e-3.  A profiler window splits the prefill's
    and a decode step's device time by operation.
@@ -74,7 +86,10 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    attn LM's float32 d = 960 prefill, each also on the CUDA-core body
    through its C entry (``cuda_core_ms``; float32 bounds at the 3xTF32
    rate, the TF32 peak over three); RMSNorm at the prefill's (4096, 960)
-   and the decode step's (8, 960) rows against ``F.rms_norm``.
+   and the decode step's (8, 960) rows against ``F.rms_norm``; flash-decode
+   at the dense step's shape, also on the old CUDA-core body through its C
+   entry (``simt_ms``) and the split body at each cluster size
+   (``ms_by_cluster``), against ``sdpa`` with a ``kpos <= pos`` mask.
 9. The SSD scan kernel against its plain version on the card, on both
    bodies: the reference's ``SSD_CASES``, short last chunks and the hybrid
    path's shapes ((8,1024,80,64), and its float32 gate's T=300 and 304, not
@@ -94,7 +109,8 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    compute, tp=1, random weights from a seeded generator): 8 prompts of
    1024 tokens, 32 new tokens each.  Gates: 54 SSD + 9 flash + 73 RMSNorm
    launches per prefill (all 54 SSD and 9 flash on the tensor-core bodies,
-   every RMSNorm on ``"vec"``), 9 decode + 73 RMSNorm per step; timed
+   every RMSNorm on ``"vec"``), 9 decode (all on ``"split"``) + 73
+   RMSNorm per step; timed
    tokens equal greedy_generate's; on a float32 copy of the config, 2
    prompts of 300 tokens, prefill + 4 decode steps equal the
    teacher-forcing logits at 5e-3, its 108 SSD launches (T = 304 and 300)
@@ -106,7 +122,8 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    PyTorch call computes it) and the CUDA-core body through its C entry
    (``cuda_core_ms``), and the flash
    forward, the forward with statistics (both also on the CUDA-core body),
-   flash-decode and RMSNorm kernels' times at the hybrid shapes (RMSNorm at
+   flash-decode (also on the old CUDA-core body and at each cluster size)
+   and RMSNorm kernels' times at the hybrid shapes (RMSNorm at
    the prefill's (8192, 2560) bf16 and the decode step's (8, 2560) float32
    rows against ``F.rms_norm``).
 13. The training kernels (forward with statistics, dQ, dK/dV) against their
@@ -136,8 +153,10 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    against the backward), and RMSNorm's at the train step's (8, 1024, 960)
    rows against ``F.rms_norm``.
 
-The last lines are a ``kernels`` JSON line (rows 3-8 with their
-``launches_by_route``, rows 3-6 and 8 with ``cuda_core_ms``, rows 3 and 4
+The last lines are a ``kernels`` JSON line (every row with its
+``launches_by_route``; rows 1 and 2 with the old body's ``simt_ms``, their
+cluster size and ``ms_by_cluster``, row 2 with its hybrid-step readings
+under ``hybrid``; rows 3-6 and 8 with ``cuda_core_ms``, rows 3 and 4
 with their float32 route's readings under ``tf32x3``, row 8 with its
 float32 gate's routes and its float32 timing under ``float32``), the
 card's name and power
@@ -343,11 +362,48 @@ def phase_kernel(torch) -> float:
     from repro_torch.kernels.decode_attention import (
         paged_decode_attention_kernel as kernel,
         paged_decode_attention_plain as plain,
+        PAGED_SPLIT,
+        paged_route,
     )
 
     dev = torch.device("cuda")
     worst = 0.0
     cases = 0
+
+    def run(ps, lengths, d, layout, npages, want_route):
+        """One pool case, with and without a fresh row: the route, the plain
+        version's values, exact zeros for an empty stream (exactly vn with
+        a fresh row), a repeat launch and row b's solo launch bitwise."""
+        nonlocal worst, cases
+        arrays = pool_case(ps, lengths, d, layout, npages, seed=cases)
+        q, kn, vn, kp, vp, tables, lens = (torch.from_numpy(a).to(dev) for a in arrays)
+        route = paged_route(d, ps, kp, vp)
+        check(route == want_route, f"paged route {route} != {want_route} (d={d} ps={ps})")
+        for fresh in (False, True):
+            extra = (kn, vn) if fresh else ()
+            before = _routes()["paged_decode_attention"]
+            got = kernel(q, kp, vp, tables, lens, *extra)
+            after = _routes()["paged_decode_attention"]
+            check(after == {**before, route: before[route] + 1},
+                  f"paged routes {before} -> {after}, want one {route} launch")
+            want = plain(q, kp, vp, tables, lens, *extra)
+            torch.cuda.synchronize()
+            worst = max(worst, (got - want).abs().max().item())
+            torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+            check(torch.equal(kernel(q, kp, vp, tables, lens, *extra), got),
+                  f"paged: a repeat launch differs (d={d} ps={ps} {layout})")
+            for b, n in enumerate(lengths):
+                if n == 0 and fresh:
+                    # length 0: the softmax has one entry, out == vn
+                    check(torch.equal(got[b], vn[b]), "fresh-only row != vn")
+                elif n == 0:
+                    check(torch.all(got[b] == 0.0), "empty stream not exact zeros")
+                solo = kernel(q[b:b + 1], kp, vp, tables[b:b + 1], lens[b:b + 1],
+                              *(t[b:b + 1] for t in extra))
+                check(torch.equal(solo[0], got[b]), (
+                    f"batched row {b} != solo (d={d} ps={ps} {layout} fresh={fresh})"))
+            cases += 1
+
     npages = 6
     for d in (16, 960):
         for ps in (1, 2, 8, 16):
@@ -355,33 +411,22 @@ def phase_kernel(torch) -> float:
             lengths = (0, 1, 2 * ps + max(ps // 2, 1) if ps > 1 else 3,
                        3 * ps, npages * ps)
             for layout in ("contig", "gaps", "permuted"):
-                arrays = pool_case(ps, lengths, d, layout, npages, seed=cases)
-                q, kn, vn, kp, vp, tables, lens = (
-                    torch.from_numpy(a).to(dev) for a in arrays)
-                for fresh in (False, True):
-                    extra = (kn, vn) if fresh else ()
-                    got = kernel(q, kp, vp, tables, lens, *extra)
-                    want = plain(q, kp, vp, tables, lens, *extra)
-                    torch.cuda.synchronize()
-                    err = (got - want).abs().max().item()
-                    worst = max(worst, err)
-                    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
-                    if fresh:
-                        # length 0: the softmax has one entry, out == vn
-                        check(torch.equal(got[0], vn[0]), "fresh-only row != vn")
-                    else:
-                        check(torch.all(got[0] == 0.0), "empty stream not exact zeros")
-                    for b in range(len(lengths)):
-                        solo = kernel(q[b:b + 1], kp, vp, tables[b:b + 1],
-                                      lens[b:b + 1],
-                                      *(t[b:b + 1] for t in extra))
-                        check(torch.equal(solo[0], got[b]), (
-                            f"batched row {b} != solo (d={d} ps={ps} "
-                            f"{layout} fresh={fresh})"))
-                    cases += 1
+                run(ps, lengths, d, layout, npages, "split")
+    # the split's edges at the serving shape (d 960, ps 16, 128-slot tables):
+    # lengths on page boundaries, on the boundaries of the cluster's page
+    # runs (C, C + 1 and 2C pages: every rank one page, one rank two, every
+    # rank two), a full 128-page table, and length 0
+    C = PAGED_SPLIT
+    edges = (0, 1, PAGE - 1, PAGE, PAGE + 1, (C - 1) * PAGE, C * PAGE, C * PAGE + 1,
+             (C + 1) * PAGE, 2 * C * PAGE - 1, 2 * C * PAGE, MAX_CTX - 1, MAX_CTX)
+    run(PAGE, edges, D_MODEL, "permuted", MAX_CTX // PAGE, "split")
+    # a width that is not a multiple of 4: the CUDA-core body
+    run(2, (0, 1, 5, 12), 18, "permuted", npages, "simt")
     torch.cuda.synchronize()
-    log(f"# kernel vs plain: {cases} cases, max |err| {worst:.3e} "
-        f"(tol {TOL}), exact zeros and batched==solo bitwise: ok")
+    log(f"# paged kernel vs plain: {cases} cases, max |err| {worst:.3e} (tol {TOL}); "
+        f"every launch on paged_route's body (split, C = {C}; d = 18 on simt), "
+        f"split edges {edges}, exact zeros, repeat launches and batched==solo "
+        f"bitwise: ok")
     return worst
 
 
@@ -460,6 +505,8 @@ def phase_main(torch) -> dict:
                  tf32x3=rep.prefills)
     check(launches["rmsnorm"] == launches["decode_attention"] == launches["ssd_scan"] == 0,
           launches)
+    check_routes(routes, "paged_decode_attention", "paged steps (f32, d = 960, ps 16)",
+                 split=launches["paged_decode_attention"])
     walk = rep.kernel_steps * CAPACITY * spec.pages_per_stream
     check(rep.pages_visited + rep.pages_skipped == walk, rep.table())
     check(0 < rep.pages_visited, rep.table())
@@ -483,7 +530,8 @@ def phase_main(torch) -> dict:
     pools = [sched._paged.backing(k) for k in sorted(spec.growing)]
     return {"launches": launches["paged_decode_attention"], "pools": pools,
             "lengths": [PROMPT + n // 2 for n in MAX_NEW],
-            "flash_routes": routes["flash_attention"]}
+            "flash_routes": routes["flash_attention"],
+            "routes": routes["paged_decode_attention"]}
 
 
 PREFILL_REPS = 10
@@ -625,6 +673,7 @@ def phase_timing(torch, main: dict) -> dict:
     from repro_torch.kernels.decode_attention import (
         paged_decode_attention_kernel as kernel,
         paged_decode_attention_plain as plain,
+        PAGED_SPLIT,
     )
 
     dev = torch.device("cuda")
@@ -644,14 +693,21 @@ def phase_timing(torch, main: dict) -> dict:
     args = (q, kp, vp, tables, lens, kn, vn)
 
     got, want = kernel(*args), plain(*args)
+    simt, simt_out = _paged_entry(torch, *args)
+    simt()
+    torch.cuda.synchronize()
     err = (got - want).abs().max().item()
+    simt_err = (simt_out - want).abs().max().item()
     torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
 
     flush = l2_flush_buffer(torch)
-    before = kernel.launches
+    saved = _snapshot()
     kernel_ms = time_ms(torch, lambda: kernel(*args), 200, flush)
+    simt_ms = time_ms(torch, simt, 100, flush)
+    by_cluster = {c: time_ms(torch, _paged_entry(torch, *args, nsplit=c)[0], 100, flush)
+                  for c in CLUSTER_SIZES}
     plain_ms = time_ms(torch, lambda: plain(*args), 20, flush, syncs=True)
-    kernel.launches = before            # timing launches are not the path's
+    _restore(saved)                     # timing launches are not the path's
 
     live_rows = int(lengths.sum())
     live_pages = int(sum(-(-int(n) // PAGE) for n in lengths))
@@ -678,16 +734,21 @@ def phase_timing(torch, main: dict) -> dict:
     h2d_ms = (time.perf_counter() - t0) / reps * 1e3
     pool_mb = sum(p.nbytes for p in pools) / 1e6
 
-    log(f"# kernel at the step shape (B={CAPACITY}, d={D_MODEL}, ps={PAGE}, "
-        f"npages={npages}, lengths={lengths.tolist()}): {kernel_ms:.4f} ms, "
-        f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.3f} MB, "
+    cluster = PAGED_SPLIT
+    log(f"# paged kernel at the step shape (B={CAPACITY}, d={D_MODEL}, ps={PAGE}, "
+        f"npages={npages}, lengths={lengths.tolist()}): {kernel_ms:.4f} ms [split, "
+        f"cluster of {cluster}], old CUDA-core body {simt_ms:.4f} ms (|err| "
+        f"{simt_err:.3e}), split body by cluster size "
+        + ", ".join(f"{c}: {ms:.4f}" for c, ms in by_cluster.items())
+        + f"; bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.3f} MB, "
         f"{flops / 1e6:.2f} MFLOP), plain version {plain_ms:.4f} ms, "
         f"|err| {err:.3e}; no single PyTorch call computes paged decode "
         f"attention over a block table, so library_ms is null")
     log(f"# per-step host-to-device copy of the numpy page pools "
         f"({pool_mb:.1f} MB): {h2d_ms:.3f} ms")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_err": err}
+            "bound_by": bound_by, "max_abs_err": err, "simt_ms": simt_ms,
+            "ms_by_cluster": by_cluster, "cluster": cluster}
 
 
 # ---------------------------------------------------------------------------
@@ -748,7 +809,7 @@ def phase_dense_kernels(torch) -> dict:
     from repro_torch.core.opset import REGISTRY
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels.decode_attention import (
-        decode_attention_kernel, decode_attention_plain)
+        DECODE_SPLIT, SPLIT_KEYS, decode_attention_kernel, decode_attention_plain, decode_route)
     from repro_torch.kernels.flash_attention import (
         flash_attention_kernel, flash_attention_plain, flash_route)
     from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain, rmsnorm_route
@@ -814,10 +875,14 @@ def phase_dense_kernels(torch) -> dict:
                 q = _randn(torch, (B, Hq, 1, d), qd, 3, dev)
                 ck = _randn(torch, (B, S, Hkv, d), kd, 4, dev)   # the model's layout
                 cv = _randn(torch, (B, S, Hkv, d), kd, 5, dev)
+                kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+                route = decode_route(kd, d, Hq // Hkv, kt, vt)
+                check(route == "split", f"decode route {route} at {(B, Hq, Hkv, S, d, kd)}")
                 for p in (pos, -1):
                     pt = torch.tensor([p], dtype=torch.int32, device=dev)
-                    args = (q, ck.transpose(1, 2), cv.transpose(1, 2), pt)
-                    got = decode_attention_kernel(*args)
+                    args = (q, kt, vt, pt)
+                    got = routed("decode_attention", route,
+                                 lambda: decode_attention_kernel(*args))
                     compare("decode_attention", got, decode_attention_plain(*args),
                             torch.bfloat16 if torch.bfloat16 in (qd, kd) else qd, TOL)
                     if p < 0:
@@ -840,6 +905,44 @@ def phase_dense_kernels(torch) -> dict:
                               got.reshape(-1, shape[-1])[-1]),
                   f"rmsnorm: batched last row != solo {shape}")
 
+    # flash-decode's split edges at the dense and hybrid step shapes: one key
+    # (fewer tiles than ranks), the first tile's edges, the edges of the
+    # ranks' tile runs, pos >= S - 1; a repeat launch and row b's solo
+    # launch bitwise; a head dim whose rows are no 16-byte multiple on simt
+    edge_cases = 0
+    for (B, Hq, Hkv, S, d), qd in (((DENSE_B, 15, 5, DENSE_PROMPT + DENSE_NEW + 1, 64),
+                                    torch.bfloat16),
+                                   ((HYBRID_B, HYB_HEADS, HYB_HEADS, HYB_CACHE, HYB_HD),
+                                    torch.float32)):
+        C = DECODE_SPLIT
+        tiles = -(-S // SPLIT_KEYS)
+        ranks = {SPLIT_KEYS * (r * tiles // C) for r in range(1, C)}
+        positions = sorted({0, SPLIT_KEYS - 2, SPLIT_KEYS - 1, SPLIT_KEYS,
+                            *(n + dn for n in ranks for dn in (-2, -1, 0)),
+                            S - 2, S - 1, S + 3})
+        q = _randn(torch, (B, Hq, 1, d), qd, 24, dev)
+        kt = _randn(torch, (B, S, Hkv, d), torch.float32, 25, dev).transpose(1, 2)
+        vt = _randn(torch, (B, S, Hkv, d), torch.float32, 26, dev).transpose(1, 2)
+        for p in positions:
+            pt = torch.tensor([p], dtype=torch.int32, device=dev)
+            got = routed("decode_attention", "split",
+                         lambda: decode_attention_kernel(q, kt, vt, pt))
+            compare("decode_attention", got, decode_attention_plain(q, kt, vt, pt), qd, TOL)
+            check(torch.equal(decode_attention_kernel(q, kt, vt, pt), got),
+                  f"decode: a repeat launch differs (pos {p})")
+            for b in range(B):
+                solo = decode_attention_kernel(q[b:b + 1], kt[b:b + 1], vt[b:b + 1], pt)
+                check(torch.equal(solo[0], got[b]),
+                      f"decode: batched row {b} != solo {(B, Hq, Hkv, S, d)} pos {p}")
+            edge_cases += 1
+    q = _randn(torch, (2, 4, 1, 18), torch.float32, 27, dev)
+    kt = _randn(torch, (2, 100, 2, 18), torch.float32, 28, dev).transpose(1, 2)
+    vt = _randn(torch, (2, 100, 2, 18), torch.float32, 29, dev).transpose(1, 2)
+    pt = torch.tensor([60], dtype=torch.int32, device=dev)
+    check(decode_route(torch.float32, 18, 2, kt, vt) == "simt", "decode: d = 18 not on simt")
+    got = routed("decode_attention", "simt", lambda: decode_attention_kernel(q, kt, vt, pt))
+    compare("decode_attention", got, decode_attention_plain(q, kt, vt, pt), torch.float32, TOL)
+
     sdpa = REGISTRY["sdpa"].torch_fn
     q = _randn(torch, (1, 2, 4, 16), torch.float32, 8, dev)
     k = _randn(torch, (1, 2, 6, 16), torch.float32, 9, dev)
@@ -856,7 +959,9 @@ def phase_dense_kernels(torch) -> dict:
         f"flash_route gives (bf16 at d % 16 == 0: wgmma; f32 at d % 8 == 0: tf32x3), "
         f"RMSNorm on vec at every path shape and on scalar at odd D and an offset "
         f"view, pos<0 exact zeros, flash and RMSNorm batched==solo bitwise, strided "
-        f"views, causal sdpa T!=S refused: ok")
+        f"views, causal sdpa T!=S refused; flash-decode on split at every path shape "
+        f"and on simt at d = 18, {edge_cases} split-edge positions with repeat and "
+        f"batched==solo bitwise: ok")
     return worst
 
 
@@ -885,12 +990,14 @@ NO_TRAIN_LAUNCHES = {"flash_attention_fwd_stats": 0, "flash_attention_dq": 0,
                      "flash_attention_dkv": 0}
 
 
-# the attention wrappers also count their launches per body
-# (``launches_by_route``: "wgmma", the bf16 tensor-core body; "tf32x3", the
-# float32 one; "simt", the CUDA-core one), RMSNorm per body ("vec", "scalar")
-# and the SSD scan per body ("mma", the tensor-core body; "simt")
+# every wrapper also counts its launches per body (``launches_by_route``):
+# the flash attention ones "wgmma" (the bf16 tensor-core body), "tf32x3"
+# (the float32 one), "simt" (the CUDA-core one); RMSNorm "vec", "scalar";
+# the SSD scan "mma" (the tensor-core body), "simt"; the two decode kernels
+# "split" (the cache split over a thread-block cluster), "simt"
 ROUTED = ("flash_attention", "flash_attention_fwd_stats", "flash_attention_dq",
-          "flash_attention_dkv", "rmsnorm", "ssd_scan")
+          "flash_attention_dkv", "rmsnorm", "ssd_scan", "decode_attention",
+          "paged_decode_attention")
 
 
 def _reset_counts():
@@ -972,6 +1079,8 @@ def phase_dense_standard(torch) -> dict:
     check(launches == want, f"launches {launches} != {want}")
     check_routes(routes, "flash_attention", "dense prefill (bf16, d = 64)", wgmma=L)
     check_routes(routes, "rmsnorm", "dense serving (bf16, D = 960)", vec=want["rmsnorm"])
+    check_routes(routes, "decode_attention", "dense decode (bf16 q, f32 cache, d = 64)",
+                 split=want["decode_attention"])
 
     # the same steps timed one by one, with their launch counts
     cache = api.init_cache(cfg, DENSE_B, DENSE_PROMPT + DENSE_NEW + 1, tp=1, device=dev)
@@ -1173,6 +1282,94 @@ def _cuda_core_call(q, k, v, stats: bool):
     return call, (o,)
 
 
+CLUSTER_SIZES = (1, 2, 4, 8, 16)     # the split bodies' cluster sizes timed beside the shipped one
+
+
+def _decode_entry(torch, q, k, v, pos, nsplit=None):
+    """A call of the dense flash-decode through a C entry, on inputs the
+    wrapper takes: the CUDA-core body (``decode_attention_fwd``, the body of
+    every launch before the split one) when ``nsplit`` is None, else the
+    split body at that cluster size.  Timed beside the wrapper in the same
+    run, never on a path.  Returns (call, output)."""
+    import ctypes
+    import math
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.common import DTYPE_CODES, ptr, stream, strides
+
+    B, Hq, _, d = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    out = torch.empty((B, Hq, 1, d), dtype=q.dtype, device=q.device)
+    qs, ks, vs = strides(q), strides(k), strides(v)
+    args = [ptr(q), ptr(k), ptr(v), ptr(pos), ptr(out), DTYPE_CODES[q.dtype],
+            DTYPE_CODES[k.dtype], B, Hq, Hkv, S, d, *qs[:2], *ks[:3], *vs[:3],
+            ctypes.c_float(1.0 / math.sqrt(d))]
+    lib, st = da._dense_library(), stream(q.device)
+    if nsplit is None:
+        def call():
+            check(lib.decode_attention_fwd(*args, st) == 0, "CUDA-core decode failed")
+    else:
+        def call():
+            check(lib.decode_attention_fwd_split(*args, nsplit, st) == 0,
+                  f"split decode at C = {nsplit} failed")
+    return call, out
+
+
+def _paged_entry(torch, q, kp, vp, tables, lens, kn, vn, nsplit=None):
+    """A call of the paged decode kernel through a C entry: the CUDA-core
+    body (``paged_decode_attention_f32``) when ``nsplit`` is None, else the
+    split body at that cluster size (see :func:`_decode_entry`)."""
+    import ctypes
+    import math
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.common import ptr, stream
+
+    B, d = q.shape
+    out = torch.empty_like(q)
+    args = [ptr(q), ptr(kn), ptr(vn), ptr(kp), ptr(vp), ptr(tables), ptr(lens), ptr(out), B,
+            d, kp.shape[1], tables.shape[1], int(kn is not None),
+            ctypes.c_float(1.0 / math.sqrt(d))]
+    lib, st = da._library(), stream(q.device)
+    if nsplit is None:
+        def call():
+            check(lib.paged_decode_attention_f32(*args, st) == 0, "CUDA-core paged failed")
+    else:
+        def call():
+            check(lib.paged_decode_attention_split_f32(*args, nsplit, st) == 0,
+                  f"split paged at C = {nsplit} failed")
+    return call, out
+
+
+def decode_timing(torch, q, k, v, pos, flush, reps: int, bound, by, work, shape,
+                  library) -> dict:
+    """Row 2 at one step shape: the wrapper's route, the CUDA-core body
+    through its C entry (``simt_ms``), the split body at each of
+    :data:`CLUSTER_SIZES` (``ms_by_cluster``), the plain version and one
+    ``scaled_dot_product_attention`` call with a ``kpos <= pos`` mask."""
+    from repro_torch.kernels.decode_attention import (
+        DECODE_SPLIT, decode_attention_kernel, decode_attention_plain, decode_route)
+
+    got = decode_attention_kernel(q, k, v, pos)
+    want = decode_attention_plain(q, k, v, pos)
+    simt, simt_out = _decode_entry(torch, q, k, v, pos)
+    simt()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    simt_err = (simt_out.float() - want.float()).abs().max().item()
+    by_cluster = {c: time_ms(torch, _decode_entry(torch, q, k, v, pos, c)[0], reps // 2, flush)
+                  for c in CLUSTER_SIZES}
+    return dict(
+        ms=time_ms(torch, lambda: decode_attention_kernel(q, k, v, pos), reps, flush),
+        simt_ms=time_ms(torch, simt, reps // 2, flush),
+        plain_ms=time_ms(torch, lambda: decode_attention_plain(q, k, v, pos), reps // 4, flush),
+        library_ms=time_ms(torch, library, reps, flush),
+        ms_by_cluster=by_cluster, cluster=DECODE_SPLIT,
+        route=decode_route(k.dtype, q.shape[-1], q.shape[1] // k.shape[1], k, v),
+        bound_ms=bound, bound_by=by, max_abs_err=err, simt_err=simt_err,
+        library="sdpa with a kpos <= pos mask", shape=shape, work=work)
+
+
 def flash_timing(torch, q, k, v, flush, reps: int, *, stats: bool) -> dict:
     """Row 3 (``stats`` False: ``flash_attention_kernel``) or row 4
     (``flash_attention_fwd_stats_kernel``) at one causal shape: the kernel as
@@ -1232,6 +1429,10 @@ def log_timing(out: dict) -> None:
             else f"{r['library_ms']:.4f} ms"
         core = (f", CUDA-core body {r['cuda_core_ms']:.4f} ms (|err| "
                 f"{r['cuda_core_err']:.3e})") if "cuda_core_ms" in r else ""
+        if "simt_ms" in r:
+            core = (f" (cluster of {r['cluster']}), old CUDA-core body {r['simt_ms']:.4f} ms "
+                    f"(|err| {r['simt_err']:.3e}), split body by cluster size "
+                    + ", ".join(f"{c}: {ms:.4f}" for c, ms in r["ms_by_cluster"].items()))
         route = f" [{r['route']}]" if "route" in r else ""
         log(f"# {name}{route} at {r['shape']}: {r['ms']:.4f} ms{core}, bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {r['work']}), plain "
@@ -1241,8 +1442,6 @@ def log_timing(out: dict) -> None:
 def phase_dense_timing(torch, dense: dict) -> dict:
     import torch.nn.functional as F
 
-    from repro_torch.kernels.decode_attention import (
-        decode_attention_kernel, decode_attention_plain)
     from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain, rmsnorm_route
 
     dev = torch.device("cuda")
@@ -1281,22 +1480,17 @@ def phase_dense_timing(torch, dense: dict) -> dict:
     cv = _randn(torch, (B, S, Hkv, d), f32, 15, dev)
     kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
     pt = torch.tensor([pos], dtype=torch.int32, device=dev)
-    err = (decode_attention_kernel(q1, kt, vt, pt).float()
-           - decode_attention_plain(q1, kt, vt, pt).float()).abs().max().item()
     visible = pos + 1
     nbytes = 2 * 2 * q1.numel() + 2 * B * Hkv * visible * d * 4 + 4
     flops = 4 * B * Hq * visible * d
     bound, by = _bound(nbytes, flops, H100_FP32_FLOPS)
     mask = (torch.arange(S, device=dev) <= pos)[None, None, None, :]
     q1f = q1.to(f32)
-    out["decode_attention"] = dict(
-        ms=time_ms(torch, lambda: decode_attention_kernel(q1, kt, vt, pt), 200, flush),
-        plain_ms=time_ms(torch, lambda: decode_attention_plain(q1, kt, vt, pt), 50, flush),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q1f, kt, vt, attn_mask=mask, enable_gqa=True), 200, flush),
-        bound_ms=bound, bound_by=by, max_abs_err=err,
-        shape=f"q {tuple(q1.shape)} bf16, cache {tuple(ck.shape)} f32, pos {pos}",
-        work=f"{nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP")
+    out["decode_attention"] = decode_timing(
+        torch, q1, kt, vt, pt, flush, 200, bound, by,
+        f"{nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP",
+        f"q {tuple(q1.shape)} bf16, cache {tuple(ck.shape)} f32, pos {pos}",
+        lambda: F.scaled_dot_product_attention(q1f, kt, vt, attn_mask=mask, enable_gqa=True))
 
     # rmsnorm: the prefill's rows (4096, 960) bf16; the decode step's (8, 960)
     for rows, key in ((B * DENSE_PROMPT, "rmsnorm"), (B, "rmsnorm@decode")):
@@ -1535,6 +1729,8 @@ def phase_hybrid_standard(torch) -> dict:
     check_routes(routes, "flash_attention", "hybrid prefill (bf16, d = 80)", wgmma=G)
     check_routes(routes, "rmsnorm", "hybrid serving (D = 2560)", vec=launches["rmsnorm"])
     check_routes(routes, "ssd_scan", "hybrid prefill (bf16, N = P = 64, chunk 256)", mma=L)
+    check_routes(routes, "decode_attention", "hybrid decode (f32, d = 80)",
+                 split=launches["decode_attention"])
 
     # the same steps timed one by one, with their launch counts
     cache = api.init_cache(cfg, HYBRID_B, HYB_CACHE, tp=1, device=dev)
@@ -1703,8 +1899,6 @@ def _ssd_core_call(args, chunk: int):
 def phase_hybrid_timing(torch) -> dict:
     import torch.nn.functional as F
 
-    from repro_torch.kernels.decode_attention import (
-        decode_attention_kernel, decode_attention_plain)
     from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain, rmsnorm_route
 
     dev = torch.device("cuda")
@@ -1740,21 +1934,16 @@ def phase_hybrid_timing(torch) -> dict:
     cv = _randn(torch, (HYBRID_B, HYB_CACHE, HYB_HEADS, HYB_HD), f32, 36, dev)
     kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
     pt = torch.tensor([pos], dtype=torch.int32, device=dev)
-    err = (decode_attention_kernel(q1, kt, vt, pt)
-           - decode_attention_plain(q1, kt, vt, pt)).abs().max().item()
     visible = pos + 1
     nbytes = 2 * 4 * q1.numel() + 2 * HYBRID_B * HYB_HEADS * visible * HYB_HD * 4 + 4
     flops = 4 * HYBRID_B * HYB_HEADS * visible * HYB_HD
     bound, by = _bound(nbytes, flops, H100_FP32_FLOPS)
     mask = (torch.arange(HYB_CACHE, device=dev) <= pos)[None, None, None, :]
-    out["decode_attention@hybrid"] = dict(
-        ms=time_ms(torch, lambda: decode_attention_kernel(q1, kt, vt, pt), 100, flush),
-        plain_ms=time_ms(torch, lambda: decode_attention_plain(q1, kt, vt, pt), 20, flush),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q1, kt, vt, attn_mask=mask), 100, flush),
-        bound_ms=bound, bound_by=by, max_abs_err=err,
-        shape=f"q {tuple(q1.shape)} f32, cache {tuple(ck.shape)} f32, pos {pos}",
-        work=f"{nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP")
+    out["decode_attention@hybrid"] = decode_timing(
+        torch, q1, kt, vt, pt, flush, 100, bound, by,
+        f"{nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP",
+        f"q {tuple(q1.shape)} f32, cache {tuple(ck.shape)} f32, pos {pos}",
+        lambda: F.scaled_dot_product_attention(q1, kt, vt, attn_mask=mask))
 
     # rmsnorm: the prefill's rows (8192, 2560) bf16; the decode step's (8, 2560) f32
     for rows, dtype, key in ((HYBRID_B * HYBRID_PROMPT, bf16, "rmsnorm@hybrid"),
@@ -2236,6 +2425,10 @@ def main() -> int:
         "bound_by": timing["bound_by"],
         "library_ms": None,
         "ok": True,
+        "launches_by_route": main_run["routes"],
+        "simt_ms": timing["simt_ms"],
+        "cluster": timing["cluster"],
+        "ms_by_cluster": timing["ms_by_cluster"],
     }]
     for name, replaces in (("decode_attention", "src/repro/kernels/decode_attention.py:34"),
                            ("flash_attention", "src/repro/kernels/flash_attention.py:25"),
@@ -2266,6 +2459,14 @@ def main() -> int:
                 dense_timing, "flash_attention",
                 {"attn-lm prefill": main_run["flash_routes"],
                  "mixed forward": mixed["routes"]["flash_attention"]})
+        if name == "decode_attention":
+            hyb = hybrid_timing["decode_attention@hybrid"]
+            kernels[-1].update(
+                simt_ms=t["simt_ms"], cluster=t["cluster"], ms_by_cluster=t["ms_by_cluster"],
+                hybrid={k: hyb[k] for k in ("ms", "simt_ms", "ms_by_cluster", "plain_ms",
+                                            "library_ms", "bound_ms", "bound_by",
+                                            "max_abs_err")}
+                | {"launches_by_route": hybrid["routes"]["decode_attention"]})
         if name == "rmsnorm":
             kernels[-1]["routes_by_shape"] = {
                 k: r["route"] for k, r in {**dense_timing, **hybrid_timing,

@@ -191,28 +191,11 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
 }
 
 // Cluster barrier halves and distributed shared memory: the Q.K^T split.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-// The address of this shared address in block `rank` of the cluster.
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ float ld_cluster(uint32_t addr) {
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
-  return v;
-}
+using hopper::cluster_arrive;
+using hopper::cluster_rank;
+using hopper::cluster_wait;
+using hopper::ld_cluster;
+using hopper::map_rank;
 
 // One block: 64 query rows of one (b, h) against all its visible keys, o's
 // columns [c0, c0 + DC) with c0 = DC * blockIdx.z.  The gridDim.z blocks of

@@ -1,7 +1,7 @@
 // Float32 products on Hopper's TF32 tensor cores (sm_90a), shared by the
 // float32 attention body (attention_tf32.cuh) and the SSD scan's tensor-core
-// body (ssd_mma.cuh): the 3xTF32 split, the m16n8k8 mma.sync, and 16-byte
-// cp.async copies into shared memory.
+// body (ssd_mma.cuh): the 3xTF32 split and the m16n8k8 mma.sync (16-byte
+// cp.async copies into shared memory come from hopper.cuh).
 //
 // 3xTF32.  A float32 x is split in registers as hi = tf32(x) (round to
 // nearest) and lo = x - hi (exact; the tensor core reads its top 19 bits),
@@ -19,34 +19,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace tf32 {
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-fills the destination when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// 4 bytes global -> shared; zero-fills the destination when !valid.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until every cp.async this thread issued has landed.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
+using hopper::cp_async16;
+using hopper::cp_async4;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait_all;
+using hopper::smem_u32;
 
 // x = hi + lo.  hi is x rounded to TF32 (10 mantissa bits), to nearest with
 // ties away from zero, as cvt.rna.tf32.f32 rounds, in two integer

@@ -51,20 +51,24 @@ def stride_array(*ts) -> ctypes.Array:
     return (ctypes.c_longlong * (3 * len(ts)))(*(s for t in ts for s in strides(t)[:3]))
 
 
-def check_tma(name, t, loads: str = "TMA") -> None:
-    """Raise unless 16-byte loads can address ``t`` (a TMA tensor map, or
-    the ``cp.async`` copies of the float32 tensor-core route, named by
-    ``loads``): its base address and the byte stride of every axis but the
-    last (contiguous) one that is longer than 1 must be multiples of 16."""
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: the tensor-core route loads by {loads}, which needs a "
-                         f"16-byte aligned base address, got {t.data_ptr():#x}")
+def aligned16(t) -> bool:
+    """Whether 16-byte loads can address ``t``: its base address and the
+    byte stride of every axis but the last (contiguous) one that is longer
+    than 1 are multiples of 16."""
     size = t.element_size()
-    for n, s in zip(t.shape[:-1], t.stride()[:-1]):
-        if n > 1 and (s * size) % 16:
-            raise ValueError(f"{name}: the tensor-core route loads by {loads}, which needs "
-                             f"16-byte multiples for strides, got {t.stride()} elements "
-                             f"of {size} bytes")
+    return t.data_ptr() % 16 == 0 and all(
+        n == 1 or (s * size) % 16 == 0 for n, s in zip(t.shape[:-1], t.stride()[:-1]))
+
+
+def check_tma(name, t, loads: str = "TMA") -> None:
+    """Raise unless 16-byte loads can address ``t`` (:func:`aligned16`): a
+    TMA tensor map, or the ``cp.async`` copies of the float32 tensor-core
+    route, named by ``loads``."""
+    if not aligned16(t):
+        raise ValueError(f"{name}: the tensor-core route loads by {loads}, which needs a "
+                         f"16-byte aligned base address and 16-byte multiples for strides, "
+                         f"got base {t.data_ptr():#x} and strides {t.stride()} elements "
+                         f"of {t.element_size()} bytes")
 
 
 def records_grad(*tensors) -> bool:

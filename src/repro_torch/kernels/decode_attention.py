@@ -9,23 +9,39 @@ one query row per (b, q head), q ``(B,Hq,1,d)``, against a cache k, v
 a scalar ``pos``; a row with nothing visible gives exact zeros.
 ``decode_attention_plain`` is the same function in plain PyTorch.
 
-Block-sparse paged decode attention.
-
-``paged_decode_attention_kernel`` launches ``csrc/paged_decode_attention.cu``
-(hand-written for Hopper, ``sm_90a``), which replaces the TPU kernel
+Block-sparse paged decode attention.  ``paged_decode_attention_kernel``
+launches ``csrc/paged_decode_attention.cu`` (hand-written for Hopper,
+``sm_90a``), which replaces the TPU kernel
 ``repro.kernels.decode_attention.paged_decode_attention_kernel``.  Each
 stream b walks its block table in logical order, visits page j only while
 ``j*ps < lengths[b]``, and folds the optional fresh ``kn/vn`` row in last
 at position ``lengths[b]``; without a fresh row an empty stream yields exact
-zeros.  One thread block per stream and a fixed page order keep row b of a
-batched launch bitwise equal to a solo launch of row b.  The kernel is
-memory-bound (live KV bytes over 3.35 TB/s); see the source for its design.
+zeros.  ``paged_decode_attention_plain`` is the same function in plain
+PyTorch: a gather of each stream's live pages, then a two-pass softmax.
 
-``paged_decode_attention_plain`` is the same function in plain PyTorch — a
-gather of each stream's live pages, then a two-pass softmax.  It serves CPU
-tensors (the tests) and is the yardstick the kernel is checked against on
-the card.  :func:`repro_torch.kernels.ops.paged_decode_attention` picks
-between the two by the tensors' device.
+Both kernels are memory-bound (the visible cache bytes over 3.35 TB/s) and
+have two bodies each, picked by :func:`decode_route` and :func:`paged_route`
+and counted per route in ``launches_by_route``:
+
+* ``"split"`` (C entries ``decode_attention_fwd_split`` and
+  ``paged_decode_attention_split_f32``): a thread-block cluster of
+  :data:`DECODE_SPLIT` / :data:`PAGED_SPLIT` blocks takes each (b, kv head)
+  or stream and splits its keys (64-key tiles, or pages) into contiguous
+  runs, one a block, fed by 16-byte ``cp.async`` copies (dense) or one bulk
+  copy a page (paged); each block stores its (max, denominator,
+  accumulator) into rank 0's shared memory (distributed shared memory), and
+  rank 0 folds them in rank order.  Rows of 16-byte multiples at 16-byte
+  aligned bases and strides.
+* ``"simt"`` (``decode_attention_fwd``, ``paged_decode_attention_f32``):
+  the CUDA-core bodies, one block a (b, kv head) or stream walking its keys
+  in one sequence, for every other shape.
+
+Either way a row's result depends only on its own inputs, summed in a fixed
+order with no atomics, so row b of a batched launch is bitwise equal to a
+solo launch of row b.  The plain versions serve CPU tensors (the tests) and
+are the yardsticks the kernels are checked against on the card;
+:mod:`repro_torch.kernels.ops` picks between kernel and plain version by the
+tensors' device.  A CUDA call that no route takes raises.
 """
 from __future__ import annotations
 
@@ -37,6 +53,7 @@ import torch
 from . import build
 from .common import (
     DTYPE_CODES,
+    aligned16,
     check_strided,
     check_tensor as _check,
     ptr,
@@ -50,6 +67,56 @@ from .common import (
 _SOURCE = "paged_decode_attention"
 _DENSE_SOURCE = "decode_attention"
 NEG_INF = -1e30
+
+ROUTES = ("split", "simt")
+SPLIT_KEYS = 64              # keys of a dense split tile: ranks take runs of whole tiles
+SPLIT_MAX_ROW_BYTES = 512    # d * sizeof(cache) the dense split body's tile ring holds
+SPLIT_MAX_ROWS = 8           # query rows per kv head a dense split block holds
+SPLIT_Q_REGS = 16            # float4s of q a thread holds: rows * ceil(d / 16)
+PAGED_SPLIT_MAX_D = 2048     # 2 float4 columns a thread of 256 in the paged split body
+MAX_SMEM = 227 * 1024        # shared memory a block can take on the H100
+# Blocks per cluster of the split bodies, one for every shape and never set
+# by the batch.  chip_smoke.py times each of 1, 2, 4, 8 and 16 at the paths'
+# step shapes: on an NVIDIA H100 80GB HBM3 at 700.00 W, 2 is within 3% of
+# the best at the dense and the hybrid step, 8 the best at the paged one
+# (PERF.md, PR 19).
+DECODE_SPLIT = 2
+PAGED_SPLIT = 8
+
+
+def decode_route(kv_dtype, d: int, group: int, *cache) -> str:
+    """The body a dense decode launch runs on: ``"split"`` where a cache row,
+    ``d`` elements of ``kv_dtype``, is a multiple of 16 bytes and at most
+    :data:`SPLIT_MAX_ROW_BYTES`, a kv head serves at most
+    :data:`SPLIT_MAX_ROWS` query heads (``group``) whose q columns fit a
+    thread's registers (``group`` rounded up to a power of two, times
+    ``ceil(d / 16)``, at most :data:`SPLIT_Q_REGS`), and each tensor of
+    ``cache`` (k, v) has 16-byte aligned base and strides; ``"simt"``
+    otherwise.  q's dtype does not matter: q is read element by element."""
+    row = d * torch.empty((), dtype=kv_dtype).element_size()
+    if row % 16 or row > SPLIT_MAX_ROW_BYTES or not 1 <= group <= SPLIT_MAX_ROWS:
+        return "simt"
+    rows = 1 << (group - 1).bit_length()        # query rows a block holds: 1, 2, 4 or 8
+    if rows * -(-d // 16) > SPLIT_Q_REGS:
+        return "simt"
+    return "split" if all(aligned16(t) for t in cache) else "simt"
+
+
+def paged_split_smem(d: int, ps: int, nsplit: int) -> int:
+    """Shared memory bytes of a paged split block (``split::Layout`` in the
+    source): the K and V pages, q, the scores, the statistics, the warps'
+    partials, two mbarriers, and every rank's (acc, m, l) for rank 0."""
+    return 4 * (2 * ps * d + d + -(-ps // 4) * 4) + 64 + nsplit * (4 * d + 8)
+
+
+def paged_route(d: int, ps: int, *pools) -> str:
+    """The body a paged decode launch runs on: ``"split"`` at ``d % 4 ==
+    0``, ``d <=`` :data:`PAGED_SPLIT_MAX_D`, a block's shared memory (two
+    pages) within the card's 227 KB and 16-byte aligned pools (each page a
+    16-byte aligned run, fetched by one bulk copy); ``"simt"`` otherwise."""
+    if d % 4 or d > PAGED_SPLIT_MAX_D or paged_split_smem(d, ps, PAGED_SPLIT) > MAX_SMEM:
+        return "simt"
+    return "split" if all(t.data_ptr() % 16 == 0 for t in pools) else "simt"
 
 
 def decode_attention_plain(q, k, v, pos):
@@ -86,6 +153,9 @@ def _dense_library() -> ctypes.CDLL:
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                        ll, ll, ll, ll, ll, ll, ll, ll, ctypes.c_float, p]
         fn.restype = ctypes.c_int
+        split = lib.decode_attention_fwd_split
+        split.argtypes = fn.argtypes[:-1] + [i, p]
+        split.restype = ctypes.c_int
     return lib
 
 
@@ -99,8 +169,10 @@ def decode_attention_kernel(q, k, v, pos):
     transposed view); pos: a one-element int32 tensor on the same CUDA
     device (read there by the kernel, no host sync).
     Returns a contiguous (B, Hq, 1, d) tensor in q's dtype.  Launches on the
-    current stream and does not synchronise.
-    ``decode_attention_kernel.launches`` counts launches.
+    current stream and does not synchronise.  The body is
+    :func:`decode_route`'s; ``decode_attention_kernel.launches`` counts
+    launches and ``decode_attention_kernel.launches_by_route`` counts them
+    per route.
     """
     refuse_grad("decode attention", "decode attention serves inference only: call "
                 "it under torch.no_grad(); training attention is "
@@ -123,19 +195,26 @@ def decode_attention_kernel(q, k, v, pos):
     if not (isinstance(pos, torch.Tensor) and pos.device == device
             and pos.dtype == torch.int32 and pos.numel() == 1):
         raise ValueError(f"pos must be a one-element int32 tensor on {device}, got {pos!r}")
+    route = decode_route(k.dtype, d, Hq // Hkv, k, v)
     out = torch.empty((B, Hq, 1, d), dtype=q.dtype, device=device)
     qs, ks, vs = strides(q), strides(k), strides(v)
-    with torch.cuda.device(device):
-        err = _dense_library().decode_attention_fwd(
-            ptr(q), ptr(k), ptr(v), ptr(pos), ptr(out),
+    args = [ptr(q), ptr(k), ptr(v), ptr(pos), ptr(out),
             DTYPE_CODES[q.dtype], DTYPE_CODES[k.dtype], B, Hq, Hkv, S, d,
-            *qs[:2], *ks[:3], *vs[:3], ctypes.c_float(1.0 / math.sqrt(d)), stream(device))
-    raise_on_error(err, "decode_attention")
+            *qs[:2], *ks[:3], *vs[:3], ctypes.c_float(1.0 / math.sqrt(d))]
+    with torch.cuda.device(device):
+        lib = _dense_library()
+        if route == "split":
+            err = lib.decode_attention_fwd_split(*args, DECODE_SPLIT, stream(device))
+        else:
+            err = lib.decode_attention_fwd(*args, stream(device))
+    raise_on_error(err, f"decode_attention ({route})")
     decode_attention_kernel.launches += 1
+    decode_attention_kernel.launches_by_route[route] += 1
     return out
 
 
 decode_attention_kernel.launches = 0
+decode_attention_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, tables, lengths,
@@ -174,6 +253,9 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
+        split = lib.paged_decode_attention_split_f32
+        split.argtypes = fn.argtypes[:-1] + [i, p]
+        split.restype = ctypes.c_int
     return lib
 
 
@@ -184,14 +266,14 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, tables, lengths,
     Same arguments as :func:`paged_decode_attention_plain`; every tensor must
     be float32 (tables and lengths int32), contiguous, and on one CUDA
     device, or this raises.  Launches on the current stream and does not
-    synchronise.  ``paged_decode_attention_kernel.launches`` counts launches.
+    synchronise.  The body is :func:`paged_route`'s;
+    ``paged_decode_attention_kernel.launches`` counts launches and
+    ``paged_decode_attention_kernel.launches_by_route`` counts them per route.
     """
     refuse_grad("paged decode attention", "paged decode serves inference only: call "
                 "it under torch.no_grad(); training attention is "
                 "ops.flash_attention_trainable", q, k_pages, v_pages, kn, vn)
-    device = q.device
-    if device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got q on {device}")
+    device = require_cuda(q, "paged decode attention")
     if q.dim() != 2:
         raise ValueError(f"q must be (B, d), got shape {tuple(q.shape)}")
     B, d = q.shape
@@ -214,24 +296,28 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, tables, lengths,
         _check("vn", vn, f32, (B, d), device)
     if ps < 1 or d < 1:
         raise ValueError(f"page size and width must be positive, got ps={ps}, d={d}")
+    route = paged_route(d, ps, k_pages, v_pages)
     smem = 4 * (2 * d + max(ps, 8) + ps)
-    if smem > 227 * 1024:
+    if route == "simt" and smem > MAX_SMEM:
         raise ValueError(f"d={d}, ps={ps} needs {smem} bytes of shared memory "
                          f"per block, above the card's 227 KB")
     out = torch.empty((B, d), dtype=f32, device=device)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
+    args = [ptr(q), ptr(kn), ptr(vn), ptr(k_pages), ptr(v_pages), ptr(tables),
+            ptr(lengths), ptr(out), B, d, ps, npages, int(kn is not None),
+            ctypes.c_float(1.0 / math.sqrt(d))]
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _library().paged_decode_attention_f32(
-            ptr(q), ptr(kn), ptr(vn), ptr(k_pages), ptr(v_pages),
-            ptr(tables), ptr(lengths), ptr(out),
-            B, d, ps, npages, int(kn is not None),
-            ctypes.c_float(1.0 / math.sqrt(d)), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"paged_decode_attention kernel launch failed: "
-                           f"CUDA error {err}")
+        lib = _library()
+        if route == "split":
+            err = lib.paged_decode_attention_split_f32(*args, PAGED_SPLIT,
+                                                       stream(device))
+        else:
+            err = lib.paged_decode_attention_f32(*args, stream(device))
+    raise_on_error(err, f"paged_decode_attention ({route})")
     paged_decode_attention_kernel.launches += 1
+    paged_decode_attention_kernel.launches_by_route[route] += 1
     return out
 
 
 paged_decode_attention_kernel.launches = 0
+paged_decode_attention_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
+decode_attention_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)

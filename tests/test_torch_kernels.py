@@ -20,9 +20,13 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.decode_attention import ROUTES as DECODE_ROUTES
 from repro_torch.kernels.decode_attention import (
+    DECODE_SPLIT,
+    SPLIT_KEYS,
     decode_attention_kernel,
     decode_attention_plain,
+    decode_route,
 )
 from repro_torch.kernels.common import check_tma
 from repro_torch.kernels.flash_attention import (
@@ -273,6 +277,58 @@ def test_tf32_route_refuses_what_cp_async_cannot_address(make, ok):
             check_tma("q", t, "cp.async")
 
 
+def _cache_view(B, S, Hkv, d, dtype=torch.float32):
+    """The model's (B, S, Hkv, d) cache seen as (B, Hkv, S, d)."""
+    return torch.zeros(B, S, Hkv, d, dtype=dtype).transpose(1, 2)
+
+
+def _offset_cache(B, S, Hkv, d):
+    buf = torch.zeros(1 + B * S * Hkv * d)
+    return buf[1:].view(B, S, Hkv, d).transpose(1, 2)     # base 4 bytes off
+
+
+@pytest.mark.parametrize("kv_dtype,d,group,make,want", [
+    (torch.float32, 64, 3, lambda: _cache_view(8, 545, 5, 64), "split"),    # dense step
+    (torch.float32, 80, 1, lambda: _cache_view(8, 1057, 32, 80), "split"),  # hybrid step
+    (torch.bfloat16, 64, 3, lambda: _cache_view(8, 545, 5, 64, torch.bfloat16), "split"),
+    (torch.float32, 16, 4, lambda: _cache_view(1, 128, 2, 16), "split"),
+    (torch.float32, 128, 2, lambda: _cache_view(2, 64, 1, 128), "split"),
+    (torch.bfloat16, 256, 1, lambda: _cache_view(1, 64, 1, 256, torch.bfloat16), "split"),
+    (torch.float32, 18, 2, lambda: _cache_view(2, 100, 2, 18), "simt"),     # 72-byte rows
+    (torch.bfloat16, 20, 1, lambda: _cache_view(2, 100, 2, 20, torch.bfloat16), "simt"),
+    (torch.float32, 192, 1, lambda: _cache_view(1, 64, 1, 192), "simt"),    # 768-byte rows
+    (torch.float32, 64, 16, lambda: _cache_view(1, 64, 1, 64), "simt"),     # group above 8
+    (torch.float32, 128, 4, lambda: _cache_view(1, 64, 1, 128), "simt"),    # q registers
+    (torch.float32, 64, 3, lambda: _offset_cache(2, 64, 5, 64), "simt"),    # base address
+    (torch.float32, 64, 3,
+     lambda: torch.zeros(2, 64, 5, 65)[..., :64].transpose(1, 2), "simt"),  # 260-byte rows
+], ids=["dense-step", "hybrid-step", "bf16-cache", "d16-group4", "d128-group2",
+        "bf16-d256", "odd-d", "odd-d-bf16", "too-wide", "group16", "q-registers",
+        "base-address", "row-stride"])
+def test_decode_route_is_picked_by_shape_and_alignment(kv_dtype, d, group, make, want):
+    """Both step shapes of the paths take the split body; rows that are no
+    16-byte multiple, too wide for its tile ring or its q registers, more
+    than 8 query heads a kv head, and caches its 16-byte copies cannot
+    address take the CUDA-core body."""
+    k = make()
+    assert decode_route(kv_dtype, d, group, k, k) == want
+    assert want in DECODE_ROUTES
+
+
+def test_decode_wrappers_count_launches_by_route():
+    from repro_torch.kernels.decode_attention import paged_decode_attention_kernel
+
+    for fn in (decode_attention_kernel, paged_decode_attention_kernel):
+        assert set(fn.launches_by_route) == set(DECODE_ROUTES)
+        assert all(isinstance(n, int) for n in fn.launches_by_route.values())
+    before = (decode_attention_kernel.launches, dict(decode_attention_kernel.launches_by_route))
+    q = torch.zeros(1, 2, 1, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention_kernel(q, q, q, torch.tensor([0], dtype=torch.int32))
+    assert (decode_attention_kernel.launches,
+            decode_attention_kernel.launches_by_route) == before
+
+
 # ---------------------------------------------------------------------------
 # the 3xTF32 split, modelled in plain PyTorch
 # ---------------------------------------------------------------------------
@@ -435,19 +491,77 @@ def test_flash_kernel_matches_plain_on_card(dtype):
 @pytest.mark.parametrize("dtypes", [("float32", "float32"), ("bfloat16", "bfloat16"),
                                     ("bfloat16", "float32")])
 def test_decode_kernel_matches_plain_on_card(dtypes):
+    """Every case on decode_route's body (the split one at these shapes),
+    within tolerance of the plain version, exact zeros at pos < 0, a repeat
+    launch and row b's solo launch bitwise equal to the batched one."""
     dev = _cuda()
     qd, kd = dtypes
     tol = 2e-2 if "bfloat16" in dtypes else 2e-5
     for B, Hq, Hkv, S, d, pos, _ in DECODE_CASES + [(8, 15, 5, 545, 64, 544, 0)]:
         q = _dev((B, Hq, 1, d), qd, 3, dev)
         ck, cv = _dev((B, S, Hkv, d), kd, 4, dev), _dev((B, S, Hkv, d), kd, 5, dev)
+        kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+        route = decode_route(kt.dtype, d, Hq // Hkv, kt, vt)
+        assert route == "split"
         for p in (pos, -1):
             p = torch.tensor([p], dtype=torch.int32, device=dev)
-            got = decode_attention_kernel(q, ck.transpose(1, 2), cv.transpose(1, 2), p)
-            want = decode_attention_plain(q, ck.transpose(1, 2), cv.transpose(1, 2), p)
+            before = dict(decode_attention_kernel.launches_by_route)
+            got = decode_attention_kernel(q, kt, vt, p)
+            assert decode_attention_kernel.launches_by_route == {**before,
+                                                                 route: before[route] + 1}
+            want = decode_attention_plain(q, kt, vt, p)
             torch.cuda.synchronize()
             torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+            assert torch.equal(decode_attention_kernel(q, kt, vt, p), got)
+            for b in range(B):
+                solo = decode_attention_kernel(q[b:b + 1], kt[b:b + 1], vt[b:b + 1], p)
+                assert torch.equal(solo[0], got[b])
         assert torch.all(got == 0.0)
+
+
+def _split_positions(S):
+    """pos 0 (one key: fewer tiles than ranks), the first tile's edges, the
+    edges of the ranks' runs of tiles, and pos >= S - 1."""
+    C = DECODE_SPLIT
+    tiles = -(-S // SPLIT_KEYS)
+    ranks = {SPLIT_KEYS * (r * tiles // C) for r in range(1, C)}
+    return sorted({0, SPLIT_KEYS - 1, SPLIT_KEYS, *(n + dn for n in ranks for dn in (-1, 0)),
+                   S - 2, S - 1, S + 3})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(2, 15, 5, 545, 64, "bfloat16"), (2, 32, 32, 1057, 80, "float32"),
+                                  (3, 4, 1, 300, 16, "float32")],
+                         ids=["dense", "hybrid", "d16"])
+def test_decode_split_edges_on_card(case):
+    """The split body at the edges of its key split, against the plain
+    version, batched == solo and repeat launches bitwise; a head dim with
+    rows of no 16-byte multiple on the CUDA-core body."""
+    dev = _cuda()
+    B, Hq, Hkv, S, d, qd = case
+    q = _dev((B, Hq, 1, d), qd, 6, dev)
+    kt = _dev((B, S, Hkv, d), "float32", 7, dev).transpose(1, 2)
+    vt = _dev((B, S, Hkv, d), "float32", 8, dev).transpose(1, 2)
+    tol = 2e-2 if qd == "bfloat16" else 2e-5
+    for pos in _split_positions(S):
+        p = torch.tensor([pos], dtype=torch.int32, device=dev)
+        before = dict(decode_attention_kernel.launches_by_route)
+        got = decode_attention_kernel(q, kt, vt, p)
+        assert decode_attention_kernel.launches_by_route == {**before,
+                                                             "split": before["split"] + 1}
+        torch.testing.assert_close(got.float(), decode_attention_plain(q, kt, vt, p).float(),
+                                   rtol=tol, atol=tol)
+        assert torch.equal(decode_attention_kernel(q, kt, vt, p), got)
+        for b in range(B):
+            solo = decode_attention_kernel(q[b:b + 1], kt[b:b + 1], vt[b:b + 1], p)
+            assert torch.equal(solo[0], got[b])
+    q = _dev((2, 4, 1, 18), "float32", 9, dev)
+    kt = _dev((2, 100, 2, 18), "float32", 10, dev).transpose(1, 2)
+    p = torch.tensor([60], dtype=torch.int32, device=dev)
+    before = dict(decode_attention_kernel.launches_by_route)
+    got = decode_attention_kernel(q, kt, kt, p)
+    assert decode_attention_kernel.launches_by_route == {**before, "simt": before["simt"] + 1}
+    torch.testing.assert_close(got, decode_attention_plain(q, kt, kt, p), rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.gpu

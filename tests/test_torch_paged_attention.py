@@ -19,6 +19,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (
     paged_decode_attention_kernel,
     paged_decode_attention_plain,
+    PAGED_SPLIT,
+    paged_route,
 )
 
 TOL = 2e-5
@@ -146,27 +148,83 @@ def test_paged_attention_op_emulator_matches_host_body():
     np.testing.assert_allclose(em, host.numpy(), rtol=TOL, atol=TOL)
 
 
+def _pool(P, ps, d):
+    return torch.zeros(P, ps, d)
+
+
+@pytest.mark.parametrize("d,ps,make,want", [
+    (960, 16, lambda: _pool(1024, 16, 960), "split"),     # the serving step's pools
+    (16, 1, lambda: _pool(8, 1, 16), "split"),
+    (16, 8, lambda: _pool(8, 8, 16), "split"),
+    (960, 1, lambda: _pool(8, 1, 960), "split"),
+    (18, 2, lambda: _pool(8, 2, 18), "simt"),             # rows of no 16-byte multiple
+    (960, 32, lambda: _pool(4, 32, 960), "simt"),         # two pages above 227 KB
+    (4096, 1, lambda: _pool(4, 1, 4096), "simt"),         # wider than the body's columns
+    (960, 16, lambda: torch.zeros(1 + 2 * 16 * 960)[1:].view(2, 16, 960), "simt"),
+], ids=["serving", "d16-ps1", "d16-ps8", "d960-ps1", "odd-d", "big-page", "too-wide",
+        "base-address"])
+def test_paged_route_is_picked_by_shape_and_alignment(d, ps, make, want):
+    """The serving shape and the reference's cases take the split body;
+    rows of no 16-byte multiple, pages too large for two in shared memory,
+    too wide a row and a pool its bulk copies cannot address take the
+    CUDA-core one."""
+    pool = make()
+    assert paged_route(d, ps, pool, pool) == want
+
+
+def _check_on_card(dev, ps, npages, lengths, d, layout, seed, route):
+    """The kernel on one pool case, with and without a fresh row: its route,
+    the plain version's values, exact zeros for an empty stream (exactly vn
+    with a fresh row), a repeat launch and row b's solo launch bitwise."""
+    q, kp, vp, tables, lens, kn, vn = (
+        t.to(dev) for t in _t(*_pool_case(ps, lengths, layout=layout, npages=npages,
+                                          seed=seed, d=d)))
+    assert paged_route(d, ps, kp, vp) == route
+    for extra in ((), (kn, vn)):
+        before = dict(paged_decode_attention_kernel.launches_by_route)
+        got = paged_decode_attention_kernel(q, kp, vp, tables, lens, *extra)
+        assert paged_decode_attention_kernel.launches_by_route == {
+            **before, route: before[route] + 1}
+        want = paged_decode_attention_plain(q, kp, vp, tables, lens, *extra)
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+        assert torch.equal(paged_decode_attention_kernel(q, kp, vp, tables, lens, *extra), got)
+        for b, n in enumerate(lengths):
+            if n == 0:
+                assert torch.equal(got[b], vn[b]) if extra else torch.all(got[b] == 0.0)
+            solo = paged_decode_attention_kernel(
+                q[b:b + 1], kp, vp, tables[b:b + 1], lens[b:b + 1],
+                *(t[b:b + 1] for t in extra))
+            assert torch.equal(solo[0], got[b])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 960])
+def test_cuda_kernel_split_edges_on_the_card(d):
+    """The split body at the edges of its page split at ps 16 and a
+    128-slot table: lengths on page boundaries, on the boundaries of the
+    ranks' page runs (C - 1, C, C + 1 and 2C pages), a full table, length
+    0 with and without a fresh row; and a width of no 16-byte rows on the
+    CUDA-core body."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    dev = torch.device("cuda")
+    ps, npages = 16, 128
+    C = PAGED_SPLIT
+    lengths = (0, 1, ps - 1, ps, ps + 1, (C - 1) * ps, C * ps, C * ps + 1, (C + 1) * ps,
+               2 * C * ps - 1, 2 * C * ps, npages * ps - 1, npages * ps)
+    _check_on_card(dev, ps, npages, lengths, d, "permuted", 80, "split")
+    _check_on_card(dev, 2, 6, (0, 1, 5, 12), 18, "permuted", 81, "simt")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [16, 960])
 def test_cuda_kernel_matches_plain_on_the_card(d):
-    """The CUDA kernel against its plain version on the card, to 2e-5, with
-    exact zeros for empty streams and batched rows bitwise equal to solo."""
+    """The CUDA kernel against its plain version on the card, to 2e-5, on
+    the split body, with exact zeros for empty streams, repeat launches and
+    batched rows bitwise equal to solo ones."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel runs only on the card")
     dev = torch.device("cuda")
     for ps, npages, lengths in PAGED_CASES:
         for layout in LAYOUTS:
-            q, kp, vp, tables, lens, kn, vn = (
-                t.to(dev) for t in _t(*_pool_case(ps, lengths, layout=layout,
-                                                  npages=npages, seed=70, d=d)))
-            for extra in ((), (kn, vn)):
-                got = paged_decode_attention_kernel(q, kp, vp, tables, lens, *extra)
-                want = paged_decode_attention_plain(q, kp, vp, tables, lens, *extra)
-                torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
-                for b, n in enumerate(lengths):
-                    if n == 0 and not extra:
-                        assert torch.all(got[b] == 0.0)
-                    solo = paged_decode_attention_kernel(
-                        q[b:b + 1], kp, vp, tables[b:b + 1], lens[b:b + 1],
-                        *(t[b:b + 1] for t in extra))
-                    assert torch.equal(solo[0], got[b])
+            _check_on_card(dev, ps, npages, lengths, d, layout, 70, "split")
