@@ -152,14 +152,34 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    on the CUDA-core bodies through their C entries, and dQ + dK/dV together
    against the backward), and RMSNorm's at the train step's (8, 1024, 960)
    rows against ``F.rms_norm``.
+15. The paper's evaluation on the card (``repro_torch.bench``): the 17
+   workloads under the six schemes at bench scale with the units on the card
+   (figs. 4-6: each scheme's time and speedup over ``qemu``, the geomeans,
+   crossings and coverage), table 3's four apps with each library set
+   offloaded, fig. 7's two reduced dense programs (SmolLM-360M and
+   Llama-3.2-1B, float32, d_model 128, 4 layers, 4/2 heads of 16), the
+   profile-guided cost model and the crossing-cost decomposition.  Gates:
+   every scheme's counters of its cold and warm call, coverage, units and
+   output dtypes equal the JAX package's (``reference_counters.json``, the
+   card's machine having no JAX), the native-infeasible set too, and outputs
+   lie within 2e-3/2e-4 of pure interpretation; fig. 7's launches are 4 flash
+   (all ``"tf32x3"``) and 9 RMSNorm (all ``"vec"``) per unit call of the
+   forward; profile guidance still offloads npbbt.  Profiles of one
+   ``tech-gfp`` call of cjson (the most crossings) and of npbft (the most
+   device work).
+16. Fig. 7's two kernels at its shapes: the float32 flash forward at q
+   (2,4,128,16) against (2,2,128,16) (``"tf32x3"``) beside the CUDA-core
+   body, its plain version and ``sdpa``, and RMSNorm at (256, 128) float32
+   rows (``"vec"``) beside its plain version and ``F.rms_norm``.
 
 The last lines are a ``kernels`` JSON line (every row with its
 ``launches_by_route``; rows 1 and 2 with the old body's ``simt_ms``, their
 cluster size and ``ms_by_cluster``, row 2 with its hybrid-step readings
 under ``hybrid``; rows 3-6 and 8 with ``cuda_core_ms``, rows 3 and 4
 with their float32 route's readings under ``tf32x3``, row 8 with its
-float32 gate's routes and its float32 timing under ``float32``), the
-card's name and power
+float32 gate's routes and its float32 timing under ``float32``; rows 3
+and 7 with fig. 7's readings and routes under ``fig7``), the card's name
+and power
 limit, and ``{"ok": true, "device": {...}}``.  The script needs the repo's
 ``src/`` beside it and a CUDA device; without either it exits non-zero and
 prints no result.
@@ -2357,6 +2377,166 @@ def phase_train_timing(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the paper's evaluation on the card
+# ---------------------------------------------------------------------------
+
+PAPER_SCALE = "bench"
+PAPER_REPEATS = 2        # timed calls after each cold call; the best is kept
+# fig. 7's programs: float32, batch 2, seq 128, 4 layers, 4 query heads and 2
+# kv heads of 16 (plan_heads(4, 2, 2)), d_model 128: per call 4 flash
+# launches at q (2,4,128,16) against (2,2,128,16), 9 RMSNorm at (2,128,128)
+FIG7_LAYERS, FIG7_B, FIG7_T, FIG7_HQ, FIG7_HKV, FIG7_HD, FIG7_D = 4, 2, 128, 4, 2, 16, 128
+OFFLOADING = ("tech", "tech-g", "tech-gf", "tech-gfp")
+
+
+def _log_rows(rows) -> None:
+    for row in rows:
+        log(f"# paper {row}")
+
+
+def phase_paper(torch) -> dict:
+    """The 17 workloads x 6 schemes at bench scale with the units on the card
+    (figs. 4-6), table 3, fig. 7, the profile-guided cost model and the
+    crossing-cost decomposition, through ``repro_torch.bench``.  Gates:
+    every scheme's counters (cold and warm call), coverage, units and output
+    dtypes equal the JAX package's recorded ones
+    (``reference_counters.json``), the native-infeasible set too, outputs
+    within 2e-3/2e-4 of pure interpretation; fig. 7's flash and RMSNorm
+    launches all on ``"tf32x3"`` / ``"vec"``, as many as its units run.
+    Then profiles of one ``tech-gfp`` call of cjson and of npbft."""
+    from repro_torch.bench import (beyond_profile, crossing_cost, fig4_speedup,
+                                   fig5_invocations, fig6_coverage, fig7_reverse,
+                                   table3_library)
+    from repro_torch.bench import common
+    from repro_torch.workloads import WORKLOADS
+
+    ref = common.load_reference()
+    check(ref["scale"] == PAPER_SCALE, f"reference counters at {ref['scale']}")
+    log(f"# paper's evaluation on {torch.cuda.get_device_name(0)} ({card_line()}), "
+        f"{PAPER_SCALE} scale, best of {PAPER_REPEATS} timed calls after a cold one")
+    walls = {}
+    t0 = time.perf_counter()
+    sweep = common.sweep_workloads(PAPER_SCALE, repeats=PAPER_REPEATS)
+    walls["workloads"] = time.perf_counter() - t0
+    bad = common.reference_mismatches(sweep, ref["workloads"])
+    check(not bad, "workloads against the JAX package's counters:\n" + "\n".join(bad))
+    infeasible = sorted(n for n, runs in sweep.items() if runs["native"].infeasible)
+    check(infeasible == ref["native_infeasible"], f"native-infeasible set {infeasible}")
+    _log_rows(fig4_speedup.rows(sweep))
+    _log_rows(fig5_invocations.rows(sweep))
+    _log_rows(fig6_coverage.rows(sweep))
+    log(f"# paper: 17 workloads x 6 schemes == reference_counters.json (counters of "
+        f"the cold and the warm call, coverage, units, dtypes), native infeasible "
+        f"for {infeasible}, outputs within {common.RTOL}/{common.ATOL} of qemu")
+
+    t0 = time.perf_counter()
+    t3 = table3_library.sweep(PAPER_SCALE, repeats=PAPER_REPEATS)
+    walls["table3"] = time.perf_counter() - t0
+    bad = common.reference_mismatches(t3, ref["table3"])
+    check(not bad, "table 3 against the JAX package's counters:\n" + "\n".join(bad))
+    _log_rows(table3_library.rows(t3))
+
+    # fig. 7: the launches of the sweep are the path's; counted from zero
+    t0 = time.perf_counter()
+    _reset_counts()
+    f7 = fig7_reverse.sweep(PAPER_SCALE, repeats=PAPER_REPEATS)
+    launches, routes = _counts(), _routes()
+    walls["fig7"] = time.perf_counter() - t0
+    calls = len(f7) * len(OFFLOADING) * (1 + PAPER_REPEATS)
+    for arch, runs in f7.items():
+        check(runs["native"].infeasible is not None, f"fig7 {arch}: native planned")
+        for scheme in OFFLOADING:
+            for a, b in zip(runs["qemu"].outputs, runs[scheme].outputs):
+                np.testing.assert_allclose(b, a, rtol=common.RTOL, atol=common.ATOL,
+                                           err_msg=f"fig7 {arch} {scheme}")
+    check(launches == {**dict.fromkeys(launches, 0), "flash_attention": 4 * calls,
+                       "rmsnorm": (2 * FIG7_LAYERS + 1) * calls},
+          f"fig7 launches {launches} ({calls} unit calls of the forward)")
+    check_routes(routes, "flash_attention", "fig7 float32 forward (d = 16)",
+                 tf32x3=FIG7_LAYERS * calls)
+    check_routes(routes, "rmsnorm", "fig7 float32 forward (D = 128)",
+                 vec=(2 * FIG7_LAYERS + 1) * calls)
+    _log_rows(fig7_reverse.rows(f7))
+    log(f"# paper fig7: launches {launches['flash_attention']} flash (all tf32x3), "
+        f"{launches['rmsnorm']} RMSNorm (all vec) over {calls} forward calls")
+
+    t0 = time.perf_counter()
+    bp = beyond_profile.sweep(PAPER_SCALE, repeats=PAPER_REPEATS)
+    walls["beyond_profile"] = time.perf_counter() - t0
+    for name, res in bp.items():
+        for kind in ("static", "profile-guided"):
+            for a, b in zip(res["qemu"].outputs, res[kind].outputs):
+                check(np.allclose(b, a, rtol=common.RTOL, atol=common.ATOL),
+                      f"profile-guided {name} {kind}: {b} vs {a}")
+    check(len(bp["npbbt"]["profile-guided"].hybrid.last_plan.units) > 0,
+          "profile guidance offloads npbbt")
+    _log_rows(beyond_profile.rows(bp))
+
+    t0 = time.perf_counter()
+    parts = crossing_cost.measure()
+    walls["crossing_cost"] = time.perf_counter() - t0
+    _log_rows(crossing_cost.rows(parts))
+
+    # profiles of one steady tech-gfp call: the most crossings (cjson) and
+    # the most device work (npbft)
+    saved = _snapshot()
+    for name in ("cjson", "npbft"):
+        run = sweep[name]["tech-gfp"]
+        prog, args = WORKLOADS[name].build(PAPER_SCALE)
+        profile_steps(torch, lambda: run.hybrid(*args), 1,
+                      f"{name} tech-gfp call ({run.steady.guest_to_host} crossings)")
+    _restore(saved)
+    log(f"# paper: section wall times (s): "
+        f"{ {k: round(v, 2) for k, v in walls.items()} }")
+    return {"fig7_launches": launches, "fig7_routes": routes}
+
+
+def phase_paper_timing(torch) -> dict:
+    """The two kernels fig. 7's programs run, at its shapes: the float32
+    flash forward at q (2,4,128,16) against (2,2,128,16) causal (row 3 on
+    ``"tf32x3"``; beside the CUDA-core body, the plain version and ``sdpa``)
+    and RMSNorm at (256, 128) float32 rows (row 7 on ``"vec"``; beside its
+    plain version and ``F.rms_norm``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain, rmsnorm_route
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    flush = l2_flush_buffer(torch)
+    saved = _snapshot()
+    q = _randn(torch, (FIG7_B, FIG7_HQ, FIG7_T, FIG7_HD), f32, 60, dev)
+    k, v = (_randn(torch, (FIG7_B, FIG7_HKV, FIG7_T, FIG7_HD), f32, s, dev) for s in (61, 62))
+    out = {"flash_attention@fig7": flash_timing(torch, q, k, v, flush, 100, stats=False)}
+    check(out["flash_attention@fig7"]["route"] == "tf32x3", "fig7 flash route")
+    check(out["flash_attention@fig7"]["max_abs_err"] <= TOL, "fig7 flash vs plain")
+    x = _randn(torch, (FIG7_B * FIG7_T, FIG7_D), f32, 63, dev)
+    w = _randn(torch, (FIG7_D,), f32, 64, dev)
+    err = (rmsnorm_kernel(x, w) - rmsnorm_plain(x, w)).abs().max().item()
+    check(err <= 1e-5 and rmsnorm_route(x, w) == "vec", f"fig7 rmsnorm |err| {err}")
+    nbytes = 4 * 2 * x.numel() + 4 * w.numel()
+    bound, by = _bound(nbytes, 4 * x.numel(), H100_FP32_FLOPS)
+    out["rmsnorm@fig7"] = dict(
+        ms=time_ms(torch, lambda: rmsnorm_kernel(x, w), 200, flush),
+        plain_ms=time_ms(torch, lambda: rmsnorm_plain(x, w), 50, flush),
+        library_ms=time_ms(torch, lambda: F.rms_norm(x, (FIG7_D,), w, 1e-6), 200, flush),
+        bound_ms=bound, bound_by=by, max_abs_err=err, route=rmsnorm_route(x, w),
+        library="F.rms_norm", shape=f"x {tuple(x.shape)} f32, w f32",
+        work=f"{nbytes / 1e6:.3f} MB")
+    _restore(saved)                         # timing launches are not the path's
+    log_timing(out)
+    return out
+
+
+def _fig7_row(timing: dict, key: str, routes: dict, name: str) -> dict:
+    """Fig. 7's readings of a kernel for the JSON line."""
+    r = timing[key]
+    keys = ("ms", "cuda_core_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err", "shape")
+    return {k: r[k] for k in keys if k in r} | {"launches_by_route": routes[name]}
+
+
 def _tf32x3_rows(timing: dict, name: str, launches: dict) -> dict:
     """The float32 route's readings of row ``name`` for the JSON line: each
     timed shape's kernel, old-body, library and bound times, and the paths'
@@ -2409,6 +2589,8 @@ def main() -> int:
     bwd_err = run(phase_bwd_kernels)
     training = run(phase_train)
     train_timing = run(phase_train_timing)
+    paper = run(phase_paper)
+    paper_timing = run(phase_paper_timing)
     log(f"# phase wall times (s): {walls}")
     log(f"# all phases passed in {time.perf_counter() - t_all:.1f} s")
 
@@ -2443,7 +2625,8 @@ def main() -> int:
             "launches": dense["launches"][name],
             "max_abs_err": max(dense_err[name], t["max_abs_err"],
                                train_timing["rmsnorm@train"]["max_abs_err"]
-                               if name == "rmsnorm" else 0.0),
+                               if name == "rmsnorm" else 0.0,
+                               paper_timing.get(f"{name}@fig7", {}).get("max_abs_err", 0.0)),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
@@ -2453,6 +2636,9 @@ def main() -> int:
         })
         if name in dense["routes"]:
             kernels[-1]["launches_by_route"] = dense["routes"][name]
+        if name in ("flash_attention", "rmsnorm"):
+            kernels[-1]["fig7"] = _fig7_row(paper_timing, f"{name}@fig7",
+                                            paper["fig7_routes"], name)
         if name == "flash_attention":
             kernels[-1]["cuda_core_ms"] = t["cuda_core_ms"]
             kernels[-1]["tf32x3"] = _tf32x3_rows(

@@ -83,6 +83,21 @@ class NativeInfeasibleError(RuntimeError):
     """Complete cross-compilation failed (the paper's all-or-nothing wall)."""
 
 
+class PlanVerificationError(RuntimeError):
+    """The independent offload-soundness verifier refuted the planner.
+
+    Raised by ``Traced.plan(scheme, verify=True)`` when
+    :func:`repro_torch.analysis.soundness.verify_plan` emits any
+    error-severity diagnostic (compilable-set disagreement or a PFO segment
+    violating the offload-unit invariants).  Carries the diagnostics on
+    ``.diagnostics``.
+    """
+
+    def __init__(self, message: str, diagnostics=()):
+        super().__init__(message)
+        self.diagnostics = tuple(diagnostics)
+
+
 # ---------------------------------------------------------------------------
 # instrumentation sessions
 # ---------------------------------------------------------------------------
@@ -251,14 +266,11 @@ class Traced:
         this to keep one set of units across the prefill and per-token-step
         plans of a decode loop.
 
-        ``verify=True`` (the independent offload-soundness verifier) needs
-        the analysis layer, which the port does not carry yet.
+        ``verify=True`` differentially cross-checks the planner's
+        compilable set against the independent re-derivation in
+        :mod:`repro_torch.analysis` and raises :class:`PlanVerificationError`
+        if they disagree — the plan is rejected, not silently trusted.
         """
-        if verify:
-            raise NotImplementedError(
-                "plan(verify=True) needs the static-analysis layer "
-                "(repro_torch.analysis), which comes with the analysis slice "
-                "of the port")
         scheme = resolve_scheme(scheme)
         try:
             analysis = analyze_eligibility(
@@ -270,8 +282,12 @@ class Traced:
             )
         except HostOnlyOpError as e:
             if scheme.native:
+                if verify:
+                    self._verify(scheme, unit_filter, None)
                 raise NativeInfeasibleError(str(e)) from e
             raise
+        if verify:
+            self._verify(scheme, unit_filter, analysis)
         return PlannedProgram(
             traced=self,
             scheme=scheme,
@@ -281,6 +297,20 @@ class Traced:
             unit_filter=unit_filter,
             unit_cache=unit_cache if unit_cache is not None else UnitCache(),
         )
+
+    def _verify(self, scheme: Scheme, unit_filter, analysis) -> None:
+        from ..analysis.soundness import verify_plan  # lazy: keep core standalone
+
+        sink, _ = verify_plan(
+            self.program, scheme, unit_filter=unit_filter, analysis=analysis
+        )
+        errors = [d for d in sink.diagnostics if d.severity == "error"]
+        if errors:
+            raise PlanVerificationError(
+                f"offload-soundness verifier rejected the {scheme.name!r} plan: "
+                + "; ".join(str(d) for d in errors),
+                errors,
+            )
 
     def with_entry(self, entry: str) -> "Traced":
         """Re-root the traced program at another of its functions.

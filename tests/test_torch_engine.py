@@ -143,10 +143,34 @@ def test_default_backend_is_cuda_and_raises_without_it():
         planned.compile(backend="cuda")
 
 
+def test_plan_verify_accepts_sound_and_rejects_forged(monkeypatch):
+    """``plan(verify=True)`` runs the analysis layer's soundness verifier: a
+    sound plan goes through, a forged compilable set raises
+    :class:`PlanVerificationError` with the verifier's RA201."""
+    import dataclasses
+
+    import repro_torch.core.api as core_api
+
+    traced = tmixed.trace(texport(vocab=VOCAB, d_model=DM, max_context=CTX))
+    for scheme in SCHEMES[1:]:
+        traced.plan(scheme, verify=True)
+    with pytest.raises(TNativeInfeasible):
+        traced.plan("native", verify=True)
+    real = core_api.analyze_eligibility
+
+    def forged(program, scheme, **kw):
+        analysis = real(program, scheme, **kw)
+        return dataclasses.replace(analysis,
+                                   compilable=analysis.compilable | {"prefill"})
+
+    monkeypatch.setattr(core_api, "analyze_eligibility", forged)
+    with pytest.raises(tmixed.PlanVerificationError) as ei:
+        traced.plan("tech-gf", verify=True)
+    assert any(d.code == "RA201" for d in ei.value.diagnostics)
+
+
 def test_deferred_stages_raise_not_implemented():
     traced = tmixed.trace(texport(vocab=VOCAB, d_model=DM, max_context=CTX))
-    with pytest.raises(NotImplementedError, match="analysis"):
-        traced.plan("tech-gfp", verify=True)
     planned = traced.plan("tech-gfp")
     with pytest.raises(NotImplementedError, match="AOT"):
         planned.save_aot("unused")
