@@ -42,7 +42,13 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    page pools.
 4. A small input checked by the repo's own means: the 4-stream
    ``decode_paged_kernel`` workload on the card gives the tokens of the same
-   run on the CPU and the counters recorded in ``BENCH_serve.json``.
+   run on the CPU and the counters recorded in ``BENCH_serve.json``; then
+   ``BENCH_serve.json``'s ``request_level`` (``MixedServer``),
+   ``decode_continuous`` (the prefix-sharing burst), ``decode_cluster``
+   (one worker, ``save_aot``, two spawned workers on the card booted from
+   the cache) and ``observability`` (the traced cluster run) sections,
+   each field exactly, with the units on the card
+   (``repro_torch.bench.serve_sections``).
 5. The dense kernels (RMSNorm, flash attention, flash-decode) against their
    plain versions on the card: the reference's kernel cases
    (``tests/test_kernels.py``) plus every shape the dense, mixed and paged
@@ -90,6 +96,10 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    at the dense step's shape, also on the old CUDA-core body through its C
    entry (``simt_ms``) and the split body at each cluster size
    (``ms_by_cluster``), against ``sdpa`` with a ``kpos <= pos`` mask.
+   Then the registered operators' cost per call (``kernels/library.py``):
+   RMSNorm and the float32 flash forward at configuration 3's shapes
+   issued through ``repro_torch::`` and through the direct
+   ``kernels/ops.py`` call, on the host clock.
 9. The SSD scan kernel against its plain version on the card, on both
    bodies: the reference's ``SSD_CASES``, short last chunks and the hybrid
    path's shapes ((8,1024,80,64), and its float32 gate's T=300 and 304, not
@@ -166,11 +176,38 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    (all ``"tf32x3"``) and 9 RMSNorm (all ``"vec"``) per unit call of the
    forward; profile guidance still offloads npbbt.  Profiles of one
    ``tech-gfp`` call of cjson (the most crossings) and of npbft (the most
-   device work).
-16. Fig. 7's two kernels at its shapes: the float32 flash forward at q
-   (2,4,128,16) against (2,2,128,16) (``"tf32x3"``) beside the CUDA-core
-   body, its plain version and ``sdpa``, and RMSNorm at (256, 128) float32
-   rows (``"vec"``) beside its plain version and ``F.rms_norm``.
+   device work).  Then fig. 7's two kernels at its shapes: the float32
+   flash forward at q (2,4,128,16) against (2,2,128,16) (``"tf32x3"``)
+   beside the CUDA-core body, its plain version and ``sdpa``, and RMSNorm
+   at (256, 128) float32 rows (``"vec"``) beside its plain version and
+   ``F.rms_norm``.
+16. Request-level serving at full width (configuration 8): ``MixedServer``
+   over phase 7's program (SmolLM-360M uncut, float32, seq 256, host
+   check, batch-agnostic, ``tech-gfp``), buckets {1, 2, 4, 8}, a 20 ms
+   window, two batch threads.  A cold request on the emulator fallback
+   (its wall logged), then every bucket warm, then 8 client threads send
+   ``tests/test_serve.py``'s mix (12 requests of 1 row, 4 of 2, 256 tokens
+   each).  Gates: no fallback when warm; every batch's outputs bitwise
+   equal to the compiled hybrid called directly on the same padded batch;
+   every response within 2e-3/2e-4 of its per-request call (how many are
+   bitwise equal is logged); crossings per row below the per-request
+   calls'; 32 flash (all ``"tf32x3"``) and 65 RMSNorm (all ``"vec"``)
+   launches per batch.  Requests, batches, crossings per row, occupancy,
+   latency p50/p99, rows/s, peak memory, and a profiler window of one
+   bucket-8 batch.
+17. AOT and the cluster at full width (configuration 9):
+   ``export_attn_decode_lm`` at d_model 960, vocab 49152, max_context 256
+   on spawned workers (capacity 8, page 16, prefix sharing, burst
+   admission): one worker serves burst A (8 prompts of 128 tokens sharing
+   64, decoding 16..32) and saves its plan with ``save_aot``; two workers
+   boot from the cache and serve bursts A + B.  Gates: the counters equal
+   the same workload's CPU run (``cluster_full_counters.json``),
+   second_boot_compiles 0, streams [8, 8]; every stream bitwise equal to
+   the in-process ``decode_reference`` on the card, the cluster's burst A
+   to the baseline's; the blobs hold no weights; the prefill's flash
+   launches on ``"tf32x3"`` in the eager and in the loaded units.  Boot
+   walls cold and warm, blobs and bytes, tokens/s, tokens per crossing,
+   step p50 per worker.
 
 The last lines are a ``kernels`` JSON line (every row with its
 ``launches_by_route``; rows 1 and 2 with the old body's ``simt_ms``, their
@@ -178,9 +215,10 @@ cluster size and ``ms_by_cluster``, row 2 with its hybrid-step readings
 under ``hybrid``; rows 3-6 and 8 with ``cuda_core_ms``, rows 3 and 4
 with their float32 route's readings under ``tf32x3``, row 8 with its
 float32 gate's routes and its float32 timing under ``float32``; rows 3
-and 7 with fig. 7's readings and routes under ``fig7``), the card's name
-and power
-limit, and ``{"ok": true, "device": {...}}``.  The script needs the repo's
+and 7 with fig. 7's readings and routes under ``fig7``, phase 16's
+routes under ``served`` and the operators' cost per call under
+``dispatch``; row 3 with phase 17's eager and loaded routes under
+``aot_cluster``), the card's name and power limit, and ``{"ok": true, "device": {...}}``.  The script needs the repo's
 ``src/`` beside it and a CUDA device; without either it exits non-zero and
 prints no result.
 """
@@ -190,6 +228,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -815,6 +854,23 @@ def phase_small(torch) -> None:
     log(f"# small input: card tokens == CPU tokens; counters == "
         f"BENCH_serve.json decode_paged_kernel {got}")
 
+    # the serving sections on the card: MixedServer, the prefix-sharing
+    # burst, the two-worker cluster booted from an AOT cache (two spawned
+    # worker processes on the card) and the traced cluster run
+    from repro_torch.bench import serve_sections
+
+    walls = {}
+    got = {}
+    for name in serve_sections.SECTIONS:
+        t0 = time.perf_counter()
+        got.update(serve_sections.sections(None, [name]))
+        walls[name] = round(time.perf_counter() - t0, 2)
+    bad = serve_sections.mismatches(got)
+    check(not bad, "serving sections against BENCH_serve.json:\n" + "\n".join(bad))
+    for name in serve_sections.SECTIONS:
+        log(f"# small input: {name} on the card == BENCH_serve.json "
+            f"({len(got[name])} fields, {walls[name]} s): {json.dumps(got[name], sort_keys=True)}")
+
 
 # ---------------------------------------------------------------------------
 # phase 5: the dense kernels against their plain versions
@@ -1244,6 +1300,8 @@ def phase_dense_mixed(torch, dense: dict) -> dict:
         f"{rep.conversion_builds}, compiles {rep.compiles}; coverage "
         f"{cov.as_dict()}; launches {launches}; first call {first_ms:.1f} ms, "
         f"then {', '.join(f'{w:.1f}' for w in walls)} ms per call")
+    log(f"# dense mixed path: steady calls {min(walls):.1f}-{max(walls):.1f} ms "
+        f"per call (host clock, {len(walls)} calls)")
     log(f"# dense mixed path == api.logits on a CPU copy of the weights (plain "
         f"versions, {cpu_s:.1f} s): max |err| {err_cpu:.3e} (2e-3/2e-4)")
     saved = _snapshot()
@@ -1530,6 +1588,60 @@ def phase_dense_timing(torch, dense: dict) -> dict:
 
     _restore(saved)                         # timing launches are not the path's
     log_timing(out)
+    out["dispatch"] = dispatch_cost(torch)
+    return out
+
+
+DISPATCH_CALLS, DISPATCH_ROUNDS = 200, 6
+
+
+def dispatch_cost(torch) -> dict:
+    """The registered operators' cost per call on the host clock, at
+    configuration 3's shapes (RMSNorm over (2, 256, 960) float32 rows, the
+    float32 flash forward at (2,15,256,64) against (2,5,256,64)): the time
+    to issue ``DISPATCH_CALLS`` calls through ``repro_torch::`` and through
+    the direct ``kernels/ops.py`` call, alternating, the median of
+    ``DISPATCH_ROUNDS`` rounds each.  The results are bitwise equal."""
+    from repro_torch.kernels import library, ops
+
+    dev, f32 = torch.device("cuda"), torch.float32
+    saved = _snapshot()
+    x = _randn(torch, (MIXED_B, MIXED_SEQ, 960), f32, 70, dev)
+    w = _randn(torch, (960,), f32, 71, dev)
+    q = _randn(torch, (MIXED_B, 15, MIXED_SEQ, 64), f32, 72, dev)
+    k, v = (_randn(torch, (MIXED_B, 5, MIXED_SEQ, 64), f32, s, dev) for s in (73, 74))
+    cases = {
+        "rmsnorm": (lambda: library.rmsnorm(x, w, 1e-6),
+                    lambda: ops.rmsnorm(x, w, eps=1e-6)),
+        "flash_attention": (lambda: library.flash_attention(q, k, v, True, None),
+                            lambda: ops.flash_attention(q, k, v, causal=True)),
+    }
+    out = {}
+    for name, (via_op, direct) in cases.items():
+        check(torch.equal(via_op(), direct()), f"{name}: operator != direct call")
+        us = {"op": [], "direct": []}
+        for r in range(DISPATCH_ROUNDS):
+            order = (("op", via_op), ("direct", direct))
+            for label, fn in (order if r % 2 == 0 else order[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter_ns()
+                for _ in range(DISPATCH_CALLS):
+                    fn()
+                t1 = time.perf_counter_ns()
+                torch.cuda.synchronize()
+                us[label].append((t1 - t0) / DISPATCH_CALLS / 1e3)
+        op_us, direct_us = (float(np.median(us[k])) for k in ("op", "direct"))
+        out[name] = {"op_us": op_us, "direct_us": direct_us,
+                     "dispatch_us": op_us - direct_us,
+                     "op_us_range": [min(us["op"]), max(us["op"])],
+                     "direct_us_range": [min(us["direct"]), max(us["direct"])]}
+        log(f"# dispatch {name} at configuration 3's shape: through repro_torch:: "
+            f"{op_us:.2f} us/call (rounds {min(us['op']):.2f}-{max(us['op']):.2f}), "
+            f"direct kernels/ops {direct_us:.2f} us/call (rounds "
+            f"{min(us['direct']):.2f}-{max(us['direct']):.2f}): the operator costs "
+            f"{op_us - direct_us:+.2f} us per call (host clock, {DISPATCH_CALLS} calls "
+            f"a round, median of {DISPATCH_ROUNDS}); results bitwise equal")
+    _restore(saved)
     return out
 
 
@@ -2085,7 +2197,6 @@ def phase_train(torch) -> dict:
     config in float32 the card's step equals the CPU's (1e-4), and a 3 + 3
     resumed run equals 6 uninterrupted steps (rtol 1e-5, atol 1e-6)."""
     import dataclasses
-    import tempfile
 
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
@@ -2529,6 +2640,263 @@ def phase_paper_timing(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: request-level serving at full width (configuration 8)
+# ---------------------------------------------------------------------------
+
+SERVE_BUCKETS, SERVE_DELAY, SERVE_WORKERS, SERVE_CLIENTS = (1, 2, 4, 8), 0.02, 2, 8
+SERVE_ROWS = (1,) * 12 + (2,) * 4     # tests/test_serve.py's mix: 12 x 1 row, 4 x 2 rows
+
+
+def phase_serve(torch, dense: dict) -> dict:
+    """``MixedServer`` over configuration 3's program (SmolLM-360M uncut,
+    float32, seq 256, host check, batch-agnostic, ``tech-gfp``) with buckets
+    {1, 2, 4, 8}, a 20 ms batching window and two batch threads.  A cold
+    request is served on the emulator fallback; then every bucket is warm
+    and 8 client threads send the reference test's mix.  Gates: no
+    fallback after warming; each batch's outputs bitwise equal the compiled
+    hybrid called directly on the same padded batch, each response within
+    2e-3/2e-4 of its direct per-request call; crossings per row below the
+    unbatched calls'; 32 flash (all ``"tf32x3"``) and 65 RMSNorm (all
+    ``"vec"``) launches per batch."""
+    import dataclasses
+    import threading
+
+    from repro_torch import mixed
+    from repro_torch.models.programs import export_dense_forward
+    from repro_torch.serve import BucketLadder, MixedServer
+
+    cfg32 = dataclasses.replace(dense["cfg"], compute_dtype="float32")
+    L = cfg32.n_layers
+    prog, _ = export_dense_forward(cfg32, dense["params"], batch=1, seq=MIXED_SEQ,
+                                   with_host_check=True, tp=1)
+    planned = mixed.trace(prog).plan("tech-gfp")
+    rng = np.random.default_rng(SEED + 16)
+    reqs = [rng.integers(0, cfg32.vocab, (n, MIXED_SEQ), dtype=np.int32)
+            for n in SERVE_ROWS]
+    server = MixedServer(planned, ladder=BucketLadder(batch_sizes=SERVE_BUCKETS),
+                         max_batch_delay=SERVE_DELAY, workers=SERVE_WORKERS)
+    captured = []
+    try:
+        t0 = time.perf_counter()
+        cold = server.request(reqs[0], timeout=600)
+        cold_s = time.perf_counter() - t0
+        check(server.report().fallback_requests == 1, "the cold request was not "
+              "served on the emulator fallback")
+        t0 = time.perf_counter()
+        server.warm(reqs[0])
+        deadline = time.time() + 600
+        while server.report().warm_compiles < len(SERVE_BUCKETS) and time.time() < deadline:
+            time.sleep(0.01)
+        warm_s = time.perf_counter() - t0
+        check(server.report().warm_compiles == len(SERVE_BUCKETS),
+              f"buckets warmed: {server.report().warm_compiles}")
+        real = server.hybrid.call_reported
+
+        def capture(*args):
+            outs, rep = real(*args)
+            captured.append((tuple(np.array(a) for a in args), outs))
+            return outs, rep
+
+        server.hybrid.call_reported = capture
+        results, lat = [None] * len(reqs), [0.0] * len(reqs)
+
+        def client(c):
+            for i in range(c, len(reqs), SERVE_CLIENTS):
+                t = time.perf_counter()
+                results[i] = server.request(reqs[i], timeout=600)
+                lat[i] = time.perf_counter() - t
+
+        before = server.report()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        [t.start() for t in threads]
+        [t.join() for t in threads]
+        wall = time.perf_counter() - t0
+        launches, routes = _counts(), _routes()
+        peak = torch.cuda.max_memory_allocated()
+        after = server.report()
+    finally:
+        server.close()
+    check(all(r is not None for r in results), "a client got no response")
+    rows = sum(SERVE_ROWS)
+    batches = after.batches - before.batches
+    check(after.fallback_requests == before.fallback_requests,
+          "a warm server fell back to the emulator")
+    check(batches == len(captured), f"{batches} batches, {len(captured)} captured calls")
+    check(launches == {**dict.fromkeys(launches, 0), "flash_attention": L * batches,
+                       "rmsnorm": (2 * L + 1) * batches},
+          f"served launches {launches} over {batches} batches")
+    check_routes(routes, "flash_attention", "served float32 forward (d = 64)",
+                 tf32x3=L * batches)
+    check_routes(routes, "rmsnorm", "served float32 forward (D = 960)",
+                 vec=(2 * L + 1) * batches)
+
+    saved = _snapshot()                     # the comparisons' launches are not the path's
+    direct = planned.compile()
+    for args, outs in captured:             # each batch: the direct call on its padded batch
+        for a, b in zip(outs, direct(*args)):
+            check(np.array_equal(a, b), f"batch of {args[0].shape[0]} rows != the "
+                  f"direct call on the same padded batch")
+    solo_crossings, bitwise, err = 0, 0, 0.0
+    for req, res in zip(reqs, results):
+        ref, rep = direct.call_reported(req)
+        solo_crossings += rep.guest_to_host
+        for a, b in zip(res, ref):
+            np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-4)
+            err = max(err, float(np.abs(a - b).max()))
+        bitwise += all(np.array_equal(a, b) for a, b in zip(res, ref))
+    np.testing.assert_allclose(cold[0], results[0][0], rtol=2e-3, atol=2e-4)
+    cpr = (after.crossings - before.crossings) / rows
+    solo_cpr = solo_crossings / rows
+    check(cpr < solo_cpr, f"crossings per row {cpr} not below unbatched {solo_cpr}")
+    big = next(args for args, _ in captured if args[0].shape[0] == max(SERVE_BUCKETS)) \
+        if any(a[0].shape[0] == max(SERVE_BUCKETS) for a, _ in captured) else None
+    if big is not None:
+        profile_steps(torch, lambda: direct(*big), 1,
+                      f"bucket-{max(SERVE_BUCKETS)} batch ({max(SERVE_BUCKETS)} x "
+                      f"{MIXED_SEQ} tokens, {L} layers)")
+    _restore(saved)
+    lat_ms = np.array(lat) * 1e3
+    sizes = sorted(a[0].shape[0] for a, _ in captured)
+    log(f"# served (configuration 8, {card_line()}): "
+        f"cold request on the emulator fallback {cold_s:.2f} s; warming {len(SERVE_BUCKETS)} "
+        f"buckets {warm_s:.2f} s")
+    log(f"# served: {len(reqs)} requests ({rows} rows) from {SERVE_CLIENTS} threads in "
+        f"{batches} batches of {sizes} padded rows; crossings/row {cpr:.4f} (unbatched "
+        f"{solo_cpr:.4f}); batch occupancy {after.batch_occupancy:.4f} (cumulative "
+        f"{after.request_rows}/{after.padded_rows}); latency p50 "
+        f"{np.percentile(lat_ms, 50):.1f} ms, p99 {np.percentile(lat_ms, 99):.1f} ms (host "
+        f"clock); {rows / wall:.2f} rows/s over {wall:.2f} s; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"# served: every batch == the direct call on its padded batch (bitwise); every "
+        f"response within 2e-3/2e-4 of its per-request call (max |err| {err:.3e}), "
+        f"{bitwise}/{len(reqs)} bitwise; launches {launches['flash_attention']} flash "
+        f"(all tf32x3) + {launches['rmsnorm']} RMSNorm (all vec) = "
+        f"{L} + {2 * L + 1} per batch")
+    return {"launches": launches, "routes": routes, "batches": batches}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: AOT and the cluster at full width (configuration 9)
+# ---------------------------------------------------------------------------
+
+def phase_cluster(torch) -> dict:
+    """``export_attn_decode_lm`` at SmolLM-360M's widths (d_model 960, vocab
+    49152, max_context 256) on two spawned workers booted from an AOT cache
+    (``serve_sections.FULL``): one worker serves burst A and saves its warm
+    plan, two workers load it and serve bursts A + B.  Gates: the counters
+    equal the same workload's CPU run (``cluster_full_counters.json``),
+    second_boot_compiles 0, streams [8, 8]; every stream bitwise equal to
+    the in-process ``decode_reference`` on the card, the cluster's burst A
+    to the baseline's; in each worker, counted there since its boot and
+    shipped with its report, one flash launch on ``"tf32x3"`` per prefill
+    group and no other launch, eager units (the baseline) and loaded ones
+    (the cluster) alike."""
+    from repro_torch import mixed, obs
+    from repro_torch.bench import serve_sections as ss
+    from repro_torch.models.programs import export_attn_decode_lm
+    from repro_torch.serve import decode_reference, load_planned
+
+    geo = ss.FULL
+    # traced, so the workers' aot_save / aot_load spans come back over the
+    # channel with their durations (tracing is passive: the counters and
+    # tokens are the untraced run's)
+    tracer = obs.Tracer(label="chip-smoke")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-aot-") as tmp:
+        aot_dir = f"{tmp}/cache"
+        t0 = time.perf_counter()
+        with obs.session(tracer):
+            metrics, problems, base, clus, extra = ss.cluster_workload(
+                None, geo, oracle=False, aot_dir=aot_dir)
+        run_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_planned(aot_dir)
+        load_s = time.perf_counter() - t0
+    aot_spans = sorted((sp.name, round(sp.dur_ns / 1e9, 2)) for sp in tracer.snapshot()
+                       if sp.kind == obs.AOT and sp.dur_ns is not None)
+    check(not problems, "cluster streams:\n" + "\n".join(problems[:4]))
+    want = json.loads(ss.FULL_COUNTERS.read_text())
+    want.pop("device", None)
+    diff = {k: (metrics[k], want[k]) for k in want if metrics[k] != want[k]}
+    check(not diff and set(metrics) == set(want),
+          f"cluster counters against the CPU run: {diff}")
+    check(metrics["second_boot_compiles"] == 0 and metrics["first_boot_compiles"] > 0,
+          f"compiles {metrics['first_boot_compiles']} -> {metrics['second_boot_compiles']}")
+    check(metrics["streams_per_worker"] == [geo.n_streams] * geo.workers,
+          f"streams per worker {metrics['streams_per_worker']}")
+
+    # the launches of the workers' own runs: each prefill group (a batched
+    # prefill or prefill_suffix call) runs ``encode`` once, one flash
+    # launch; the decode step attends with plain matmuls and a softmax
+    groups = {}
+    for run, rep in (("baseline", base), ("cluster", clus)):
+        per_worker = extra["worker_launches"][run]
+        check(len(per_worker) == len(rep.worker_reports),
+              f"{run}: {len(per_worker)} workers' launches for "
+              f"{len(rep.worker_reports)} reports")
+        for i, (counts, wr) in enumerate(zip(per_worker, rep.worker_reports)):
+            what = f"{run} worker {i} ({wr.prefills} prefill groups)"
+            check(wr.prefills > 0, f"{what}: no prefill")
+            check_routes(counts, "flash_attention", what, tf32x3=wr.prefills)
+            for name in counts:
+                if name != "flash_attention":
+                    check_routes(counts, name, what)
+        groups[run] = sum(wr.prefills for wr in rep.worker_reports)
+        check_routes(extra["launches"][run], "flash_attention", f"{run} (summed)",
+                     tf32x3=groups[run])
+
+    # the loaded plan in this process computes what the eager one does
+    planned = mixed.trace(export_attn_decode_lm(
+        vocab=geo.vocab, d_model=geo.d_model, max_context=geo.max_context)).plan("tech-gfp")
+    check(extra["aot"]["bytes"] < planned.traced.program.constants["E"].nbytes / 10,
+          f"AOT blobs hold {extra['aot']['bytes']} bytes: weights were embedded")
+    prefill, step = planned.compile(), planned.for_entry("decode_step").compile()
+    for i, ((p, n), out) in enumerate(zip(extra["both"], extra["outs"])):
+        ref = decode_reference(prefill, step, p, n, capacity=geo.n_streams)
+        check(np.array_equal(ref, out), f"cluster stream {i} != decode_reference")
+    lprefill = loaded.compile()
+    p0, _ = extra["both"][0]
+    padded = np.repeat(p0[None], geo.n_streams, axis=0)
+    outs, rep = lprefill.call_reported(padded)
+    ref_outs, _ = prefill.call_reported(padded)
+    for a, b in zip(outs, ref_outs):
+        check(np.array_equal(a, b), "loaded prefill != eager prefill")
+    check(loaded.unit_cache.aot_dispatches > 0 and rep.compiles == 0,
+          f"loaded prefill: dispatches {loaded.unit_cache.aot_dispatches}, "
+          f"compiles {rep.compiles}")
+
+    walls = extra["walls"]
+    steps = [r.latency.get(("step", "")) for r in clus.worker_reports]
+    p50 = [h.quantile_ns(0.5) / 1e6 for h in steps if h is not None]
+    mean = [h.mean_ns / 1e6 for h in steps if h is not None]
+    flash = {run: extra["launches"][run]["flash_attention"] for run in groups}
+    log(f"# cluster (configuration 9, {card_line()}): "
+        f"counters == the CPU run ({ss.FULL_COUNTERS.name}): "
+        f"{json.dumps(metrics, sort_keys=True)}")
+    log(f"# cluster: boot walls, cold (1 worker from source) {walls['baseline_boot_s']:.2f} s, "
+        f"warm (2 workers from the AOT cache, booting side by side) "
+        f"{walls['cluster_boot_s']:.2f} s; save_aot {walls['save_aot_s']:.2f} s, "
+        f"{extra['aot']['signatures']} blobs of {extra['aot']['bytes']} bytes in all; "
+        f"the workers' AOT spans (s) {aot_spans}; load_planned in this process "
+        f"{load_s:.2f} s")
+    log(f"# cluster: {clus.tokens} tokens in {walls['cluster_decode_s']:.2f} s "
+        f"({clus.tokens / walls['cluster_decode_s']:.1f} tokens/s; baseline "
+        f"{base.tokens / walls['baseline_decode_s']:.1f} tokens/s on one worker), "
+        f"{clus.tokens_per_crossing:.4f} tokens per crossing; step p50 "
+        f"{min(p50):.2f}-{max(p50):.2f} ms (log2-bucket upper edge, per worker), mean "
+        f"{min(mean):.2f}-{max(mean):.2f} ms; whole phase {run_s:.1f} s")
+    log(f"# cluster: every stream == decode_reference on the card (bitwise), burst A == "
+        f"the baseline's, the loaded prefill == the eager one; flash launches counted "
+        f"in the workers: baseline (eager units) {flash['baseline']} for "
+        f"{groups['baseline']} prefill groups, cluster (loaded units) "
+        f"{flash['cluster']} for {groups['cluster']}")
+    return {"flash": flash, "prefill_groups": groups}
+
+
 def _fig7_row(timing: dict, key: str, routes: dict, name: str) -> dict:
     """Fig. 7's readings of a kernel for the JSON line."""
     r = timing[key]
@@ -2591,6 +2959,8 @@ def main() -> int:
     train_timing = run(phase_train_timing)
     paper = run(phase_paper)
     paper_timing = run(phase_paper_timing)
+    served = run(phase_serve, dense)
+    cluster = run(phase_cluster)
     log(f"# phase wall times (s): {walls}")
     log(f"# all phases passed in {time.perf_counter() - t_all:.1f} s")
 
@@ -2639,7 +3009,14 @@ def main() -> int:
         if name in ("flash_attention", "rmsnorm"):
             kernels[-1]["fig7"] = _fig7_row(paper_timing, f"{name}@fig7",
                                             paper["fig7_routes"], name)
+            kernels[-1]["served"] = {"batches": served["batches"],
+                                     "launches_by_route": served["routes"][name]}
+            kernels[-1]["dispatch"] = dense_timing["dispatch"][name]
         if name == "flash_attention":
+            kernels[-1]["aot_cluster"] = {
+                "baseline_launches_by_route": cluster["flash"]["baseline"],
+                "cluster_launches_by_route": cluster["flash"]["cluster"],
+                "prefill_groups": cluster["prefill_groups"]}
             kernels[-1]["cuda_core_ms"] = t["cuda_core_ms"]
             kernels[-1]["tf32x3"] = _tf32x3_rows(
                 dense_timing, "flash_attention",

@@ -1,7 +1,7 @@
 """Static-analysis sweep over the port's exported programs — the analyze gate.
 
-Runs :func:`repro_torch.analysis.analyze` on the decode-LM exports the port
-has, a reduced model-zoo dense forward, a library app and every workload in
+Runs :func:`repro_torch.analysis.analyze` on the four decode-LM exports, a
+reduced model-zoo dense forward, a library app and every workload in
 :mod:`repro_torch.workloads`, across every Scheme axis combination, and
 gates:
 
@@ -9,9 +9,6 @@ gates:
   differential disagreement — RA2xx), and
 * **no new warnings** versus the committed ``ANALYSIS_baseline.json`` (the
   reference package's per-program, per-code warn counts; read only here).
-
-Targets the port does not have yet are listed and skipped: ``decode-lm``
-waits for ``export_decode_lm`` and ``moe-decode-lm`` for the MoE family.
 
 Usage:
     python -m repro_torch.bench.analyze --all --strict
@@ -30,11 +27,6 @@ REPO = Path(__file__).resolve().parents[3]
 BASELINE_PATH = REPO / "ANALYSIS_baseline.json"
 # every Scheme axis combination the differential check must agree on
 ALL_SCHEMES = ("qemu", "tech", "tech-g", "tech-gf", "tech-gfp", "native")
-# baseline targets whose exporters belong to later slices of the port
-NOT_PORTED = {
-    "decode-lm": "models.programs.export_decode_lm",
-    "moe-decode-lm": "models.programs.export_moe_decode_lm (the MoE family)",
-}
 
 
 @dataclasses.dataclass
@@ -82,9 +74,11 @@ def build_targets() -> dict[str, Target]:
     from ..workloads.libs import library_unit_filter
 
     targets: dict[str, Target] = {
+        "decode-lm": Target("decode-lm", _decode_export("export_decode_lm")),
         "attn-decode-lm": Target("attn-decode-lm", _decode_export("export_attn_decode_lm")),
         "mamba2-decode-lm": Target("mamba2-decode-lm",
                                    _decode_export("export_mamba2_decode_lm")),
+        "moe-decode-lm": Target("moe-decode-lm", _decode_export("export_moe_decode_lm")),
         "zoo-smollm-360m": Target("zoo-smollm-360m", _zoo_dense("smollm-360m")),
         # library-scope offloading: exercises the unit_filter differential
         "lib-zlibflate": Target(
@@ -162,8 +156,6 @@ def main(argv: Sequence[str] | None = None) -> int:
     if args.list:
         for name in targets:
             print(name)
-        for name, why in NOT_PORTED.items():
-            print(f"{name} (not ported: {why})")
         return 0
     names = list(targets) if (args.all or not args.programs) else args.programs
     unknown = [n for n in names if n not in targets]
@@ -178,8 +170,6 @@ def main(argv: Sequence[str] | None = None) -> int:
         failures.extend(fails)
         status = "FAIL" if fails else "ok"
         print(f"{name:20s} {status:4s} warnings={sum(counts.values())} {counts or ''}")
-    for name, why in NOT_PORTED.items():
-        print(f"{name:20s} skip (not ported: {why})")
 
     failures.extend(check_baseline(results, load_baseline()))
     if failures:

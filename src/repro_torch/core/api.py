@@ -411,17 +411,42 @@ class PlannedProgram:
         )
 
     def save_aot(self, path) -> dict:
-        """Persist this plan's artifacts (the AOT slice of the port)."""
-        raise NotImplementedError(
-            "save_aot comes with the AOT slice of the port (torch.export "
-            "artifacts); it is not carried yet")
+        """Persist this plan's artifacts to a versioned on-disk AOT cache.
+
+        Serializes the program IR (+ constants), the scheme/cost-model
+        configuration, and — for every offload unit in the shared
+        ``unit_cache`` — a :func:`torch.export.export` program per concrete
+        signature the unit has run at, so a fresh process can
+        :meth:`load_aot` and serve with compile count 0.  Units containing
+        host callbacks (guest reentry) cannot be exported and are skipped
+        with a warning — they recompile on load, which is always safe.
+        Returns a summary dict (see
+        :func:`repro_torch.serve.aot.save_planned`).
+
+        Raises :class:`repro_torch.serve.aot.AotError` when the plan carries
+        a ``unit_filter`` (not serializable).
+        """
+        from ..serve.aot import save_planned  # serve builds on core; lazy
+
+        return save_planned(self, path)
 
     @staticmethod
     def load_aot(path) -> "PlannedProgram":
-        """Reconstruct a plan saved with :meth:`save_aot` (the AOT slice)."""
-        raise NotImplementedError(
-            "load_aot comes with the AOT slice of the port (torch.export "
-            "artifacts); it is not carried yet")
+        """Reconstruct a plan saved with :meth:`save_aot`.
+
+        The returned plan's unit cache runs the loaded programs at the
+        saved signatures, which count as seen — ``compile()`` + calls at
+        the saved shapes make no first-signature call, so
+        ``ExecutionReport.compiles`` stays 0.  Unseen shapes compile as
+        always.  A corrupt or version-mismatched artifact is never loaded
+        blind: manifest/digest damage raises
+        :class:`repro_torch.serve.aot.AotError` (callers fall back to
+        planning from source), per-blob damage skips just that signature
+        with a warning.
+        """
+        from ..serve.aot import load_planned
+
+        return load_planned(path)
 
     def compile(self, *, backend: str | None = None) -> "CompiledHybrid":
         """Stage 3: produce the callable, signature-polymorphic runtime.
@@ -441,7 +466,10 @@ def resolve_device(backend: str | torch.device | None) -> torch.device:
     Raises :class:`ValueError` when the device is not present here — the
     port never falls back to the CPU behind the caller's back.
     """
-    device = torch.device("cuda" if backend is None else backend)
+    try:
+        device = torch.device("cuda" if backend is None else backend)
+    except RuntimeError as e:
+        raise ValueError(f"backend {backend!r}: {e}") from None
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise ValueError(

@@ -161,6 +161,9 @@ class OffloadUnit:
     # engine traces once per signature), so the compile counters of the two
     # engines stay comparable.
     seen_signatures: set = dataclasses.field(default_factory=set)
+    # The unit's body without the compile accounting: what AOT persistence
+    # (repro_torch.serve.aot) hands to torch.export at each seen signature.
+    body: Callable | None = None
 
 
 @dataclasses.dataclass
@@ -478,6 +481,13 @@ def _make_unit(
     seen: set = set()
     seen_lock = threading.Lock()
 
+    def body(globals_tuple, args_tuple, reentry_token):
+        genv = dict(zip(gnames, globals_tuple))
+        return trace_function(
+            program, fname, policy, reentry, genv, list(args_tuple),
+            reentry_token, device,
+        )
+
     def call(globals_tuple, args_tuple, reentry_token):
         # An eager unit runs its body on every call, so "compiles" is
         # counted where the reference engine traces: the first call at
@@ -488,11 +498,7 @@ def _make_unit(
             seen.add(sig)
         if first and compile_hook is not None:
             compile_hook()
-        genv = dict(zip(gnames, globals_tuple))
-        return trace_function(
-            program, fname, policy, reentry, genv, list(args_tuple),
-            reentry_token, device,
-        )
+        return body(globals_tuple, args_tuple, reentry_token)
 
     return OffloadUnit(
         fname=fname,
@@ -500,4 +506,5 @@ def _make_unit(
         call=call,
         inlined=frozenset(inlined),
         seen_signatures=seen,
+        body=body,
     )

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels import ops
+from ..kernels import library
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,14 +113,32 @@ def canonical_dtype(dtype) -> np.dtype:
     return np.dtype(_CANONICAL.get(name, name))
 
 
+# torch <-> numpy dtypes, tabled once at import: a unit body looks them up
+# while torch.export traces it, where no tensor may be made for the purpose
+_NUMPY_OF_TORCH = {
+    t: torch.empty((), dtype=t).numpy().dtype
+    for t in (torch.bool, torch.uint8, torch.uint16, torch.uint32, torch.uint64,
+              torch.int8, torch.int16, torch.int32, torch.int64, torch.float16,
+              torch.float32, torch.float64, torch.complex64, torch.complex128)
+}
+_TORCH_OF_NUMPY = {n: t for t, n in _NUMPY_OF_TORCH.items()}
+
+
 def torch_dtype(dtype) -> torch.dtype:
     """Canonical torch dtype for a numpy dtype (or dtype name)."""
-    return torch.from_numpy(np.zeros((), canonical_dtype(dtype))).dtype
+    np_dtype = canonical_dtype(dtype)
+    try:
+        return _TORCH_OF_NUMPY[np_dtype]
+    except KeyError:
+        raise TypeError(f"no torch dtype for numpy {np_dtype}") from None
 
 
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:
     """Numpy dtype of a torch dtype (the avals are spelled in numpy names)."""
-    return torch.empty((), dtype=dtype).numpy().dtype
+    try:
+        return _NUMPY_OF_TORCH[dtype]
+    except KeyError:
+        raise TypeError(f"no numpy dtype for torch {dtype}") from None
 
 
 def _promote(*xs):
@@ -471,14 +489,12 @@ def _np_rmsnorm(params, x, w):
 
 
 def _torch_rmsnorm(params, x, w):
-    eps = params.get("eps", 1e-6)
-    if x.device.type == "cuda":
-        # The RMSNorm kernel casts x to float32 before the multiply; this op
-        # multiplies the uncast x.  Inside a unit x is float32 (the canonical
-        # 32-bit dtypes), where the two are the same formula.
-        return (ops.rmsnorm(x.contiguous(), w, eps=eps),)
-    var = torch.mean(torch.square(x.to(torch.float32)), dim=-1, keepdim=True)
-    return ((x * torch.rsqrt(var + eps) * w).to(x.dtype),)
+    # One registered operator (repro_torch::rmsnorm): the RMSNorm kernel on
+    # CUDA, this op's plain formula on the CPU.  The kernel casts x to
+    # float32 before the multiply; the formula multiplies the uncast x.
+    # Inside a unit x is float32 (the canonical 32-bit dtypes), where the
+    # two are the same.
+    return (library.rmsnorm(x, w, float(params.get("eps", 1e-6))),)
 
 
 register(
@@ -598,29 +614,21 @@ def _np_sdpa(params, q, k, v):
 
 def _torch_sdpa(params, q, k, v):
     causal = params.get("causal", True)
-    B, Hq, T, D = q.shape
-    Hk = k.shape[1]
     if q.device.type == "cuda":
         # The flash kernel masks kpos <= qpos (top-left); this op masks
         # tril(k=S-T) (bottom-right).  They agree only when T == S or when
         # not causal, so anything else is refused rather than run plain.
-        if causal and T != k.shape[2]:
+        T, S = q.shape[2], k.shape[2]
+        if causal and T != S:
             raise ValueError(
-                f"causal sdpa with T={T} != S={k.shape[2]} has no kernel on the "
+                f"causal sdpa with T={T} != S={S} has no kernel on the "
                 f"card: the flash kernel's causal mask is top-left aligned")
-        return (ops.flash_attention(*(_last_axis_dense(t) for t in (q, k, v)),
-                                    causal=causal, scale=params.get("scale")),)
-    if Hq != Hk:
-        k = torch.repeat_interleave(k, Hq // Hk, dim=1)
-        v = torch.repeat_interleave(v, Hq // Hk, dim=1)
-    scale = params.get("scale", 1.0 / math.sqrt(D))
-    s = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)) * scale
-    S = k.shape[2]
-    if causal:
-        mask = torch.ones((T, S), dtype=torch.bool, device=q.device).tril(S - T)
-        s = torch.where(mask, s, torch.tensor(-1e30, dtype=torch.float32, device=q.device))
-    p = torch.softmax(s, dim=-1)
-    return (torch.matmul(p, v.to(torch.float32)).to(q.dtype),)
+        q, k, v = (_last_axis_dense(t) for t in (q, k, v))
+    scale = params.get("scale")
+    # one registered operator (repro_torch::flash_attention): the flash
+    # kernel on CUDA, the plain formula on the CPU
+    return (library.flash_attention(q, k, v, bool(causal),
+                                    None if scale is None else float(scale)),)
 
 
 def _last_axis_dense(t):
@@ -658,8 +666,7 @@ def _np_paged_attention(params, q, kn, vn, kp, vp, tables, lengths):
 
 
 def _torch_paged_attention(params, q, kn, vn, kp, vp, tables, lengths):
-    from ..kernels.ops import paged_decode_attention
-    return (paged_decode_attention(q, kp, vp, tables, lengths, kn, vn),)
+    return (library.paged_decode_attention(q, kp, vp, tables, lengths, kn, vn),)
 
 
 register(

@@ -70,3 +70,23 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, return_state: bool = False):
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk, return_state=return_state)
     return ssd_scan_kernel(x, dt, A, B, C, chunk=chunk, return_state=return_state)
+
+
+# the inference kernels' wrappers, each counting its launches per route
+_COUNTED = {"rmsnorm": rmsnorm_kernel, "flash_attention": flash_attention_kernel,
+            "decode_attention": decode_attention_kernel,
+            "paged_decode_attention": paged_decode_attention_kernel,
+            "ssd_scan": ssd_scan_kernel}
+
+
+def launches_by_route() -> dict:
+    """This process's launches of each inference kernel per route since the
+    last :func:`reset_launches`, ``{kernel: {route: n}}``."""
+    return {name: dict(fn.launches_by_route) for name, fn in _COUNTED.items()}
+
+
+def reset_launches() -> None:
+    """Set every inference kernel's launch counts to 0."""
+    for fn in _COUNTED.values():
+        fn.launches = 0
+        fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)

@@ -161,6 +161,97 @@ def _flatten(params) -> dict[str, np.ndarray]:
     return flat
 
 
+def export_decode_lm(
+    vocab: int = 64,
+    d_model: int = 32,
+    *,
+    with_host_check: bool = True,
+    seed: int = 0,
+) -> Program:
+    """Export a tiny recurrent LM as a **decode-loop program**.
+
+    The program has two roots, the shape
+    :class:`~repro_torch.serve.DecodeScheduler` consumes:
+
+    * entry ``prefill(tokens)`` — tokens ``(B, T)`` int32 →
+      ``(logits (B, V), h (B, D))``: encode the whole prompt into a
+      fixed-size recurrent state plus the logits for the first generated
+      token.
+    * ``decode_step(h, token)`` — state ``(B, D)`` + last token ``(B,)``
+      int32 → ``(logits (B, V), h' (B, D))``: one autoregressive step.
+
+    Both roots route through the same ``head`` function, so planning the
+    step via ``planned.for_entry("decode_step")`` shares its offload unit
+    with the prefill plan (one head compile serves both).
+
+    Every op is row-independent on axis 0 (batch-parallel), which is what
+    makes token-level re-batching bit-exact: a sequence decoded inside any
+    padded batch produces exactly the tokens it would produce alone.
+
+    ``with_host_check`` keeps the paper's printf case in both roots — a
+    host-only finiteness assertion between backbone and head — so neither
+    root can be offloaded whole and every prefill/step call really pays
+    guest→host crossings (the fixed cost the scheduler amortizes).
+    """
+    rng = np.random.default_rng(seed)
+    W = lambda *s: (rng.standard_normal(s) / np.sqrt(s[0])).astype(np.float32)
+
+    pb = ProgramBuilder("decode-lm")
+    pb.constant("E", W(vocab, d_model))       # embedding table
+    pb.constant("Wp", W(d_model, d_model))    # prompt encoder mix
+    pb.constant("Wh", W(d_model, d_model))    # state recurrence
+    pb.constant("Wi", W(d_model, d_model))    # token input mix
+    pb.constant("Wo", W(d_model, vocab))      # LM head
+
+    # head(h) -> logits: shared by prefill and decode_step (one offload unit)
+    head = pb.function("head", ["h"])
+    head.use_global("Wo")
+    lg = head.emit("matmul", "h", "Wo")
+    head.build([lg])
+
+    # backbone(h, e) -> h': the per-step recurrent cell
+    cell = pb.function("backbone", ["h", "e"])
+    for w in ("Wh", "Wi"):
+        cell.use_global(w)
+    a = cell.emit("matmul", "h", "Wh")
+    b = cell.emit("matmul", "e", "Wi")
+    s = cell.emit("add", a, b)
+    hn = cell.emit("tanh", s)
+    cell.build([hn])
+
+    # encode(tokens) -> h0: whole-prompt encoder (the prefill backbone)
+    enc = pb.function("encode", ["tokens"])
+    for w in ("E", "Wp"):
+        enc.use_global(w)
+    e = enc.emit("embed", "E", "tokens")              # (B, T, D)
+    x = enc.emit("matmul", e, "Wp")
+    x = enc.emit("tanh", x)
+    h0 = enc.emit("reduce_mean", x, axis=(1,))        # (B, D)
+    enc.build([h0])
+
+    # prefill(tokens) -> (logits, h): program entry
+    pf = pb.function("prefill", ["tokens"])
+    h = pf.call("encode", "tokens")
+    if with_host_check:
+        h = pf.emit("host_assert_finite", h, tag="decode-lm.prefill")
+    lg = pf.call("head", h)
+    pf.build([lg, h])
+
+    # decode_step(h, token) -> (logits, h'): the per-token root
+    st = pb.function("decode_step", ["h", "token"])
+    st.use_global("E")
+    e = st.emit("embed", "E", "token")                # (B, D)
+    hn = st.call("backbone", "h", e)
+    if with_host_check:
+        hn = st.emit("host_assert_finite", hn, tag="decode-lm.step")
+    lg = st.call("head", hn)
+    st.build([lg, hn])
+
+    # decode_step is unreachable from the prefill entry by design;
+    # Program.validate still checks every function, reachable or not
+    return pb.build("prefill")
+
+
 def export_attn_decode_lm(
     vocab: int = 32,
     d_model: int = 16,
@@ -436,7 +527,7 @@ def export_mamba2_decode_lm(
     pb.constant("Cp", Kp.T.copy())            # contract slots back to (P,)
     pb.constant("A", np.array(-1.0, np.float32))  # decay rate (A_log = 0)
 
-    # head(h) -> logits: shared by prefill and decode_step (one jitted unit)
+    # head(h) -> logits: shared by prefill and decode_step (one offload unit)
     head = pb.function("head", ["h"])
     head.use_global("Wo")
     lg = head.emit("matmul", "h", "Wo")
@@ -520,6 +611,183 @@ def export_mamba2_decode_lm(
         h = st.emit("host_assert_finite", h, tag="mamba2-lm.step")
     lg = st.call("head", h)
     st.build([lg, S2])
+
+    return pb.build("prefill")
+
+
+def export_moe_decode_lm(
+    vocab: int = 32,
+    d_model: int = 16,
+    max_context: int = 32,
+    n_experts: int = 4,
+    d_ff: int = 16,
+    *,
+    with_host_check: bool = True,
+    seed: int = 0,
+) -> Program:
+    """Export a single-head attention + top-1 mixture-of-experts LM as a
+    **decode-loop program** — the growing-KV workload of
+    :func:`export_attn_decode_lm` plus per-token expert routing.
+
+    The state contract is identical to the attention LM (and obeys the same
+    exactness discipline): ``prefill(tokens)`` → ``(logits, K (B,S,D),
+    V (B,S,D), len (B,))`` with K/V zero-``pad_to``-ed to ``max_context``,
+    ``decode_step(K, V, len, token)`` writes the fresh k/v row with a
+    ``where`` select (old rows pass through **bitwise unchanged**, so the
+    cache pages exactly), and ``prefill_suffix`` merges cached prefix rows
+    with a ``where`` over ``pos < len`` for prefix sharing.  There is no
+    ``paged_decode_step`` — the paged-kernel mode stays attention-only.
+
+    What MoE adds is the routed FFN after the attention mix: a router
+    softmax picks the arg-max expert per token (top-1, selected with an
+    ``eq``-against-``reduce_max`` one-hot — pure selection, no ``top_k``
+    op), every expert's gated MLP runs at padded shape, and the one-hot
+    times the gate weight combines them.  Routing is row-independent on
+    axis 0, so a stream's expert choices — and therefore its logits — are
+    bit-identical however it is batched.
+    """
+    rng = np.random.default_rng(seed)
+    D, S, E, F = d_model, int(max_context), int(n_experts), int(d_ff)
+    W = lambda *s: (rng.standard_normal(s) / np.sqrt(s[0])).astype(np.float32)
+
+    pb = ProgramBuilder("moe-decode-lm")
+    pb.constant("E", W(vocab, D))             # embedding table
+    pb.constant("Wq", W(D, D))
+    pb.constant("Wk", W(D, D))
+    pb.constant("Wv", W(D, D))
+    pb.constant("Wp", W(D, D))                # attention output projection
+    pb.constant("Wr", W(D, E))                # router
+    pb.constant("Wg", (rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32))
+    pb.constant("Wu", (rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32))
+    pb.constant("Wd", (rng.standard_normal((E, F, D)) / np.sqrt(F)).astype(np.float32))
+    pb.constant("Wo", W(D, vocab))            # LM head
+    pb.constant("pos", np.arange(S, dtype=np.int32))
+    pb.constant("one_i", np.array(1, np.int32))
+    pb.constant("scale", np.array(1.0 / np.sqrt(D), np.float32))
+    pb.constant("neg_inf", np.array(-1e30, np.float32))
+
+    # head(h) -> logits: shared by all roots (one offload unit)
+    head = pb.function("head", ["h"])
+    head.use_global("Wo")
+    lg = head.emit("matmul", "h", "Wo")
+    head.build([lg])
+
+    # moe_ffn(x) -> y: top-1 routed expert MLP, rank-agnostic — called at
+    # (B, T, D) from encode and (B, D) from attend (negative axes keep one
+    # function body valid at both ranks; each call site is its own entry
+    # signature / offload unit).
+    ffn = pb.function("moe_ffn", ["x"])
+    for w in ("Wr", "Wg", "Wu", "Wd"):
+        ffn.use_global(w)
+    gates = ffn.emit("softmax", ffn.emit("matmul", "x", "Wr"), axis=-1)  # (..., E)
+    mx = ffn.emit("reduce_max", gates, axis=(-1,), keepdims=True)
+    # top-1 one-hot via eq-against-max (pure selection; ties are
+    # deterministic and row-independent, so still bit-stable)
+    sel = ffn.emit("cast", ffn.emit("eq", gates, mx), dtype="float32")
+    gw = ffn.emit("mul", sel, gates)                                     # (..., E)
+    # run every expert at padded shape: (..., 1, 1, D) @ (E, D, F)
+    xb = ffn.emit("expand_dims", ffn.emit("expand_dims", "x", axis=-2), axis=-2)
+    hg = ffn.emit("silu", ffn.emit("matmul", xb, "Wg"))                  # (..., E, 1, F)
+    hu = ffn.emit("matmul", xb, "Wu")
+    hd = ffn.emit("squeeze",
+                  ffn.emit("matmul", ffn.emit("mul", hg, hu), "Wd"),
+                  axis=-2)                                               # (..., E, D)
+    y = ffn.emit("reduce_sum",
+                 ffn.emit("mul", hd, ffn.emit("expand_dims", gw, axis=-1)),
+                 axis=(-2,))                                             # (..., D)
+    ffn.build([y])
+
+    # encode(tokens) -> (h_last, K, V, len): the prefill backbone — same
+    # attention shape as attn-decode-lm, with the routed FFN after the mix
+    enc = pb.function("encode", ["tokens"])
+    for w in ("E", "Wq", "Wk", "Wv", "Wp", "pos", "one_i"):
+        enc.use_global(w)
+    e = enc.emit("embed", "E", "tokens")                      # (B, T, D)
+    q = enc.emit("matmul", e, "Wq")
+    k = enc.emit("matmul", e, "Wk")
+    v = enc.emit("matmul", e, "Wv")
+    a = enc.emit("sdpa",
+                 enc.emit("expand_dims", q, axis=1),
+                 enc.emit("expand_dims", k, axis=1),
+                 enc.emit("expand_dims", v, axis=1), causal=True)
+    a = enc.emit("squeeze", a, axis=1)                        # (B, T, D)
+    r = enc.emit("tanh", enc.emit("add", enc.emit("matmul", a, "Wp"), e))
+    m = enc.call("moe_ffn", r)
+    h = enc.emit("tanh", enc.emit("add", m, r))
+    ones = enc.emit("cast", enc.emit("eq", "tokens", "tokens"), dtype="int32")
+    ln = enc.emit("reduce_sum", ones, axis=(1,))              # (B,) = T
+    last = enc.emit("expand_dims", enc.emit("sub", ln, "one_i"), axis=1)
+    oh = enc.emit("cast", enc.emit("eq", "pos", last), dtype="float32")
+    hp = enc.emit("pad_to", h, axis=1, target=S)              # (B, S, D)
+    h_last = enc.emit("squeeze",
+                      enc.emit("matmul", enc.emit("expand_dims", oh, axis=1), hp),
+                      axis=1)                                 # (B, D)
+    kp = enc.emit("pad_to", k, axis=1, target=S)
+    vp = enc.emit("pad_to", v, axis=1, target=S)
+    enc.build([h_last, kp, vp, ln])
+
+    # attend(K, V, len, token) -> (h, K', V', len'): one decode step; the
+    # k/v write is a where-select so old cache rows never change (the
+    # paged-state exactness hook, same as attn-decode-lm)
+    at = pb.function("attend", ["K", "V", "len", "token"])
+    for w in ("E", "Wq", "Wk", "Wv", "Wp", "pos", "one_i", "scale", "neg_inf"):
+        at.use_global(w)
+    e = at.emit("embed", "E", "token")                        # (B, D)
+    q = at.emit("matmul", e, "Wq")
+    kn = at.emit("matmul", e, "Wk")
+    vn = at.emit("matmul", e, "Wv")
+    wcol = at.emit("expand_dims",
+                   at.emit("eq", "pos", at.emit("expand_dims", "len", axis=1)),
+                   axis=2)                                    # (B, S, 1) bool
+    K2 = at.emit("where", wcol, at.emit("expand_dims", kn, axis=1), "K")
+    V2 = at.emit("where", wcol, at.emit("expand_dims", vn, axis=1), "V")
+    ln2 = at.emit("add", "len", "one_i")                      # (B,)
+    mask = at.emit("expand_dims",
+                   at.emit("lt", "pos", at.emit("expand_dims", ln2, axis=1)),
+                   axis=1)                                    # (B, 1, S) bool
+    s = at.emit("mul",
+                at.emit("matmul",
+                        at.emit("expand_dims", q, axis=1),
+                        at.emit("transpose", K2, perm=(0, 2, 1))),
+                "scale")                                      # (B, 1, S)
+    s = at.emit("where", mask, s, "neg_inf")
+    p = at.emit("softmax", s, axis=-1)
+    a = at.emit("squeeze", at.emit("matmul", p, V2), axis=1)  # (B, D)
+    r = at.emit("tanh", at.emit("add", at.emit("matmul", a, "Wp"), e))
+    m = at.call("moe_ffn", r)
+    h = at.emit("tanh", at.emit("add", m, r))
+    at.build([h, K2, V2, ln2])
+
+    # prefill(tokens) -> (logits, K, V, len): program entry
+    pf = pb.function("prefill", ["tokens"])
+    h, kp, vp, ln = pf.call("encode", "tokens")
+    if with_host_check:
+        h = pf.emit("host_assert_finite", h, tag="moe-lm.prefill")
+    lg = pf.call("head", h)
+    pf.build([lg, kp, vp, ln])
+
+    # decode_step(K, V, len, token) -> (logits, K', V', len')
+    st = pb.function("decode_step", ["K", "V", "len", "token"])
+    h, K2, V2, ln2 = st.call("attend", "K", "V", "len", "token")
+    if with_host_check:
+        h = st.emit("host_assert_finite", h, tag="moe-lm.step")
+    lg = st.call("head", h)
+    st.build([lg, K2, V2, ln2])
+
+    # prefill_suffix(K, V, len, tokens): prefix-sharing prefill — cached
+    # rows pass through the where bitwise, recomputed rows elsewhere
+    sf = pb.function("prefill_suffix", ["K", "V", "len", "tokens"])
+    sf.use_global("pos")
+    h, kn, vn, ln = sf.call("encode", "tokens")
+    if with_host_check:
+        h = sf.emit("host_assert_finite", h, tag="moe-lm.suffix")
+    lg = sf.call("head", h)
+    keep = sf.emit("expand_dims",
+                   sf.emit("lt", "pos", sf.emit("expand_dims", "len", axis=1)),
+                   axis=2)                                    # (B, S, 1) bool
+    K2 = sf.emit("where", keep, "K", kn)
+    V2 = sf.emit("where", keep, "V", vn)
+    sf.build([lg, K2, V2, ln])
 
     return pb.build("prefill")
 

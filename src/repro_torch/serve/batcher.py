@@ -1,16 +1,26 @@
-"""Decode-state batching: the slot map and paged KV-cache state.
+"""Request batching: bucket, pad, coalesce, split.
 
-The decode scheduler pads every prefill and step call to a fixed
-``capacity`` of rows (:class:`SlotMap`, :func:`pad_rows`), and keeps each
-stream's growing context rows in fixed-size pages (:class:`StateSpec`,
-:class:`PagePool`, :class:`BlockTable`, :class:`PagedKVState`), recycled
-the instant a stream retires.
+The paper's economics in serving form: every guest→host crossing pays a
+fixed conversion + channel cost, so the server coalesces many single
+requests into one padded entry call — one signature plan and one set of
+crossings serve the whole batch (see :class:`repro_torch.serve.MixedServer`).
 
-Exactness contract: a stream decoded inside any batch is *bit-identical* to
-decoding it alone — every op treats axis-0 rows independently, filler rows
-replicate the last real row, and pages reproduce exactly the rows a solo
-loop would have threaded.  (Request-level bucketing, ``BucketLadder`` and
-``coalesce``, comes with the port's request-level server.)
+Shape discipline comes from a **bucket ladder**: request batches are padded
+up to a fixed set of batch sizes and sequence lengths are rounded up to a
+multiple, so the number of distinct entry signatures — and therefore of
+per-signature plans and first-signature unit calls — stays small and bounded regardless
+of traffic.
+
+Exactness contract: splitting a batched result must be *bit-identical* to
+running each request alone.
+
+* Batch padding is exact for any batch-parallel program (every op treats
+  axis 0 rows independently — true of the exported model forwards).  Filler
+  rows replicate the last request so padded numerics stay in-distribution;
+  they are sliced away before results are returned.
+* Sequence padding (``seq_multiple > 1``) is exact only for causal
+  programs, where position ``t`` never attends past ``t`` — the default
+  ``seq_multiple=1`` therefore disables it; opt in for causal models.
 """
 from __future__ import annotations
 
@@ -25,12 +35,180 @@ import numpy as np
 from .. import obs
 
 
+@dataclasses.dataclass(frozen=True)
+class BucketLadder:
+    """The shape-bucketing policy of a :class:`~repro_torch.serve.MixedServer`.
+
+    ``batch_sizes`` — allowed padded batch sizes, ascending (a batch of
+    3 request rows runs as the 4-bucket).  Batches larger than the top
+    bucket are split by :class:`~repro_torch.serve.MixedServer` into top-bucket
+    chunks (bit-exact for batch-parallel programs, like pad/coalesce/
+    split), so adversarial batch sizes can never mint unbounded entry
+    signatures.
+    ``seq_axis``/``seq_multiple`` — every argument axis ``seq_axis`` whose
+    extent equals the request's sequence length (taken from the first
+    argument) is rounded up to a multiple of ``seq_multiple`` with
+    ``pad_value``; matching output axes are sliced back.  This is an
+    *extent-matching heuristic*: with ``seq_multiple > 1``, an output axis
+    that coincidentally equals the padded length (e.g. a feature dim the
+    same size as the padded sequence) would be sliced too — set
+    ``unpad_outputs=False`` and slice outputs yourself if your model has
+    such an axis.  The default ``seq_multiple=1`` never pads or slices.
+    """
+
+    batch_sizes: tuple[int, ...] = (1, 2, 4, 8)
+    seq_axis: int = 1
+    seq_multiple: int = 1
+    pad_value: float = 0
+    unpad_outputs: bool = True
+
+    def __post_init__(self):
+        sizes = tuple(sorted(set(int(b) for b in self.batch_sizes)))
+        if not sizes or sizes[0] < 1:
+            raise ValueError(f"batch_sizes must be positive: {self.batch_sizes}")
+        if self.seq_multiple < 1:
+            raise ValueError(f"seq_multiple must be >= 1: {self.seq_multiple}")
+        if self.seq_axis < 1:
+            # axis 0 is the request-row axis; treating it as the sequence
+            # would inject phantom rows and corrupt grouping keys
+            raise ValueError(f"seq_axis must be >= 1: {self.seq_axis}")
+        object.__setattr__(self, "batch_sizes", sizes)
+
+    @property
+    def max_batch(self) -> int:
+        return self.batch_sizes[-1]
+
+    def batch_bucket(self, rows: int) -> int:
+        """Smallest ladder bucket holding ``rows`` (or ``rows`` if above)."""
+        for b in self.batch_sizes:
+            if rows <= b:
+                return b
+        return rows
+
+    def padded_seq(self, seq: int) -> int:
+        m = self.seq_multiple
+        return ((seq + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class Request:
+    """One caller's entry arguments, normalized for batching.
+
+    ``rows`` is the leading-axis extent shared by every argument (a caller
+    may submit more than one row); ``seq`` is the sequence extent taken
+    from the first argument (or None for rank-1 args).
+    """
+
+    args: tuple[np.ndarray, ...]
+    rows: int
+    seq: int | None
+
+    @classmethod
+    def of(cls, args: Sequence[np.ndarray], seq_axis: int) -> "Request":
+        args = tuple(np.asarray(a) for a in args)
+        if not args:
+            raise ValueError("empty request")
+        rows = args[0].shape[0] if args[0].ndim else None
+        for i, a in enumerate(args):
+            if a.ndim == 0 or a.shape[0] != rows:
+                raise ValueError(
+                    f"request arg {i} has leading dim "
+                    f"{a.shape[:1] or 'scalar'}, expected {rows} "
+                    f"(all args must share the request-row axis 0)"
+                )
+        seq = args[0].shape[seq_axis] if args[0].ndim > seq_axis else None
+        return cls(args=args, rows=rows, seq=seq)
+
+
 def pad_rows(a: np.ndarray, target: int) -> np.ndarray:
     """Grow axis 0 to ``target`` rows by replicating the last row (filler
     stays in-distribution numerically; callers slice it away afterwards)."""
     if a.shape[0] >= target:
         return a
     return np.concatenate([a, np.repeat(a[-1:], target - a.shape[0], axis=0)], axis=0)
+
+
+def _pad_seq_axis(a: np.ndarray, axis: int, target: int, pad_value) -> np.ndarray:
+    if a.shape[axis] == target:
+        return a
+    widths = [(0, 0)] * a.ndim
+    widths[axis] = (0, target - a.shape[axis])
+    return np.pad(a, widths, constant_values=pad_value)
+
+
+def pad_request(req: Request, ladder: BucketLadder) -> tuple[np.ndarray, ...]:
+    """Round the request's sequence axes up to the ladder's multiple."""
+    if req.seq is None or ladder.seq_multiple == 1:
+        return req.args
+    target = ladder.padded_seq(req.seq)
+    return tuple(
+        _pad_seq_axis(a, ladder.seq_axis, target, ladder.pad_value)
+        if a.ndim > ladder.seq_axis and a.shape[ladder.seq_axis] == req.seq
+        else a
+        for a in req.args
+    )
+
+
+def group_key(req: Request, ladder: BucketLadder) -> tuple:
+    """Requests with equal keys may share one batched entry call: identical
+    dtypes and identical padded shapes everywhere except the row axis.
+
+    Computed arithmetically (no padded copies) — the dispatcher calls this
+    on the hot path for every enqueued request.
+    """
+    key = []
+    for a in req.args:
+        shape = list(a.shape[1:])
+        if (
+            req.seq is not None
+            and ladder.seq_multiple > 1
+            and a.ndim > ladder.seq_axis
+            and a.shape[ladder.seq_axis] == req.seq
+        ):
+            shape[ladder.seq_axis - 1] = ladder.padded_seq(req.seq)
+        key.append((str(a.dtype), tuple(shape)))
+    return tuple(key)
+
+
+@dataclasses.dataclass
+class Batch:
+    """A coalesced group of requests plus the recipe to split results."""
+
+    args: tuple[np.ndarray, ...]        # padded, stacked entry arguments
+    requests: tuple[Request, ...]
+    offsets: tuple[int, ...]            # start row of each request
+    rows: int                           # real request rows (<= padded rows)
+    padded_rows: int
+    padded_seq: int | None
+    seq_axis: int = 1
+    unpad_outputs: bool = True
+
+    def split(self, outs: Sequence[np.ndarray]) -> list[tuple[np.ndarray, ...]]:
+        """Un-batch: per request, slice its rows and un-pad sequence axes.
+
+        Sequence axes in outputs are recognized by extent (== the batch's
+        padded length; see the :class:`BucketLadder` caveat); disable via
+        ``unpad_outputs=False`` on the ladder for models where that extent
+        can collide with a non-sequence axis.
+        """
+        results = []
+        for req, start in zip(self.requests, self.offsets):
+            per_req = []
+            for o in outs:
+                o = np.asarray(o)
+                r = o[start:start + req.rows] if o.ndim else o
+                if (
+                    self.unpad_outputs
+                    and self.padded_seq is not None
+                    and req.seq is not None
+                    and req.seq != self.padded_seq
+                    and r.ndim > self.seq_axis
+                    and r.shape[self.seq_axis] == self.padded_seq
+                ):
+                    r = np.take(r, range(req.seq), axis=self.seq_axis)
+                per_req.append(r)
+            results.append(tuple(per_req))
+        return results
 
 
 class SlotMap:
@@ -754,3 +932,40 @@ class PagedKVState:
     def valid_positions(self) -> int:
         """Filled context positions across live slots (cache occupancy)."""
         return sum(self.lengths)
+
+
+def coalesce(requests: Sequence[Request], ladder: BucketLadder) -> Batch:
+    """Stack same-key requests into one padded batch.
+
+    Rows are concatenated in request order, the total is padded up to the
+    ladder bucket by replicating the final row, and every sequence axis is
+    padded to the group's target; ``Batch.split`` inverts both paddings.
+    """
+    if not requests:
+        raise ValueError("coalesce of zero requests")
+    key = group_key(requests[0], ladder)
+    for r in requests[1:]:
+        if group_key(r, ladder) != key:
+            raise ValueError("cannot coalesce requests with different signatures")
+    padded = [pad_request(r, ladder) for r in requests]
+    offsets, rows = [], 0
+    for r in requests:
+        offsets.append(rows)
+        rows += r.rows
+    bucket = ladder.batch_bucket(rows)
+    args = [
+        pad_rows(np.concatenate([p[i] for p in padded], axis=0), bucket)
+        for i in range(len(padded[0]))
+    ]
+    seqs = [r.seq for r in requests if r.seq is not None]
+    padded_seq = ladder.padded_seq(max(seqs)) if seqs else None
+    return Batch(
+        args=tuple(args),
+        requests=tuple(requests),
+        offsets=tuple(offsets),
+        rows=rows,
+        padded_rows=bucket,
+        padded_seq=padded_seq,
+        seq_axis=ladder.seq_axis,
+        unpad_outputs=ladder.unpad_outputs,
+    )

@@ -1,17 +1,19 @@
-"""Serving-side instrumentation: what the decode scheduler did, aggregated.
+"""Serving-side instrumentation: what the batching runtime did, aggregated.
 
 Where :class:`~repro_torch.core.stats.ExecutionReport` describes one entry call,
-:class:`DecodeReport` describes the token-level continuous-batching
-scheduler across calls: tokens per crossing, per-step occupancy, admission
-waits, page-pool and paged-kernel counters; :class:`MultiModelReport` holds
-one per co-served model plus the shared pool's counters.  (The
-request-level and cluster reports come with those runtimes in later slices
-of the port.)
+:class:`ServerReport` describes the *server's* behaviour across calls: how
+well batching amortized the paper's fixed per-crossing cost (crossings per
+request, batch occupancy), how long requests queued, and how often a cold
+bucket fell back to the emulator path while its plan compiled in the
+background.  :class:`DecodeReport` is the analogue for the token-level
+continuous-batching scheduler: tokens per crossing, per-step occupancy,
+admission waits.
 
 Ratio metrics can be undefined before any qualifying work ran (e.g.
+``crossings_per_request`` before the first compiled-path request,
 ``tokens_per_crossing`` before the first crossing).  The numeric properties
 return ``nan`` — never a misleading 0.0 — and every human-oriented renderer
-(``__str__``, :meth:`DecodeReport.table`) prints such values as ``"n/a"``.
+(``__str__``, :meth:`ServerReport.table`) prints such values as ``"n/a"``.
 """
 from __future__ import annotations
 
@@ -56,6 +58,175 @@ class _OwnerFoldingStats:
         per_owner = list(self._merged_by_owner.values())
         return (per_owner[0].merge(*per_owner[1:])
                 if per_owner else ExecutionReport(calls=0))
+
+
+@dataclasses.dataclass(frozen=True)
+class ServerReport:
+    """Immutable snapshot of a :class:`~repro_torch.serve.MixedServer`'s counters.
+
+    ``execution`` merges the per-call :class:`ExecutionReport` of every
+    server-side entry call (batched compiled calls, warmups, and emulator
+    fallbacks), so crossing counters reconcile with the core engine's
+    accounting.
+    """
+
+    requests: int = 0                   # requests completed
+    batches: int = 0                    # batched entry calls on the compiled path
+    fallback_requests: int = 0          # requests served on the emulator path
+    fallback_calls: int = 0             # emulator-path entry calls
+    oversize_splits: int = 0            # chunk cuts on batches above the top
+                                        # bucket (a batch split into n chunks
+                                        # counts n - 1)
+    warm_compiles: int = 0              # buckets compiled off the request path
+                                        # (background warms and user warm())
+    warm_failures: int = 0              # failed warm attempts (bucket retried)
+    request_rows: int = 0               # real rows executed
+    padded_rows: int = 0                # rows after bucket padding
+    queue_wait_total: float = 0.0       # seconds spent queued, summed
+    queue_wait_max: float = 0.0
+    crossings: int = 0                  # guest→host crossings serving requests
+                                        # (warmup crossings appear only in
+                                        # `execution`, not in crossings_per_request)
+    execution: ExecutionReport = dataclasses.field(
+        # ExecutionReport's dataclass default is calls=1 (one entry call);
+        # an empty server report must not claim a phantom call
+        default_factory=lambda: ExecutionReport(calls=0)
+    )
+
+    @property
+    def batch_occupancy(self) -> float:
+        """Fraction of executed rows that were real requests (1.0 = no
+        padding).  NaN until any rows executed."""
+        if self.padded_rows == 0:
+            return math.nan
+        return self.request_rows / self.padded_rows
+
+    @property
+    def compiled_requests(self) -> int:
+        """Requests served on the compiled (batched, crossing-paying) path."""
+        return self.requests - self.fallback_requests
+
+    @property
+    def crossings_per_request(self) -> float:
+        """The serving-economics headline: amortized guest→host crossings.
+
+        Measured over compiled-path requests only — emulator fallbacks make
+        zero crossings but are the *slow* path, so counting them in the
+        denominator would make the metric look better the more traffic
+        misses the compiled path.  NaN until any compiled request ran.
+        """
+        if self.compiled_requests == 0:
+            return math.nan
+        return self.crossings / self.compiled_requests
+
+    @property
+    def mean_queue_wait(self) -> float:
+        return self.queue_wait_total / max(1, self.requests)
+
+    def as_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["execution"] = self.execution.as_dict()
+        d["batch_occupancy"] = self.batch_occupancy
+        d["crossings_per_request"] = self.crossings_per_request
+        d["mean_queue_wait"] = self.mean_queue_wait
+        return d
+
+    def __str__(self) -> str:  # human-oriented one-liner for demos/logs
+        # crossings/request is nan until a compiled-path request ran (see the
+        # property docstring); render "n/a" rather than a confusing "nan"
+        return (
+            f"ServerReport(requests={self.requests}, batches={self.batches}, "
+            f"fallback={self.fallback_requests}, "
+            f"occupancy={_fmt(self.batch_occupancy)}, "
+            f"crossings/request={_fmt(self.crossings_per_request)}, "
+            f"mean_wait={self.mean_queue_wait * 1e3:.2f}ms)"
+        )
+
+    def table(self) -> str:
+        """Multi-line, aligned rendering for demos/benchmark output."""
+        return _render_rows([
+            ("requests", str(self.requests)),
+            ("batched calls", str(self.batches)),
+            ("fallback requests", str(self.fallback_requests)),
+            ("oversize splits", str(self.oversize_splits)),
+            ("warm compiles", str(self.warm_compiles)),
+            ("batch occupancy", _fmt(self.batch_occupancy)),
+            ("crossings/request", _fmt(self.crossings_per_request)),
+            ("mean queue wait", f"{self.mean_queue_wait * 1e3:.2f} ms"),
+            ("max queue wait", f"{self.queue_wait_max * 1e3:.2f} ms"),
+        ])
+
+
+class ServerStats(_OwnerFoldingStats):
+    """Lock-guarded accumulator behind ``MixedServer.report()``.
+
+    Worker threads record completed batches concurrently; ``snapshot()``
+    freezes the counters into a :class:`ServerReport`.
+    """
+
+    def __init__(self):
+        super().__init__(
+            requests=0, batches=0, fallback_requests=0, fallback_calls=0,
+            oversize_splits=0, warm_compiles=0, warm_failures=0,
+            request_rows=0, padded_rows=0,
+            queue_wait_total=0.0, queue_wait_max=0.0, crossings=0,
+        )
+
+    def record_batch(
+        self,
+        *,
+        n_requests: int,
+        rows: int,
+        padded_rows: int,
+        waits: list[float],
+        reports: list[ExecutionReport],
+        fallback_calls: int,
+        calls: int = 1,
+        splits: int = 0,
+    ) -> None:
+        """One logical batch, served by ``calls`` entry calls (> 1 when an
+        oversized batch was split into top-bucket chunks).  Its requests
+        count as fallbacks if *any* chunk ran on the emulator path — the
+        slow path dominated their latency.  When that happens the compiled
+        chunks' crossings are kept out of ``crossings`` too (they still
+        appear in ``execution``): ``crossings_per_request`` divides by
+        compiled-path requests only, so crossings whose requests left the
+        denominator must leave the numerator with them."""
+        with self._lock:
+            r = self._r
+            r["requests"] += n_requests
+            r["fallback_calls"] += fallback_calls
+            r["batches"] += calls - fallback_calls
+            if fallback_calls:
+                r["fallback_requests"] += n_requests
+            r["oversize_splits"] += splits
+            r["request_rows"] += rows
+            r["padded_rows"] += padded_rows
+            r["queue_wait_total"] += sum(waits)
+            r["queue_wait_max"] = max(r["queue_wait_max"], *waits, 0.0)
+            for report in reports:
+                if not fallback_calls:
+                    r["crossings"] += report.guest_to_host
+                self._fold(report)
+
+    def record_warm(self, report: ExecutionReport | None) -> None:
+        with self._lock:
+            self._r["warm_compiles"] += 1
+            if report is not None:
+                self._fold(report)
+
+    def record_warm_failure(self) -> None:
+        with self._lock:
+            self._r["warm_failures"] += 1
+
+    def snapshot(self) -> ServerReport:
+        with self._lock:
+            return ServerReport(execution=self._merged_execution(), **self._r)
+
+
+# ---------------------------------------------------------------------------
+# token-level continuous batching
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,6 +438,137 @@ class DecodeReport:
                 ("pages visited / skipped", f"{self.pages_visited} / "
                                             f"{self.pages_skipped}"),
                 ("page visit fraction", _fmt(self.page_visit_fraction)),
+            ]
+        return _render_rows(rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterReport:
+    """Aggregate view over a :class:`~repro_torch.serve.ClusterRouter`'s workers.
+
+    Folds one :class:`DecodeReport` per worker (dead workers contribute
+    their last report, drained workers their final one) plus the router's
+    own routing counters.  The cluster-economics headline is the same as a
+    single scheduler's — :attr:`tokens_per_crossing` — computed over the
+    *aggregate* token and crossing totals, so it answers "did scaling out
+    preserve the per-crossing amortization?".  ``compiles`` sums the
+    workers' merged ``execution.compiles``: a fleet booted from a warm AOT
+    cache (:meth:`repro_torch.core.api.PlannedProgram.load_aot`) reports 0 here.
+    """
+
+    workers: int = 0                    # workers ever started
+    live_workers: int = 0               # accepting traffic at snapshot
+    routed_affinity: int = 0            # submissions placed by prefix hash
+    routed_spill: int = 0               # submissions placed round-robin
+    worker_reports: tuple[DecodeReport, ...] = ()
+    # observability fold (see repro_torch.obs):
+    worker_warnings: tuple[str, ...] = ()   # structured warnings shipped back
+                                            # from worker processes (Python
+                                            # warnings there are otherwise
+                                            # invisible to the parent)
+    worker_spans: int = 0               # spans folded from worker tracers
+    spans_dropped: int = 0              # ring overflow, workers + router
+
+    def _sum(self, field: str) -> int:
+        return sum(getattr(r, field) for r in self.worker_reports)
+
+    @property
+    def streams(self) -> int:
+        return self._sum("streams")
+
+    @property
+    def tokens(self) -> int:
+        return self._sum("tokens")
+
+    @property
+    def crossings(self) -> int:
+        return self._sum("crossings")
+
+    @property
+    def failures(self) -> int:
+        return self._sum("failures")
+
+    @property
+    def prefix_hits(self) -> int:
+        """Cross-worker total of admissions that mapped a shared prefix —
+        the payoff of prefix-affinity routing: prompts that can share pages
+        land on the worker whose LRU prefix index holds them."""
+        return self._sum("prefix_hits")
+
+    @property
+    def prefix_tokens_reused(self) -> int:
+        return self._sum("prefix_tokens_reused")
+
+    @property
+    def compiles(self) -> int:
+        """First-signature unit calls across the fleet (0 on a warm AOT boot)."""
+        return sum(r.execution.compiles for r in self.worker_reports)
+
+    @property
+    def tokens_per_crossing(self) -> float:
+        """Aggregate tokens per guest→host crossing (NaN until any)."""
+        if self.crossings == 0:
+            return math.nan
+        return self.tokens / self.crossings
+
+    @property
+    def latency(self) -> HistogramSet:
+        """Cluster-wide scheduler-phase latency: the associative merge of
+        every worker's :attr:`DecodeReport.latency` (order-independent)."""
+        out = HistogramSet()
+        for r in self.worker_reports:
+            out.update(r.latency)
+        return out
+
+    def as_dict(self) -> dict:
+        return {
+            "workers": self.workers,
+            "live_workers": self.live_workers,
+            "routed_affinity": self.routed_affinity,
+            "routed_spill": self.routed_spill,
+            "streams": self.streams,
+            "tokens": self.tokens,
+            "crossings": self.crossings,
+            "tokens_per_crossing": self.tokens_per_crossing,
+            "prefix_hits": self.prefix_hits,
+            "prefix_tokens_reused": self.prefix_tokens_reused,
+            "compiles": self.compiles,
+            "failures": self.failures,
+            "worker_warnings": list(self.worker_warnings),
+            "worker_spans": self.worker_spans,
+            "spans_dropped": self.spans_dropped,
+            "latency": self.latency.as_dict(),
+            "worker_reports": [r.as_dict() for r in self.worker_reports],
+        }
+
+    def __str__(self) -> str:
+        return (
+            f"ClusterReport(workers={self.live_workers}/{self.workers}, "
+            f"streams={self.streams}, tokens={self.tokens}, "
+            f"tokens/crossing={_fmt(self.tokens_per_crossing)}, "
+            f"prefix_hits={self.prefix_hits}, compiles={self.compiles})"
+        )
+
+    def table(self) -> str:
+        """Multi-line, aligned rendering for demos/benchmark output."""
+        rows = [
+            ("workers (live/started)", f"{self.live_workers}/{self.workers}"),
+            ("routed by affinity", str(self.routed_affinity)),
+            ("routed round-robin", str(self.routed_spill)),
+            ("streams", str(self.streams)),
+            ("tokens", str(self.tokens)),
+            ("crossings", str(self.crossings)),
+            ("tokens/crossing", _fmt(self.tokens_per_crossing)),
+            ("prefix hits (cross-worker)", str(self.prefix_hits)),
+            ("prefix tokens reused", str(self.prefix_tokens_reused)),
+            ("compiles", str(self.compiles)),
+            ("failures", str(self.failures)),
+        ]
+        if self.worker_spans or self.worker_warnings:
+            rows += [
+                ("worker spans folded", str(self.worker_spans)),
+                ("spans dropped", str(self.spans_dropped)),
+                ("worker warnings", str(len(self.worker_warnings))),
             ]
         return _render_rows(rows)
 

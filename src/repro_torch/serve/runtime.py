@@ -1,4 +1,20 @@
-"""Token-level continuous batching over one PlannedProgram (the port).
+"""Serving over one PlannedProgram (the port): request-level batching and
+token-level continuous batching.
+
+:class:`MixedServer` is the request-level front door: many callers submit
+small requests; the server buckets them by padded shape
+(:class:`~repro_torch.serve.BucketLadder`), coalesces each bucket into
+**one** batched entry call — one signature plan, one set of crossings for
+the whole batch — and splits the results back per caller, bit-identically
+to running each request alone.  A cold bucket is served on the emulator
+path (the planned scheme without units) while a background thread makes
+its first compiled-path call.
+
+    server = MixedServer(mixed.trace(prog).plan("tech-gfp"),
+                         ladder=BucketLadder(batch_sizes=(1, 2, 4, 8)))
+    with server:
+        logits, aux = server.request(tokens)
+        print(server.report())               # crossings/request, occupancy, ...
 
 A decode loop pays the paper's fixed guest→host crossing cost once per
 **token**: every step is a tiny entry call.  :class:`DecodeScheduler` treats
@@ -20,8 +36,7 @@ page pool, one batched crossing per model per iteration.
 
 The offload units run on CUDA unless ``backend="cpu"`` is passed (the
 tests do).  The page pools stay numpy on the host and cross at every step,
-as in the reference.  Request-level serving (``MixedServer``) comes with a
-later slice of the port.
+as in the reference.
 """
 from __future__ import annotations
 
@@ -29,24 +44,46 @@ import dataclasses
 import queue
 import threading
 import time
-from concurrent.futures import Future, InvalidStateError
-from typing import Callable
+from concurrent.futures import Future, InvalidStateError, ThreadPoolExecutor
+from typing import Any, Callable
 
 import numpy as np
 
 from .. import obs
 from ..core.api import CompiledHybrid, PlannedProgram
+from ..core.convert import signature_of
+from ..core.offload import Scheme
 from .batcher import (
+    Batch,
+    BucketLadder,
     PagedKVState,
     PagePool,
+    Request,
     SlotMap,
     StateSpec,
+    coalesce,
+    group_key,
+    pad_request,
     pad_rows,
 )
-from .reports import DecodeReport, DecodeStats, MultiModelReport
+from .reports import (
+    DecodeReport,
+    DecodeStats,
+    MultiModelReport,
+    ServerReport,
+    ServerStats,
+)
+
+
+@dataclasses.dataclass
+class _Pending:
+    request: Request
+    future: Future
+    submitted: float
 
 
 _CLOSE = object()
+_FLUSH = object()
 _WAKE = object()
 
 
@@ -71,6 +108,365 @@ def _resolve(fut: Future, *, result=None, exception=None) -> None:
         # RuntimeError (not InvalidStateError) on a non-pending future
         pass
 
+
+class MixedServer:
+    """Serve many concurrent callers from one planned hybrid program.
+
+    Parameters
+    ----------
+    planned:
+        A :class:`PlannedProgram` (compiled here, honouring ``backend``) or
+        an already-compiled :class:`CompiledHybrid` to serve.
+    ladder:
+        Shape-bucketing policy (:class:`BucketLadder`).  The default pads
+        request batches to {1, 2, 4, 8} rows and leaves sequences alone.
+    max_batch_delay:
+        Seconds a request may wait for batch-mates before its bucket is
+        flushed anyway (the classic batching latency/throughput knob).
+    workers:
+        Batch-execution threads.  More workers let a slow emulator-path
+        batch overlap with warm compiled batches.  On CUDA they share the
+        device's current stream, as every unit of the port does.
+    backend:
+        Forwarded to ``planned.compile(backend=...)``: ``None`` runs the
+        units on CUDA, ``"cpu"`` on the CPU (ignored when an
+        already-compiled hybrid is passed).
+    max_pending:
+        Backpressure bound on outstanding requests (queued or executing).
+        ``submit()`` blocks once the server is this far behind; capacity is
+        released as each request's future resolves.
+    """
+
+    def __init__(
+        self,
+        planned: PlannedProgram | CompiledHybrid,
+        *,
+        ladder: BucketLadder | None = None,
+        max_batch_delay: float = 0.005,
+        workers: int = 2,
+        backend: str | None = None,
+        max_pending: int = 4096,
+    ):
+        if isinstance(planned, CompiledHybrid):
+            self.hybrid = planned
+            self.planned = planned.planned
+        else:
+            self.planned = planned
+            self.hybrid = planned.compile(backend=backend)
+        self.ladder = ladder or BucketLadder()
+        self.max_batch_delay = float(max_batch_delay)
+        # The fallback runtime: same traced program, offloading scheme with
+        # GRT but *no units* (unit_filter rejects everything), i.e. pure
+        # interpretation on the guest — universal, needs no per-signature
+        # preparation.  It is compiled for the hybrid's device, where it
+        # places nothing.
+        self._fallback = self.planned.traced.plan(
+            Scheme.base().with_grt(),
+            costmodel=self.planned.costmodel,
+            compute_dtype=self.planned.compute_dtype,
+            unit_filter=lambda f: False,
+        ).compile(backend=str(self.hybrid.device))
+        self._entry_arity = len(
+            self.planned.analysis.program.functions[
+                self.planned.analysis.program.entry
+            ].args
+        )
+
+        self._stats = ServerStats()
+        # the semaphore, not the queue, bounds outstanding work — the
+        # dispatcher drains the queue into _pending immediately, so a queue
+        # maxsize would never engage as backpressure
+        self._capacity = threading.BoundedSemaphore(max_pending)
+        self._queue: queue.Queue = queue.Queue()
+        self._pending: dict[tuple, list[_Pending]] = {}
+        self._warm_lock = threading.Lock()
+        self._warm: set[tuple] = set()
+        self._warming: set[tuple] = set()
+        self._closed = False
+        self._submit_lock = threading.Lock()   # makes submit() atomic vs close()
+        self._pool = ThreadPoolExecutor(workers, thread_name_prefix="mixed-serve")
+        self._warm_pool = ThreadPoolExecutor(1, thread_name_prefix="mixed-warm")
+        self._dispatcher = threading.Thread(
+            target=self._dispatch_loop, name="mixed-serve-dispatch", daemon=True
+        )
+        self._dispatcher.start()
+
+    # -- client surface -----------------------------------------------------
+
+    def submit(self, *args) -> Future:
+        """Enqueue one request; resolves to the entry call's output tuple.
+
+        Each argument must carry the request's rows on axis 0 (typically a
+        single row).  Requests with compatible padded signatures coalesce
+        into one batched entry call.
+        """
+        if len(args) != self._entry_arity:
+            entry = self.planned.analysis.program.entry
+            raise TypeError(
+                f"{entry}: expected {self._entry_arity} args, got {len(args)}"
+            )
+        req = Request.of(args, self.ladder.seq_axis)
+        fut: Future = Future()
+        # blocking backpressure, taken OUTSIDE the submit lock so stalled
+        # submitters never hold it against flush()/close()
+        self._capacity.acquire()
+        with self._submit_lock:
+            if self._closed:
+                self._capacity.release()
+                raise RuntimeError("MixedServer is closed")
+            fut.add_done_callback(lambda _: self._capacity.release())
+            self._queue.put(_Pending(req, fut, time.perf_counter()))
+        return fut
+
+    def request(self, *args, timeout: float | None = None):
+        """Blocking convenience: ``submit(*args).result(timeout)``."""
+        return self.submit(*args).result(timeout)
+
+    def flush(self) -> None:
+        """Force all queued requests to dispatch without waiting the delay."""
+        with self._submit_lock:
+            if not self._closed:
+                self._queue.put(_FLUSH)
+
+    def warm(self, *args) -> int:
+        """Pre-compile every ladder bucket that could serve ``args``.
+
+        Runs one dummy batched call per bucket on the compiled path, so
+        later traffic of this shape never touches the emulator fallback.
+        Returns the number of buckets warmed; buckets already warm — or
+        currently warming in the background — are skipped, so one bucket
+        is only ever compiled (and counted) once.
+        """
+        req = Request.of(args, self.ladder.seq_axis)
+        padded = pad_request(req, self.ladder)
+        warmed = 0
+        for b in self.ladder.batch_sizes:
+            if b < req.rows:
+                continue
+            args_b = tuple(pad_rows(p, b) for p in padded)
+            sig = signature_of(args_b)
+            with self._warm_lock:
+                if sig in self._warm or sig in self._warming:
+                    continue
+                self._warming.add(sig)
+            if self._attempt_warm(sig, args_b, reraise=True):
+                warmed += 1
+        return warmed
+
+    def _attempt_warm(self, sig: tuple, args: tuple, *, reraise: bool) -> bool:
+        """Run one compiled-path call for ``sig`` (caller holds the _warming
+        claim) and keep the warm/warming bookkeeping in exactly one place.
+        Failure leaves the bucket cold so a later batch re-triggers a warm."""
+        try:
+            _, report = self.hybrid.call_reported(*args)
+        except Exception:  # noqa: BLE001 — background warms must not raise
+            with self._warm_lock:
+                self._warming.discard(sig)
+            self._stats.record_warm_failure()
+            if reraise:
+                raise
+            return False
+        with self._warm_lock:
+            self._warm.add(sig)
+            self._warming.discard(sig)
+        self._stats.record_warm(report)
+        return True
+
+    def report(self) -> ServerReport:
+        """Snapshot of the serving counters (see :class:`ServerReport`)."""
+        return self._stats.snapshot()
+
+    def close(self) -> None:
+        """Stop accepting, flush and finish all queued work, join workers.
+
+        Every caller joins the dispatcher and worker pools — concurrent
+        closers all block until the server is drained, so "close()
+        returned" always implies "drained" (an early return on ``_closed``
+        would let a second closer race ahead of the first one's join)."""
+        with self._submit_lock:
+            if not self._closed:
+                self._closed = True
+                # under the same lock as submit(): once the sentinel is
+                # queued, no request can land behind it and be stranded
+                self._queue.put(_CLOSE)
+        self._dispatcher.join()
+        self._pool.shutdown(wait=True)
+        self._warm_pool.shutdown(wait=True)
+
+    def __enter__(self) -> "MixedServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- dispatcher ---------------------------------------------------------
+
+    def _dispatch_loop(self) -> None:
+        closing = False
+        while True:
+            try:
+                timeout = self._next_deadline() if self._pending else None
+                try:
+                    item = self._queue.get(timeout=timeout)
+                except queue.Empty:
+                    item = None
+                if item is _CLOSE:
+                    closing = True
+                    # drain whatever raced in before the sentinel
+                    while True:
+                        try:
+                            extra = self._queue.get_nowait()
+                        except queue.Empty:
+                            break
+                        if isinstance(extra, _Pending):
+                            self._enqueue(extra)
+                elif item is _FLUSH or item is None:
+                    pass
+                else:
+                    self._enqueue(item)
+                self._flush_due(force=closing or item is _FLUSH)
+            except Exception as e:  # noqa: BLE001 — the dispatcher must outlive
+                # any one poisoned request: fail whatever was pending and
+                # keep serving (stranded futures would hang clients forever)
+                for items in self._pending.values():
+                    for i in items:
+                        _resolve(i.future, exception=e)
+                self._pending.clear()
+            if closing:
+                return
+
+    def _enqueue(self, item: _Pending) -> None:
+        key = group_key(item.request, self.ladder)
+        self._pending.setdefault(key, []).append(item)
+
+    def _next_deadline(self) -> float:
+        oldest = min(
+            item.submitted for items in self._pending.values() for item in items
+        )
+        return max(0.0, oldest + self.max_batch_delay - time.perf_counter())
+
+    def _flush_due(self, force: bool) -> None:
+        now = time.perf_counter()
+        max_rows = self.ladder.max_batch
+        for key in list(self._pending):
+            items = self._pending[key]
+            while items:
+                rows = sum(i.request.rows for i in items)
+                if rows >= max_rows:
+                    # cut a full bucket off the front; leftovers keep waiting
+                    take, acc = [], 0
+                    for i in items:
+                        if take and acc + i.request.rows > max_rows:
+                            break
+                        take.append(i)
+                        acc += i.request.rows
+                    items = items[len(take):]
+                    self._pending[key] = items
+                    self._submit_batch(take)
+                    continue
+                if force or (now - items[0].submitted >= self.max_batch_delay):
+                    self._pending[key] = []
+                    self._submit_batch(items)
+                    items = []
+                break
+            if not self._pending.get(key):
+                self._pending.pop(key, None)
+
+    def _submit_batch(self, items: list[_Pending]) -> None:
+        batch = coalesce([i.request for i in items], self.ladder)
+        self._pool.submit(self._run_batch, batch, items)
+
+    # -- batch execution (worker threads) -----------------------------------
+
+    def _run_batch(self, batch: Batch, items: list[_Pending]) -> None:
+        try:
+            started = time.perf_counter()
+            waits = [started - i.submitted for i in items]
+            if batch.padded_rows > self.ladder.max_batch:
+                outs, reports, fallbacks, calls, padded = self._run_chunked(batch)
+            else:
+                outs, report, fallback = self._run_sized(batch.args)
+                reports, fallbacks = [report], int(fallback)
+                calls, padded = 1, batch.padded_rows
+            self._stats.record_batch(
+                n_requests=len(items),
+                rows=batch.rows,
+                padded_rows=padded,
+                waits=waits,
+                reports=reports,
+                fallback_calls=fallbacks,
+                calls=calls,
+                splits=calls - 1,
+            )
+            for i, result in zip(items, batch.split(outs)):
+                _resolve(i.future, result=result)
+        except Exception as e:  # noqa: BLE001 — every caller gets the failure;
+            # a stranded future would hang its client forever (_resolve skips
+            # the ones already delivered)
+            for i in items:
+                _resolve(i.future, exception=e)
+
+    def _run_sized(self, args: tuple) -> tuple[tuple, Any, bool]:
+        """One entry call at a ladder-shaped signature: route to the compiled
+        path when the bucket is warm, else serve on the emulator fallback and
+        kick off a background warm.  Returns ``(outs, report, fallback)``."""
+        sig = signature_of(args)
+        with self._warm_lock:
+            warm = sig in self._warm
+            if not warm and sig not in self._warming:
+                self._warming.add(sig)
+                self._warm_pool.submit(self._warm_signature, sig)
+        runner = self.hybrid if warm else self._fallback
+        outs, report = runner.call_reported(*args)
+        return outs, report, not warm
+
+    def _run_chunked(self, batch: Batch):
+        """Serve a batch above the top bucket as top-bucket chunks.
+
+        Without this, an adversarial batch size would run at its natural
+        row count — a brand-new entry signature (and unit "compile") per size,
+        unbounded by the ladder.  Chunking is bit-exact under the same
+        contract as pad/coalesce/split: every op treats axis-0 rows
+        independently, so a row's result doesn't depend on which chunk
+        carried it.  Chunks are padded to ladder buckets, so they reuse the
+        ladder's warm signatures.
+        """
+        mb = self.ladder.max_batch
+        pieces, reports = [], []
+        fallbacks = calls = padded = 0
+        for start in range(0, batch.rows, mb):
+            rows = min(mb, batch.rows - start)
+            bucket = self.ladder.batch_bucket(rows)
+            args = tuple(pad_rows(a[start:start + rows], bucket)
+                         for a in batch.args)
+            outs, report, fallback = self._run_sized(args)
+            # trim chunk padding now; non-row (0-d) outputs pass through
+            # (identical per chunk for batch-parallel programs)
+            pieces.append(tuple(np.asarray(o)[:rows] if np.ndim(o) else o
+                                for o in outs))
+            reports.append(report)
+            fallbacks += int(fallback)
+            calls += 1
+            padded += bucket
+        outs = tuple(
+            np.concatenate([p[j] for p in pieces], axis=0)
+            if np.ndim(pieces[0][j]) else pieces[0][j]
+            for j in range(len(pieces[0]))
+        )
+        return outs, reports, fallbacks, calls, padded
+
+    def _warm_signature(self, sig: tuple) -> None:
+        """Background bucket compilation: one dummy call on the compiled path.
+
+        Runs on the dedicated warm thread so in-flight requests keep flowing
+        through the emulator fallback instead of blocking on the first-
+        signature unit calls.  A failed
+        warm leaves the bucket on the fallback path (the next batch of this
+        shape re-triggers a warm attempt) rather than routing traffic onto a
+        compiled path known to be broken.
+        """
+        dummy = tuple(np.zeros(a.shape, a.dtype) for a in sig)
+        self._attempt_warm(sig, dummy, reraise=False)
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +526,7 @@ class _PendingStream:
 class DecodeScheduler:
     """Continuous (in-flight) batching for autoregressive decode loops.
 
-    Where request-level serving amortizes the paper's fixed guest→host
+    Where :class:`MixedServer` amortizes the paper's fixed guest→host
     crossing cost across *requests*, a decode loop pays that cost once per
     **token**: every step is a tiny entry call, and serving N streams
     request-style costs N crossing-sets per token position.  This scheduler
@@ -381,12 +777,12 @@ class DecodeScheduler:
         self.eos = eos
         # Grace period after an idle wake-up before the first admission, so
         # a burst of submissions coalesces into one batched prefill (the
-        # decode-side analogue of request batching's max_batch_delay).  Never
+        # decode-side analogue of MixedServer's max_batch_delay).  Never
         # applied while steps are running — mid-flight admission stays eager.
         self.admit_delay = float(admit_delay)
 
         self._stats = DecodeStats()
-        # same backpressure contract as request-level serving: submit() blocks once
+        # same backpressure contract as MixedServer: submit() blocks once
         # this many streams are outstanding (queued, pending, or live);
         # capacity releases as each stream's future resolves
         self._capacity_sem = threading.BoundedSemaphore(max_pending)

@@ -4,8 +4,6 @@ planner↔verifier differential on every exported program × every Scheme axis
 combination, the crossing bound checked against *measured* crossings (units
 on the CPU), exactness-contract corruption fixtures, the
 `plan(verify=True)` rejection path, and the tightened repeat validation.
-Where the reference uses ``export_decode_lm`` (not ported), the port's
-recurrent-state export, ``export_mamba2_decode_lm``, takes its place.
 
 Then the parity with the JAX package: on every target of
 ``python -m repro_torch.bench.analyze`` under every scheme, the port's
@@ -148,7 +146,7 @@ def test_dataflow_repeat_carry_counts_as_use():
 
 def test_shipped_exports_have_no_dataflow_warnings():
     # the dead-code satellite: model exports must be clean under the lint
-    for prog in (programs.export_mamba2_decode_lm(), programs.export_attn_decode_lm()):
+    for prog in (programs.export_decode_lm(), programs.export_attn_decode_lm()):
         rep = analyze(prog, "tech-gfp", passes=("dataflow",))
         assert rep.warnings == [], f"{prog.name}: {rep.warnings}"
 
@@ -161,7 +159,7 @@ def test_shipped_exports_have_no_dataflow_warnings():
 @pytest.mark.parametrize("scheme", ALL_SCHEME_NAMES)
 def test_differential_agrees_on_exports(scheme):
     progs = [
-        programs.export_mamba2_decode_lm(),
+        programs.export_decode_lm(),
         programs.export_attn_decode_lm(),
         hot_loop_program()[0],
     ]
@@ -322,7 +320,7 @@ def test_shipped_decode_roots_are_exact():
     assert verdicts["K"] == verdicts["V"] == "cache-pass-through"
     assert not rep.by_code("RA401") and not rep.by_code("RA403")
     # recurrent rank-2 state is exempt from the cache contract
-    rep2 = analyze(programs.export_mamba2_decode_lm(), "tech-gfp",
+    rep2 = analyze(programs.export_decode_lm(), "tech-gfp",
                    example_args=_attn_tokens())
     assert not rep2.by_code("RA401") and rep2.ok
 
@@ -484,6 +482,10 @@ def _reference_program(name: str):
     from repro.workloads import LIBRARY_FUNCTIONS as JLIBS
     from repro.workloads.libs import build_library_app, library_unit_filter
 
+    if name == "decode-lm":
+        return jprograms.export_decode_lm(), None
+    if name == "moe-decode-lm":
+        return jprograms.export_moe_decode_lm(), None
     if name == "attn-decode-lm":
         return jprograms.export_attn_decode_lm(), None
     if name == "mamba2-decode-lm":
@@ -543,7 +545,35 @@ def test_analyze_gate_passes_against_the_baseline(capsys):
     assert main(["--all", "--strict"]) == 0
     out = capsys.readouterr().out
     assert "all targets clean" in out
-    assert "decode-lm" in out and "moe-decode-lm" in out    # named, not ported
+    for name in ("decode-lm", "moe-decode-lm"):             # analyzed, not skipped
+        assert any(line.split()[:2] == [name, "ok"] for line in out.splitlines())
+    assert "skip" not in out
+
+
+def test_analyze_cli_strict_skips_nothing_and_matches_the_baseline():
+    """``python -m repro_torch.bench.analyze --all --strict`` runs every
+    baseline target, ``decode-lm`` and ``moe-decode-lm`` included, and its
+    warning counts equal ``ANALYSIS_baseline.json``'s for those two."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.bench.analyze", "--all", "--strict"],
+        cwd=root, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "skip" not in res.stdout
+    baseline = json.loads((root / "ANALYSIS_baseline.json").read_text())["targets"]
+    ran = {line.split()[0]: line for line in res.stdout.splitlines()
+           if len(line.split()) >= 2 and line.split()[1] == "ok"}
+    assert set(baseline) <= set(ran)
+    for name in ("decode-lm", "moe-decode-lm"):
+        want = sum(baseline[name].values())
+        assert f"warnings={want}" in ran[name]
 
 
 def test_mixed_exports_analysis_entry_points():
