@@ -53,8 +53,13 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    plain versions on the card: the reference's kernel cases
    (``tests/test_kernels.py``) plus every shape the dense, mixed and paged
    paths and their float32 gates give the kernels, short last tiles and
-   causal T < S and T > S, and RMSNorm at the train
-   step's (8, 1024, 960) rows, float32 at
+   causal T < S and T > S, RMSNorm at the train
+   step's (8, 1024, 960) rows, and phase 18's shapes (Granite's GQA group 2
+   and DBRX's group 6 at d = 128, SeamlessM4T's unmasked encoder and
+   cross-attention at T = 512 against S = 128, Phi-3-vision's d = 96 forward
+   and flash-decode, DBRX's d_model 6144 norms; DBRX's flash-decode on
+   ``"simt"``, its group of 6 at d = 128 exceeding the split body's q
+   registers), float32 at
    2e-5 (RMSNorm 1e-5) and bfloat16 at 2e-2; the forward with statistics
    (o, m, l) on the same attention cases (float32 2e-4); every flash launch
    on the route ``flash_route`` gives (bf16 at d % 16 == 0: ``"wgmma"``;
@@ -208,6 +213,30 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    launches on ``"tf32x3"`` in the eager and in the loaded units.  Boot
    walls cold and warm, blobs and bytes, tokens/s, tokens per crossing,
    step p50 per worker.
+18. The rest of the zoo at full width (configuration 10), bf16 compute,
+   tp=1, random weights from a seeded CUDA generator, 8 prompts of 512
+   tokens: (a) Granite MoE uncut, 32 new tokens, through
+   ``greedy_generate``; (b) DBRX at its widths with 2 of its 40 layers
+   (its bf16 weights alone are about 264 GB), 8 new; (c) SeamlessM4T uncut
+   with 128 stubbed frames and (d) Phi-3-vision uncut with 576 stubbed
+   patches, 32 new each, through ``api.prefill``/``api.decode`` (the
+   reference's ``greedy_generate`` feeds tokens only); (e) xLSTM uncut, 32
+   new.  Gates: every launch counted per prefill and per step (flash on
+   ``"wgmma"``, RMSNorm on ``"vec"``, flash-decode on ``"split"``, DBRX's
+   on ``"simt"``; SeamlessM4T's flash calls split into causal and
+   unmasked), timed tokens equal the counted run's, and float32
+   teacher-forcing gates (5e-3): MoE at capacity E/k, SeamlessM4T with
+   frames whose length is not ``enc_len_for`` of the cache's (the cross
+   caches replaced), Phi-3-vision over its patches, xLSTM at 16 tokens (its
+   sLSTM recurrence at the reference's init is chaotic) plus its first
+   mLSTM block's chunked form against its own recurrence over 512 tokens.
+   Prefill ms, step p50, peak memory, MoE's dropped (token, k) pairs at
+   capacity 1.25, and profiler windows of a prefill and a step (MoE's
+   routing, dispatch, expert products, combine and attention as ranges).
+   Then the flash forward at Phi-3's prefill (d = 96), SeamlessM4T's
+   cross-attention and DBRX's prefill, flash-decode at Phi-3's step and
+   RMSNorm at Phi-3's and DBRX's prefill rows, each against its bound, its
+   plain version and one PyTorch call.
 
 The last lines are a ``kernels`` JSON line (every row with its
 ``launches_by_route``; rows 1 and 2 with the old body's ``simt_ms``, their
@@ -218,7 +247,9 @@ float32 gate's routes and its float32 timing under ``float32``; rows 3
 and 7 with fig. 7's readings and routes under ``fig7``, phase 16's
 routes under ``served`` and the operators' cost per call under
 ``dispatch``; row 3 with phase 17's eager and loaded routes under
-``aot_cluster``), the card's name and power limit, and ``{"ok": true, "device": {...}}``.  The script needs the repo's
+``aot_cluster``; rows 2, 3 and 7 with phase 18's launches by route per
+run and their times at its shapes under ``zoo``), the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.  The script needs the repo's
 ``src/`` beside it and a CUDA device; without either it exits non-zero and
 prints no result.
 """
@@ -264,6 +295,23 @@ GATE_B, GATE_PROMPT, GATE_STEPS = 2, 300, 4     # the hybrid float32 gate
 HYB_CACHE = HYBRID_PROMPT + HYBRID_NEW + 1      # 1057 positions
 # the training path: SmolLM-360M uncut, 6 steps of 8 x 1024 tokens
 TRAIN_ARCH, TRAIN_B, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = "smollm-360m", 8, 1024, 6, 3e-4
+# the rest of the zoo at full width (phase 18): 8 prompts of 512 tokens each,
+# run: (arch, layers or None for uncut, new tokens)
+ZOO_RUNS = {"a": ("granite-moe-1b-a400m", None, 32),
+            "b": ("dbrx-132b", 2, 8),            # depth cut 40 -> 2 (264 GB of bf16 weights)
+            "c": ("seamless-m4t-large-v2", None, 32),
+            "d": ("phi-3-vision-4.2b", None, 32),
+            "e": ("xlstm-350m", None, 32)}
+ZOO_B, ZOO_PROMPT, ZOO_FRAMES, ZOO_PATCHES = 8, 512, 128, 576
+ZOO_GATE_B = 2                                 # the float32 teacher-forcing gates
+ZOO_GATE_FRAMES = 128        # != enc_len_for(the gate's cache), 136: the cross caches replaced
+# xLSTM at the reference's random init is chaotic: the sLSTM recurrence (rh
+# at std 1/sqrt(4) over 256 inputs a head) grows a float32 rounding
+# difference about tenfold every 16 tokens, to O(1) by token ~48.  So its
+# gate runs at the reference test's length (tests/test_models.py: 16 tokens
+# and a step), and the mLSTM's multi-chunk form is held against its own
+# step-by-step recurrence over ZOO_PROMPT tokens.
+XLSTM_GATE_PROMPT, XLSTM_GATE_STEPS = 16, 1
 # the reference's BWD_CASES (tests/test_profiling_and_flash_bwd.py), a short
 # last tile at Qwen2's head dim, and the train step's attention:
 # (B, Hq, Hkv, T, d, causal)
@@ -285,6 +333,17 @@ ATTN_CASES = [  # (B, Hq, Hkv, T, S, d, causal)
     # short last tiles of both bodies, causal with T < S and T > S
     (2, 6, 2, 300, 513, HYB_HD, True), (2, 3, 3, 513, 300, 128, True),
     (1, 4, 4, 300, 300, 16, False),
+    # the zoo's prefills (phase 18) and their float32 gates' teacher forcing
+    (ZOO_B, 16, 8, ZOO_PROMPT, ZOO_PROMPT, 64, True),               # Granite, group 2
+    (ZOO_GATE_B, 16, 8, ZOO_PROMPT + 1, ZOO_PROMPT + 1, 64, True),
+    (ZOO_B, 48, 8, ZOO_PROMPT, ZOO_PROMPT, 128, True),              # DBRX, group 6
+    (ZOO_B, 16, 16, ZOO_FRAMES, ZOO_FRAMES, 64, False),             # seamless encoder
+    (ZOO_B, 16, 16, ZOO_PROMPT, ZOO_PROMPT, 64, True),              # its decoder
+    (ZOO_B, 16, 16, ZOO_PROMPT, ZOO_FRAMES, 64, False),             # its cross-attention
+    (ZOO_GATE_B, 16, 16, ZOO_PROMPT + 1, ZOO_GATE_FRAMES, 64, False),
+    (ZOO_B, 32, 32, ZOO_PATCHES + ZOO_PROMPT, ZOO_PATCHES + ZOO_PROMPT, 96, True),  # phi-3
+    (ZOO_GATE_B, 32, 32, ZOO_PATCHES + ZOO_PROMPT + 1, ZOO_PATCHES + ZOO_PROMPT + 1,
+     96, True),
 ]
 DECODE_CASES = [  # (B, Hq, Hkv, S, d, pos)
     (1, 2, 2, 256, 32, 255), (2, 4, 1, 512, 64, 300), (1, 8, 2, 128, 16, 64),
@@ -294,12 +353,32 @@ DECODE_CASES = [  # (B, Hq, Hkv, S, d, pos)
     (GATE_B, HYB_HEADS, HYB_HEADS, GATE_PROMPT + GATE_STEPS + 1, HYB_HD,
      GATE_PROMPT + GATE_STEPS - 1),                   # the hybrid gate's last step
 ]
+# the zoo's step shapes with the route each takes: DBRX's group of 6 at
+# d = 128 needs more q registers than the split body holds (decode_route)
+ZOO_DECODE_CASES = [  # (B, Hq, Hkv, S, d, pos), route
+    ((ZOO_B, 16, 8, ZOO_PROMPT + 33, 64, ZOO_PROMPT + 16), "split"),    # Granite
+    ((ZOO_B, 48, 8, ZOO_PROMPT + 9, 128, ZOO_PROMPT + 4), "simt"),      # DBRX
+    ((ZOO_B, 16, 16, ZOO_PROMPT + 33, 64, ZOO_PROMPT + 16), "split"),   # seamless self
+    ((ZOO_B, 16, 16, ZOO_FRAMES, 64, ZOO_FRAMES - 1), "split"),         # its cross
+    ((ZOO_B, 32, 32, ZOO_PATCHES + ZOO_PROMPT + 33, 96, ZOO_PATCHES + ZOO_PROMPT + 16),
+     "split"),                                                          # phi-3, 384 B rows
+    ((ZOO_GATE_B, 16, 8, ZOO_PROMPT + 4, 64, ZOO_PROMPT), "split"),     # the gates' steps
+    ((ZOO_GATE_B, 32, 32, ZOO_PATCHES + ZOO_PROMPT + 4, 96, ZOO_PATCHES + ZOO_PROMPT),
+     "split"),
+]
 RMS_SHAPES = [(8, 64), (3, 5, 128), (256, 32),
               (DENSE_B * DENSE_PROMPT, 960), (DENSE_B, 960),
               (DENSE_B, DENSE_PROMPT + 1, 960), (MIXED_B, MIXED_SEQ, 960),
               (HYBRID_B, HYBRID_PROMPT, HYB_D), (HYBRID_B, 1, HYB_D),
               (GATE_B, GATE_PROMPT + GATE_STEPS, HYB_D),
-              (TRAIN_B, TRAIN_SEQ, 960)]                      # the train step's norms
+              (TRAIN_B, TRAIN_SEQ, 960),                      # the train step's norms
+              (ZOO_B, ZOO_PROMPT, 1024), (ZOO_B, 1, 1024),     # Granite, xLSTM
+              (ZOO_GATE_B, ZOO_PROMPT + 1, 1024),
+              (ZOO_B, ZOO_PATCHES + ZOO_PROMPT, 3072), (ZOO_B, 1, 3072),   # phi-3
+              (ZOO_GATE_B, ZOO_PATCHES + ZOO_PROMPT + 1, 3072)]
+# DBRX's d_model 6144: 768 bf16 vectors on vec; 1536 float32 ones exceed the
+# body's 1024 (rmsnorm_route), which DBRX never runs (no float32 gate)
+ZOO_WIDE_RMS = [(ZOO_B, ZOO_PROMPT, 6144), (ZOO_B, 1, 6144)]
 # the reference's SSD cases (tests/test_kernels.py) and the hybrid path's shapes:
 # (B, T, H, P, N, chunk)
 SSD_CASES = [(1, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32), (1, 96, 1, 64, 64, 32),
@@ -635,10 +714,13 @@ def prefill_routes(torch, prefill, prompts) -> None:
 
 
 def profile_steps(torch, fn, steps: int,
-                  label: str = "solo steps + prefill at the serving shape"):
+                  label: str = "solo steps + prefill at the serving shape",
+                  ranges: tuple = ()):
     """Run ``fn`` under the torch profiler and print where the device time
     of its ``steps`` steps goes: device busy time by operation, per step,
-    and the device's idle share of the window's wall time."""
+    and the device's idle share of the window's wall time.  ``ranges`` names
+    ``record_function`` ranges opened inside ``fn``: each one's device time
+    (its kernels' and its children's) is printed as a row of its own."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -651,8 +733,8 @@ def profile_steps(torch, fn, steps: int,
     for ev in prof.key_averages():
         # device-side events only: a host op's device total repeats the
         # time of the kernels and copies it launched
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.key in ranges:
+            continue          # a range's device-side span is not busy time
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0)
@@ -668,6 +750,12 @@ def profile_steps(torch, fn, steps: int,
         f"{1 - busy_ms / wall_ms:.3f}; per step, by device time:")
     for ms, count, name in rows[:8]:
         log(f"#   {ms / steps:9.4f} ms/step  {count:5d} calls  {name[:70]}")
+    for name in ranges:
+        evs = [ev for ev in prof.events() if ev.name == name
+               and ev.device_type == torch.autograd.DeviceType.CPU]
+        ms = sum(ev.device_time_total for ev in evs) / 1e3
+        log(f"#   range {name}: {ms / steps:9.4f} ms/step of device time, "
+            f"{len(evs)} calls" if ms > 0 else f"#   range {name}: not measured")
     return out
 
 
@@ -947,13 +1035,15 @@ def phase_dense_kernels(torch) -> dict:
             check(torch.equal(flash_attention_kernel(q, k, tv[2], causal=causal), got),
                   "flash: v with other strides than k differs")
         for qd, kd in ((dtype, dtype), (torch.bfloat16, torch.float32)):
-            for B, Hq, Hkv, S, d, pos in DECODE_CASES:
+            for (B, Hq, Hkv, S, d, pos), want in ([(c, "split") for c in DECODE_CASES]
+                                                  + ZOO_DECODE_CASES):
                 q = _randn(torch, (B, Hq, 1, d), qd, 3, dev)
                 ck = _randn(torch, (B, S, Hkv, d), kd, 4, dev)   # the model's layout
                 cv = _randn(torch, (B, S, Hkv, d), kd, 5, dev)
                 kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
                 route = decode_route(kd, d, Hq // Hkv, kt, vt)
-                check(route == "split", f"decode route {route} at {(B, Hq, Hkv, S, d, kd)}")
+                check(route == want, f"decode route {route} != {want} at "
+                      f"{(B, Hq, Hkv, S, d, kd)}")
                 for p in (pos, -1):
                     pt = torch.tensor([p], dtype=torch.int32, device=dev)
                     args = (q, kt, vt, pt)
@@ -965,7 +1055,9 @@ def phase_dense_kernels(torch) -> dict:
                         check(torch.all(got == 0.0), "decode: pos < 0 not exact zeros")
         # every shape of the paths on the vec body; an odd D and an offset
         # view (one element past a 16-byte boundary) on the scalar one
+        wide = "vec" if dtype == torch.bfloat16 else "scalar"
         for shape, offset, route in ([(shape, False, "vec") for shape in RMS_SHAPES]
+                                     + [(shape, False, wide) for shape in ZOO_WIDE_RMS]
                                      + [((7, 963), False, "scalar"),
                                         ((4, 960), True, "scalar")]):
             x = _randn(torch, shape, dtype, 6, dev)
@@ -1231,8 +1323,8 @@ def _tree_map(fn, tree):
 
 
 def _tensors(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        if isinstance(v, (dict, list)):
             yield from _tensors(v)
         else:
             yield v
@@ -1322,7 +1414,7 @@ def _bound(nbytes, flops, peak):
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
-def _cuda_core_call(q, k, v, stats: bool):
+def _cuda_core_call(q, k, v, stats: bool, causal: bool = True):
     """A call of the CUDA-core body (``attention_tile.cuh``, which ran every
     bfloat16 launch before the tensor-core body) through its C entry, on
     inputs the wrappers route to the tensor-core body: timed beside it in
@@ -1349,13 +1441,13 @@ def _cuda_core_call(q, k, v, stats: bool):
         def call():
             check(lib.flash_attention_fwd_stats(
                 ptr(q), ptr(k), ptr(v), ptr(o), ptr(m), ptr(l), code, B, Hq, Hkv, T, S, d,
-                sa, 1, scale, st) == 0, "CUDA-core forward with statistics failed")
+                sa, int(causal), scale, st) == 0, "CUDA-core forward with statistics failed")
         return call, (o, m, l)
     lib, ss = fa._library(), [x for t in (q, k, v) for x in strides(t)[:3]]
 
     def call():
         check(lib.flash_attention_fwd(ptr(q), ptr(k), ptr(v), ptr(o), code, B, Hq, Hkv, T,
-                                      S, d, *ss, 1, scale, st) == 0,
+                                      S, d, *ss, int(causal), scale, st) == 0,
               "CUDA-core flash forward failed")
     return call, (o,)
 
@@ -1448,14 +1540,16 @@ def decode_timing(torch, q, k, v, pos, flush, reps: int, bound, by, work, shape,
         library="sdpa with a kpos <= pos mask", shape=shape, work=work)
 
 
-def flash_timing(torch, q, k, v, flush, reps: int, *, stats: bool) -> dict:
+def flash_timing(torch, q, k, v, flush, reps: int, *, stats: bool,
+                 causal: bool = True) -> dict:
     """Row 3 (``stats`` False: ``flash_attention_kernel``) or row 4
-    (``flash_attention_fwd_stats_kernel``) at one causal shape: the kernel as
-    routed, the CUDA-core body on the same inputs (``cuda_core_ms``), the
-    plain version, and ``scaled_dot_product_attention``'s forward, beside the
-    bound: q, k, v read once, o (and m, l) written once, 4*d flops per
-    visible (query, key) pair on the tensor cores (bf16: 989 TFLOP/s;
-    float32 on the ``"tf32x3"`` route: the TF32 peak over three)."""
+    (``flash_attention_fwd_stats_kernel``) at one shape, causal (T == S) or
+    not: the kernel as routed, the CUDA-core body on the same inputs
+    (``cuda_core_ms``), the plain version, and
+    ``scaled_dot_product_attention``'s forward, beside the bound: q, k, v
+    read once, o (and m, l) written once, 4*d flops per visible (query, key)
+    pair on the tensor cores (bf16: 989 TFLOP/s; float32 on the
+    ``"tf32x3"`` route: the TF32 peak over three)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention_bwd as fab
@@ -1463,20 +1557,21 @@ def flash_timing(torch, q, k, v, flush, reps: int, *, stats: bool) -> dict:
         flash_attention_kernel, flash_attention_plain, flash_route)
 
     B, Hq, T, d = q.shape
+    S = k.shape[2]
     if stats:
         def kern():
-            return fab.flash_attention_fwd_stats_kernel(q, k, v)
+            return fab.flash_attention_fwd_stats_kernel(q, k, v, causal=causal)
 
         def plain():
-            return fab.flash_attention_fwd_stats_plain(q, k, v)
+            return fab.flash_attention_fwd_stats_plain(q, k, v, causal=causal)
     else:
         def kern():
-            return (flash_attention_kernel(q, k, v),)
+            return (flash_attention_kernel(q, k, v, causal=causal),)
 
         def plain():
-            return (flash_attention_plain(q, k, v),)
+            return (flash_attention_plain(q, k, v, causal=causal),)
     got, want = kern(), plain()
-    core, core_out = _cuda_core_call(q, k, v, stats)
+    core, core_out = _cuda_core_call(q, k, v, stats, causal)
     core()
     torch.cuda.synchronize()
     err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
@@ -1484,7 +1579,7 @@ def flash_timing(torch, q, k, v, flush, reps: int, *, stats: bool) -> dict:
                    for g, w in zip(core_out, want))
     nbytes = (q.element_size() * (2 * q.numel() + k.numel() + v.numel())
               + (8 * B * Hq * T if stats else 0))
-    flops = 4 * B * Hq * d * (T * (T + 1) // 2)
+    flops = 4 * B * Hq * d * (T * (T + 1) // 2 if causal else T * S)
     route = flash_route(q.dtype, d)
     bound, by = _bound(nbytes, flops,
                        H100_TF32X3_FLOPS if route == "tf32x3" else H100_BF16_FLOPS)
@@ -1493,10 +1588,11 @@ def flash_timing(torch, q, k, v, flush, reps: int, *, stats: bool) -> dict:
         cuda_core_ms=time_ms(torch, core, max(reps // 5, 3), flush),
         plain_ms=time_ms(torch, plain, max(reps // 5, 3), flush),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), reps, flush),
+            q, k, v, is_causal=causal, enable_gqa=True), reps, flush),
         library="sdpa forward", bound_ms=bound, bound_by=by, max_abs_err=err,
         cuda_core_err=core_err, route=route,
-        shape=f"q {tuple(q.shape)}, k,v {tuple(k.shape)} {str(q.dtype)[6:]} causal",
+        shape=f"q {tuple(q.shape)}, k,v {tuple(k.shape)} {str(q.dtype)[6:]} "
+              f"{'causal' if causal else 'unmasked'}",
         work=f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP")
 
 
@@ -2897,6 +2993,407 @@ def phase_cluster(torch) -> dict:
     return {"flash": flash, "prefill_groups": groups}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the rest of the zoo at full width (configuration 10)
+# ---------------------------------------------------------------------------
+
+def _zoo_launches(cfg, *, prefills: int, steps: int) -> dict:
+    L = cfg.n_layers
+    if cfg.family == "encdec":      # LayerNorm; cross-attention in prefill and step
+        norms, flash, dec = 0, cfg.n_enc_layers + 2 * L, 2 * L
+    elif cfg.family == "ssm":       # a norm per block and ln_f; no attention
+        norms, flash, dec = L + 1, 0, 0
+    else:                           # moe, vlm: the dense decoder's layout
+        norms, flash, dec = 2 * L + 1, L, L
+    return {"rmsnorm": norms * (prefills + steps), "flash_attention": flash * prefills,
+            "decode_attention": dec * steps, "paged_decode_attention": 0, "ssd_scan": 0,
+            **NO_TRAIN_LAUNCHES}
+
+
+def _zoo_extra(cfg, B: int, rng, frames: int = ZOO_FRAMES) -> dict:
+    """The stubbed frontend's input, drawn as ``make_batch`` draws floats
+    (normal x 0.1): encdec's frames (B, frames, d_model), vlm's patches
+    (B, n_patches, D_PATCH); nothing for the token-only families."""
+    from repro_torch.models import vlm
+
+    if cfg.family == "encdec":
+        shape = (B, frames, cfg.d_model)
+    elif cfg.family == "vlm":
+        shape = (B, cfg.n_patches, vlm.D_PATCH)
+    else:
+        return {}
+    key = "frames" if cfg.family == "encdec" else "patches"
+    return {key: rng.standard_normal(shape).astype(np.float32) * 0.1}
+
+
+def zoo_generate(torch, cfg, params, prompt, extra: dict, steps: int):
+    """Greedy tokens (B, steps + 1) as a caller gets them: ``greedy_generate``
+    for the token-only families; for encdec and vlm, which it does not
+    serve (it feeds tokens only, as the reference's), ``api.prefill`` with
+    the frames or patches and then ``api.decode`` steps."""
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models import api
+
+    if not extra:
+        return greedy_generate(cfg, params, prompt, steps=steps, tp=1)
+    B, T = prompt.shape
+    cache = api.init_cache(cfg, B, T + steps + 1, tp=1,
+                           device=params["embed"]["table"].device)
+    logits, cache = api.prefill(cfg, params, {"tokens": prompt, **extra}, cache, tp=1)
+    tok = torch.argmax(logits[..., :cfg.vocab], dim=-1).to(torch.int32)
+    out = [tok]
+    for _ in range(steps):
+        logits, cache = api.decode(cfg, params, cache, {"token": tok}, tp=1)
+        tok = torch.argmax(logits[..., :cfg.vocab], dim=-1).to(torch.int32)
+        out.append(tok)
+    return torch.cat(out, dim=1).cpu().numpy()
+
+
+class _Spies:
+    """Watchers on a counted run, each restored on exit: the flash calls'
+    ``causal`` flags (``ops.flash_attention`` wrapped) and, for MoE, each
+    ``moe.route`` call's dropped and total (token, k) pairs, split into
+    prefill (more tokens than the batch) and decode calls."""
+
+    def __init__(self, batch: int):
+        from repro_torch.kernels import ops
+        from repro_torch.models import moe
+
+        self.ops, self.moe, self.batch = ops, moe, batch
+        self.causal = {True: 0, False: 0}
+        self.pairs = {"prefill": [], "decode": []}
+        self.shipped = (ops.flash_attention, moe.route)
+
+    def __enter__(self):
+        flash, route = self.shipped
+
+        def spy_flash(q, k, v, *, causal=True, scale=None):
+            self.causal[bool(causal)] += 1
+            return flash(q, k, v, causal=causal, scale=scale)
+
+        def spy_route(cfg, lp, xf):
+            out = route(cfg, lp, xf)
+            keep = out[3]
+            kind = "prefill" if xf.shape[0] > self.batch else "decode"
+            self.pairs[kind].append((keep.numel() - keep.sum(), keep.numel()))
+            return out
+
+        self.ops.flash_attention, self.moe.route = spy_flash, spy_route
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention, self.moe.route = self.shipped
+
+    def dropped(self) -> dict:
+        """{kind: (dropped pairs, pairs)} over the run."""
+        return {kind: (int(sum(int(d) for d, _ in v)), int(sum(n for _, n in v)))
+                for kind, v in self.pairs.items() if v}
+
+
+class _Ranges:
+    """``record_function`` ranges around the attention sublayers (prefill
+    and step) and, for MoE, the routing, dispatch, expert products and
+    combine, for a profiler window; restored on exit."""
+
+    MOE = ("route", "dispatch", "experts", "combine")
+
+    def __init__(self, cfg):
+        from repro_torch.models import layers, moe
+
+        self.targets = [(layers, "attention_full", "attention"),
+                        (layers, "attention_decode", "attention")]
+        if cfg.family == "moe":
+            self.targets += [(moe, f, f"moe.{f}") for f in self.MOE]
+        self.names = tuple(dict.fromkeys(label for _, _, label in self.targets))
+        self.saved = [(mod, f, getattr(mod, f)) for mod, f, _ in self.targets]
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        for (mod, f, label), (_, _, fn) in zip(self.targets, self.saved):
+            def wrapped(*a, _fn=fn, _label=label, **kw):
+                with record_function(_label):
+                    return _fn(*a, **kw)
+            setattr(mod, f, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, f, fn in self.saved:
+            setattr(mod, f, fn)
+
+
+def _zoo_run(torch, run: str, arch: str, layers, new: int) -> dict:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import api
+
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    params = api.init(cfg, torch.Generator(device=dev).manual_seed(SEED), tp=1, device=dev)
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in _tensors(params))
+    what = {"moe": f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, d_ff_expert "
+                   f"{cfg.moe.d_ff_expert}" if cfg.moe else "",
+            "encdec": f"{cfg.n_enc_layers} encoder layers, d_ff {cfg.d_ff}",
+            "vlm": f"{cfg.n_patches} patches, d_ff {cfg.d_ff}",
+            "ssm": f"an sLSTM block every {cfg.xlstm.slstm_every} layers" if cfg.xlstm else ""}[cfg.family]
+    log(f"# zoo run {run}: {cfg.name} ({L} layers{' (cut)' if layers else ''}, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}q/{cfg.n_kv_heads}kv heads of {cfg.head_dim_}, "
+        f"{what}, vocab {cfg.vocab}, {cfg.compute_dtype} compute), "
+        f"{nparams / 1e6:.1f} M params ({nparams * 4 / 1e9:.2f} GB f32), init "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED + 20 + ord(run) - ord("a"))
+    prompt = rng.integers(0, cfg.vocab, (ZOO_B, ZOO_PROMPT), dtype=np.int32)
+    extra = _zoo_extra(cfg, ZOO_B, rng)
+    zoo_generate(torch, cfg, params, prompt[:, :16], extra, 2)          # warm-up
+    torch.cuda.synchronize()
+
+    # the main path, counted: as a caller drives it
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with _Spies(ZOO_B) as spies:
+        tokens = zoo_generate(torch, cfg, params, prompt, extra, new)
+    wall = time.perf_counter() - t0
+    launches, routes = _counts(), _routes()
+    peak = torch.cuda.max_memory_allocated()
+    check(tokens.shape == (ZOO_B, new + 1) and tokens.dtype == np.int32,
+          (tokens.shape, tokens.dtype))
+    check(np.all((0 <= tokens) & (tokens < cfg.vocab)), "token out of range")
+    want = _zoo_launches(cfg, prefills=1, steps=new)
+    check(launches == want, f"zoo run {run}: launches {launches} != {want}")
+    check_routes(routes, "flash_attention", f"zoo run {run} prefill (bf16)",
+                 wgmma=want["flash_attention"])
+    check_routes(routes, "rmsnorm", f"zoo run {run} (bf16)", vec=want["rmsnorm"])
+    # DBRX's group of 6 at d = 128 exceeds the split body's q registers
+    dec_route = "simt" if cfg.name == "dbrx-132b" else "split"
+    check_routes(routes, "decode_attention", f"zoo run {run} decode",
+                 **{dec_route: want["decode_attention"]})
+    if cfg.family == "encdec":
+        split = {True: L, False: cfg.n_enc_layers + L}
+        check(spies.causal == split, f"seamless flash calls by causal {spies.causal} != {split}")
+    drops = spies.dropped()
+
+    # the same steps timed one by one, with their launch counts
+    put = {k: torch.as_tensor(v, device=dev) for k, v in extra.items()}
+    batch = {"tokens": torch.as_tensor(prompt, device=dev), **put}
+    prefill, decode = make_prefill_step(cfg, tp=1), make_decode_step(cfg, tp=1)
+    cache = api.init_cache(cfg, ZOO_B, ZOO_PROMPT + new + 1, tp=1, device=dev)
+    before = _counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch, cache)
+    tok = torch.argmax(logits[..., :cfg.vocab], dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    delta = {k: v - before[k] for k, v in _counts().items()}
+    check(delta == _zoo_launches(cfg, prefills=1, steps=0), f"prefill launches {delta}")
+    step_ms, out = [], [tok]
+    for _ in range(new):
+        before = _counts()
+        t0 = time.perf_counter()
+        logits, cache = decode(params, cache, {"token": tok})
+        tok = torch.argmax(logits[..., :cfg.vocab], dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        delta = {k: v - before[k] for k, v in _counts().items()}
+        check(delta == _zoo_launches(cfg, prefills=0, steps=1), f"step launches {delta}")
+        out.append(tok)
+    timed = torch.cat(out, dim=1).cpu().numpy()
+    check(np.array_equal(timed, tokens), f"zoo run {run}: timed tokens != the counted run's")
+    # the VLM's cache and positions cover the patches before the text
+    first = ZOO_PROMPT + (cfg.n_patches if cfg.family == "vlm" else 0)
+    check(int(cache["pos"]) == first + new, f"zoo run {run}: pos {int(cache['pos'])}")
+    if cfg.family == "vlm":
+        check(cache["k"].shape[2] == first + new + 1, f"vlm cache {tuple(cache['k'].shape)}")
+    p50 = float(np.median(step_ms))
+    drop_txt = "".join(f"; pairs dropped at capacity {cfg.moe.capacity_factor} in {kind} "
+                       f"{d}/{n} = {d / n:.4f}" for kind, (d, n) in drops.items())
+    log(f"# zoo run {run} ({cfg.name}): {ZOO_B} x {ZOO_PROMPT}-token prompts"
+        f"{' + ' + ', '.join(f'{k} {tuple(v.shape[1:])}' for k, v in extra.items()) if extra else ''}"
+        f", {new} new tokens each: generation {wall * 1e3:.1f} ms = "
+        f"{ZOO_B * (new + 1) / wall:.1f} tokens/s; prefill {prefill_ms:.2f} ms, decode "
+        f"step p50 {p50:.3f} ms (min {min(step_ms):.3f}, max {max(step_ms):.3f}); "
+        f"launches {launches}; routes flash {routes['flash_attention']}, decode "
+        f"{routes['decode_attention']}, rmsnorm {routes['rmsnorm']}"
+        + (f"; flash calls causal/unmasked {spies.causal[True]}/{spies.causal[False]}"
+           if cfg.family == "encdec" else "")
+        + f"{drop_txt}; max_memory_allocated {peak / 2**20:.1f} MiB")
+
+    # where the time goes: one prefill, then one decode step
+    cache = api.init_cache(cfg, ZOO_B, ZOO_PROMPT + new + 1, tp=1, device=dev)
+    with _Ranges(cfg) as ranges:
+        profile_steps(torch, lambda: prefill(params, batch, cache), 1,
+                      f"zoo run {run} prefill ({cfg.name})", ranges.names)
+        profile_steps(torch, lambda: decode(params, cache, {"token": tok}), 1,
+                      f"zoo run {run} decode step ({cfg.name})", ranges.names)
+
+    result = {"launches": launches, "routes": routes, "prefill_ms": prefill_ms,
+              "step_p50_ms": p50, "peak_mib": peak / 2**20, "drops": drops,
+              "tokens_per_s": ZOO_B * (new + 1) / wall}
+    if run != "b":
+        result["gate_err"] = _zoo_gate(torch, cfg, params, rng)
+    del params, cache
+    torch.cuda.empty_cache()
+    return result
+
+
+def _zoo_gate(torch, cfg, params, rng) -> float:
+    """The reference's serving contract in float32 (tests/test_models.py,
+    5e-3): prefill + decode steps equal the teacher-forcing logits.  MoE at
+    capacity E/k, which drops nothing (a float32 copy at 1.25 would drop
+    other pairs at T than at T + 1); encdec with frames whose length is not
+    ``enc_len_for`` of the cache's; xLSTM at the reference test's 16 tokens
+    (see ``XLSTM_GATE_PROMPT``), then its mLSTM's chunked form against its
+    recurrence."""
+    import dataclasses
+
+    from repro_torch.models import api
+
+    dev = torch.device("cuda")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    if cfg.moe:
+        cfg32 = dataclasses.replace(cfg32, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    P, steps = ((XLSTM_GATE_PROMPT, XLSTM_GATE_STEPS) if cfg.family == "ssm"
+                else (ZOO_PROMPT, 1))
+    toks = rng.integers(0, cfg.vocab, (ZOO_GATE_B, P + steps), dtype=np.int32)
+    extra = _zoo_extra(cfg, ZOO_GATE_B, rng, frames=ZOO_GATE_FRAMES)
+    full = api.logits(cfg32, params, {"tokens": toks, **extra}, tp=1)
+    check(torch.isfinite(full).all().item(), f"{cfg.name} float32 logits not finite")
+    cache = api.init_cache(cfg32, ZOO_GATE_B, P + steps + 3, tp=1, device=dev)
+    got, cache = api.prefill(cfg32, params, {"tokens": toks[:, :P], **extra}, cache, tp=1)
+    errs = [(got[:, 0] - full[:, P - 1]).abs().max().item()]
+    torch.testing.assert_close(got[:, 0], full[:, P - 1], rtol=5e-3, atol=5e-3)
+    for t in range(P, P + steps):
+        got, cache = api.decode(cfg32, params, cache, {"token": toks[:, t:t + 1]}, tp=1)
+        errs.append((got[:, 0] - full[:, t]).abs().max().item())
+        torch.testing.assert_close(got[:, 0], full[:, t], rtol=5e-3, atol=5e-3)
+    if cfg.family == "encdec":
+        check(cache["xk"].shape[2] == ZOO_GATE_FRAMES, "cross caches not replaced")
+    if cfg.family == "ssm":
+        _mlstm_recurrence_gate(torch, cfg32, params, rng)
+    log(f"# zoo {cfg.name} float32 copy ({ZOO_GATE_B} x {P} tokens"
+        f"{', capacity ' + str(cfg32.moe.capacity_factor) if cfg.moe else ''}"
+        f"{', ' + ', '.join(f'{k} {v.shape[1:]}' for k, v in extra.items()) if extra else ''}"
+        f", {steps} step(s)): prefill + decode == teacher forcing, max |err| "
+        f"{max(errs):.3e} (tol 5e-3)")
+    return max(errs)
+
+
+def _mlstm_recurrence_gate(torch, cfg, params, rng) -> None:
+    """The first mLSTM block at full width in float32 over ZOO_PROMPT
+    tokens (four 128-chunks): its chunked form, output and final state,
+    against ``mlstm_decode`` stepped token by token from the empty state."""
+    from repro_torch.models import xlstm
+
+    dev = torch.device("cuda")
+    lp = params["layers"][0]
+    x = torch.from_numpy(rng.standard_normal((ZOO_GATE_B, ZOO_PROMPT, cfg.d_model))
+                         .astype(np.float32)).to(dev)
+    full, state = xlstm.mlstm_block(cfg, lp, x, return_state=True)
+    st = xlstm.init_cache(cfg, ZOO_GATE_B, 1, device=dev)["layers"][0]
+    outs = []
+    for t in range(ZOO_PROMPT):
+        o, st = xlstm.mlstm_decode(cfg, lp, st, x[:, t:t + 1])
+        outs.append(o)
+    steps = torch.cat(outs, dim=1)
+    err = (steps - full).abs().max().item()
+    torch.testing.assert_close(steps, full, rtol=5e-3, atol=5e-3)
+    for key in ("C", "n", "m"):
+        torch.testing.assert_close(st[key], state[key], rtol=5e-3, atol=5e-3)
+    log(f"# zoo xlstm float32: the first mLSTM block's chunked form over "
+        f"{ZOO_GATE_B} x {ZOO_PROMPT} tokens == its recurrence stepped token by token, "
+        f"max |err| {err:.3e} (tol 5e-3), final C, n, m too")
+
+
+def phase_zoo(torch) -> dict:
+    return {run: _zoo_run(torch, run, *spec) for run, spec in ZOO_RUNS.items()}
+
+
+def phase_zoo_timing(torch) -> dict:
+    """Rows 3 and 2 at the zoo's new shapes: the flash forward at phi-3's
+    prefill (d = 96), seamless's cross-attention (T 512 against S 128,
+    unmasked) and DBRX's prefill (d = 128, group 6), bf16; flash-decode at
+    phi-3's step (q (8,32,1,96) bf16 against the (8,1121,32,96) float32
+    cache); row 7 at phi-3's and DBRX's prefill rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain, rmsnorm_route
+
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    flush = l2_flush_buffer(torch)
+    saved = _snapshot()
+    out = {}
+    T3 = ZOO_PATCHES + ZOO_PROMPT
+    for key, (B, Hq, Hkv, T, S, d, causal) in {
+            "flash_attention@phi3": (ZOO_B, 32, 32, T3, T3, 96, True),
+            "flash_attention@seamless-cross": (ZOO_B, 16, 16, ZOO_PROMPT, ZOO_FRAMES, 64,
+                                               False),
+            "flash_attention@dbrx": (ZOO_B, 48, 8, ZOO_PROMPT, ZOO_PROMPT, 128, True)}.items():
+        q = _randn(torch, (B, Hq, T, d), bf16, 40, dev)
+        k = _randn(torch, (B, Hkv, S, d), bf16, 41, dev)
+        v = _randn(torch, (B, Hkv, S, d), bf16, 42, dev)
+        out[key] = flash_timing(torch, q, k, v, flush, 50, stats=False, causal=causal)
+
+    B, Hq, d = ZOO_B, 32, 96
+    S, pos = T3 + 33, T3 + 16
+    q1 = _randn(torch, (B, Hq, 1, d), bf16, 43, dev)
+    ck = _randn(torch, (B, S, Hq, d), f32, 44, dev)
+    cv = _randn(torch, (B, S, Hq, d), f32, 45, dev)
+    kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+    pt = torch.tensor([pos], dtype=torch.int32, device=dev)
+    visible = pos + 1
+    nbytes = 2 * 2 * q1.numel() + 2 * B * Hq * visible * d * 4 + 4
+    flops = 4 * B * Hq * visible * d
+    bound, by = _bound(nbytes, flops, H100_FP32_FLOPS)
+    mask = (torch.arange(S, device=dev) <= pos)[None, None, None, :]
+    q1f = q1.to(f32)
+    out["decode_attention@phi3"] = decode_timing(
+        torch, q1, kt, vt, pt, flush, 100, bound, by,
+        f"{nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP",
+        f"q {tuple(q1.shape)} bf16, cache {tuple(ck.shape)} f32, pos {pos}",
+        lambda: F.scaled_dot_product_attention(q1f, kt, vt, attn_mask=mask))
+    # RMSNorm at the widest new rows: phi-3's prefill (8 x 1088, 3072) and
+    # DBRX's (8 x 512, 6144), bf16
+    for key, (rows, D) in {"rmsnorm@phi3": (ZOO_B * T3, 3072),
+                           "rmsnorm@dbrx": (ZOO_B * ZOO_PROMPT, 6144)}.items():
+        x = _randn(torch, (rows, D), bf16, 46, dev)
+        w = _randn(torch, (D,), f32, 47, dev)
+        wb = w.to(bf16)
+        err = (rmsnorm_kernel(x, w).float() - rmsnorm_plain(x, w).float()).abs().max().item()
+        nbytes = 2 * 2 * x.numel() + 4 * w.numel()
+        bound, by = _bound(nbytes, 4 * x.numel(), H100_FP32_FLOPS)
+        out[key] = dict(
+            ms=time_ms(torch, lambda: rmsnorm_kernel(x, w), 100, flush),
+            plain_ms=time_ms(torch, lambda: rmsnorm_plain(x, w), 20, flush),
+            library_ms=time_ms(torch, lambda: F.rms_norm(x, (D,), wb, 1e-6), 100, flush),
+            bound_ms=bound, bound_by=by, max_abs_err=err, route=rmsnorm_route(x, w),
+            library="F.rms_norm", shape=f"x ({rows}, {D}) bf16, w f32",
+            work=f"{nbytes / 1e6:.3f} MB")
+    _restore(saved)                         # timing launches are not the path's
+    log_timing(out)
+    return out
+
+
+def _zoo_row(zoo: dict, timing: dict, name: str) -> dict:
+    """Row ``name``'s zoo readings for the JSON line: its launches by route
+    in each run, and its times at the zoo's shapes."""
+    keys = ("ms", "cuda_core_ms", "simt_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err", "shape", "route")
+    return {"launches_by_route": {f"{run} {ZOO_RUNS[run][0]}": r["routes"][name]
+                                  for run, r in zoo.items()},
+            "shapes": {key.split("@")[1]: {k: r[k] for k in keys if k in r}
+                       for key, r in timing.items() if key.split("@")[0] == name}}
+
+
 def _fig7_row(timing: dict, key: str, routes: dict, name: str) -> dict:
     """Fig. 7's readings of a kernel for the JSON line."""
     r = timing[key]
@@ -2961,6 +3458,8 @@ def main() -> int:
     paper_timing = run(phase_paper_timing)
     served = run(phase_serve, dense)
     cluster = run(phase_cluster)
+    zoo = run(phase_zoo)
+    zoo_timing = run(phase_zoo_timing)
     log(f"# phase wall times (s): {walls}")
     log(f"# all phases passed in {time.perf_counter() - t_all:.1f} s")
 
@@ -2996,7 +3495,9 @@ def main() -> int:
             "max_abs_err": max(dense_err[name], t["max_abs_err"],
                                train_timing["rmsnorm@train"]["max_abs_err"]
                                if name == "rmsnorm" else 0.0,
-                               paper_timing.get(f"{name}@fig7", {}).get("max_abs_err", 0.0)),
+                               paper_timing.get(f"{name}@fig7", {}).get("max_abs_err", 0.0),
+                               *(r["max_abs_err"] for key, r in zoo_timing.items()
+                                 if key.split("@")[0] == name)),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
@@ -3006,6 +3507,7 @@ def main() -> int:
         })
         if name in dense["routes"]:
             kernels[-1]["launches_by_route"] = dense["routes"][name]
+        kernels[-1]["zoo"] = _zoo_row(zoo, zoo_timing, name)
         if name in ("flash_attention", "rmsnorm"):
             kernels[-1]["fig7"] = _fig7_row(paper_timing, f"{name}@fig7",
                                             paper["fig7_routes"], name)

@@ -8,9 +8,14 @@ reference jits them wholesale).  The *mixed* path is the Program export in
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m
 
-Any architecture of a ported family serves (dense: SmolLM, Llama 3.2,
-Qwen2; hybrid: Zamba2), at its reduced size, with random weights.
+Every token-only architecture serves (dense: SmolLM, Llama 3.2, Qwen2; moe:
+Granite MoE, DBRX; hybrid: Zamba2; ssm: xLSTM), at its reduced size, with
+random weights.  The encoder-decoder and VLM families need frames or
+patches beside the tokens, which ``greedy_generate`` does not take, as in
+the reference: their callers drive ``models.api.prefill`` and
+``models.api.decode`` themselves.
 """
 from __future__ import annotations
 
@@ -32,6 +37,10 @@ def greedy_generate(cfg, params, prompt: np.ndarray, *, steps: int, tp: int = 1,
 
     Runs on the parameters' device; the tokens stay there until the end.
     """
+    if cfg.family in ("encdec", "vlm"):
+        raise ValueError(f"greedy_generate feeds tokens only; the {cfg.family!r} family "
+                         f"({cfg.name}) also takes frames or patches: drive "
+                         f"models.api.prefill and models.api.decode")
     B, T = prompt.shape
     max_len = max_len or (T + steps + 1)
     device = params["embed"]["table"].device

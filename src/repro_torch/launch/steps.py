@@ -87,13 +87,14 @@ def make_train_step(
 ) -> Callable:
     """A train step ``(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss's gradients, clipped to ``clip_norm``, then AdamW
-    at the warmup-cosine learning rate.  Dense family only: the hybrid
-    family's SSD scan kernel has no backward yet.
+    at the warmup-cosine learning rate.  Dense family only: training the
+    others (hybrid, moe, ssm, encdec, vlm) waits for ROADMAP Queue 1 item 10.
     """
     if cfg.family != "dense":
         raise NotImplementedError(
             f"training the {cfg.family!r} family ({cfg.name}) is not ported yet: the "
-            f"port trains the dense family (ROADMAP Queue 1 item 10)")
+            f"port trains the dense family; training the {cfg.family!r} family waits "
+            f"for ROADMAP Queue 1 item 10")
     opt = opt or AdamWConfig()
 
     def train_step(params, opt_state, batch):

@@ -1,9 +1,10 @@
 """Unified model API of the port: family dispatch + step functions.
 
-The reference's surface (``models/api.py`` there) for the families the port
-has: ``dense`` (SmolLM, Llama 3.2, Qwen2) and ``hybrid`` (Zamba2: Mamba2
-layers and a shared attention block).  The others raise
-:class:`NotImplementedError` until they are ported (ROADMAP Queue 1 item 9).
+The reference's surface (``models/api.py`` there) for its six families:
+``dense`` (SmolLM, Llama 3.2, Qwen2), ``moe`` (Granite MoE, DBRX),
+``hybrid`` (Zamba2: Mamba2 layers and a shared attention block), ``ssm``
+(xLSTM), ``encdec`` (SeamlessM4T: the batch carries stubbed ``frames``) and
+``vlm`` (Phi-3-vision: the batch carries stubbed ``patches``).
 
 * ``init(cfg, gen, tp, device=)``              — parameter dict
 * ``logits(cfg, params, batch, tp)``           — teacher-forcing forward
@@ -19,7 +20,8 @@ layers and a shared attention block).  The others raise
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``); without a card they raise.  Batches may hold numpy
 arrays or tensors; they are placed on the parameters' device.  Caches are
-updated in place (see :mod:`.dense` and :mod:`.mamba2`).
+updated in place (see :mod:`.dense` and :mod:`.mamba2`), but for encdec's
+cross caches, which the prefill replaces (see :mod:`.encdec`).
 """
 from __future__ import annotations
 
@@ -29,28 +31,42 @@ import torch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..core.api import resolve_device
 from ..optim.tree import tree_build as _build, tree_items as _leaves
-from . import dense, mamba2
+from . import dense, encdec, mamba2, moe, vlm, xlstm
 from . import layers as L
 
-_FAMILIES = {"dense": dense, "hybrid": mamba2}
+_FAMILIES = {
+    "dense": dense,
+    "moe": moe,
+    "hybrid": mamba2,
+    "ssm": xlstm,
+    "encdec": encdec,
+    "vlm": vlm,
+}
 
 
 def family_module(cfg: ModelConfig):
-    try:
-        return _FAMILIES[cfg.family]
-    except KeyError:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the port has "
-            f"{sorted(_FAMILIES)} (ROADMAP Queue 1 item 9)") from None
+    return _FAMILIES[cfg.family]
 
 
 def _param_device(params) -> torch.device:
     return params["embed"]["table"].device
 
 
-def _tokens(params, x) -> torch.Tensor:
+def _placed(params, x) -> torch.Tensor:
+    """A batch entry (tokens, frames or patches) as a tensor on the
+    parameters' device."""
     return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
                            device=_param_device(params))
+
+
+def _extra(cfg: ModelConfig, params, batch: dict) -> tuple:
+    """The stubbed frontend input the family takes besides tokens: encdec's
+    ``frames``, vlm's ``patches``."""
+    if cfg.family == "encdec":
+        return (_placed(params, batch["frames"]),)
+    if cfg.family == "vlm":
+        return (_placed(params, batch["patches"]),)
+    return ()
 
 
 def init(cfg: ModelConfig, gen: torch.Generator, tp: int = L.DEFAULT_TP, *, device=None):
@@ -61,7 +77,8 @@ def init(cfg: ModelConfig, gen: torch.Generator, tp: int = L.DEFAULT_TP, *, devi
 
 def logits(cfg: ModelConfig, params, batch: dict, tp: int = L.DEFAULT_TP):
     mod = family_module(cfg)
-    return mod.logits_fn(cfg, params, _tokens(params, batch["tokens"]), tp=tp)
+    return mod.logits_fn(cfg, params, _placed(params, batch["tokens"]),
+                         *_extra(cfg, params, batch), tp=tp)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, tp: int = L.DEFAULT_TP,
@@ -72,30 +89,46 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, tp: int = L.DEFAULT_T
 
 def prefill(cfg: ModelConfig, params, batch: dict, cache, tp: int = L.DEFAULT_TP):
     mod = family_module(cfg)
-    return mod.prefill(cfg, params, _tokens(params, batch["tokens"]), cache, tp=tp)
+    return mod.prefill(cfg, params, _placed(params, batch["tokens"]),
+                       *_extra(cfg, params, batch), cache, tp=tp)
 
 
 def decode(cfg: ModelConfig, params, cache, batch: dict, tp: int = L.DEFAULT_TP):
     mod = family_module(cfg)
-    return mod.decode_step(cfg, params, cache, _tokens(params, batch["token"]), tp=tp)
+    return mod.decode_step(cfg, params, cache, _placed(params, batch["token"]), tp=tp)
 
 
 def input_shapes(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, tuple]:
-    """(shape, dtype) of every model input of a shape cell."""
+    """(shape, dtype) of every model input of a shape cell, in the
+    reference's order: token ids, then encdec's ``frames`` (B,
+    enc_len_for(T), d_model) or vlm's ``patches`` (B, n_patches, D_PATCH),
+    float32, for the shapes that are not decode steps."""
     family_module(cfg)
     B, T = shape.global_batch, shape.seq_len
     if shape.kind == "train":
-        return {"tokens": ((B, T), np.int32), "labels": ((B, T), np.int32)}
-    if shape.kind == "prefill":
-        return {"tokens": ((B, T), np.int32)}
-    return {"token": ((B, 1), np.int32)}   # decode: one new token
+        out = {"tokens": ((B, T), np.int32), "labels": ((B, T), np.int32)}
+    elif shape.kind == "prefill":
+        out = {"tokens": ((B, T), np.int32)}
+    else:
+        out = {"token": ((B, 1), np.int32)}   # decode: one new token
+    if cfg.family == "encdec" and shape.kind != "decode":
+        out["frames"] = ((B, encdec.enc_len_for(T), cfg.d_model), np.float32)
+    if cfg.family == "vlm" and shape.kind != "decode":
+        out["patches"] = ((B, cfg.n_patches, vlm.D_PATCH), np.float32)
+    return out
 
 
 def make_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0) -> dict[str, np.ndarray]:
-    """Random batch for a shape cell; the reference's numbers for the same seed."""
+    """Random batch for a shape cell; the reference's numbers for the same
+    seed: token ids uniform over the vocabulary, float inputs normal * 0.1."""
     rng = np.random.default_rng(seed)
-    return {k: rng.integers(0, cfg.vocab, size=s, dtype=np.int32)
-            for k, (s, _) in input_shapes(cfg, shape).items()}
+    out: dict[str, np.ndarray] = {}
+    for k, (s, dtype) in input_shapes(cfg, shape).items():
+        if np.issubdtype(dtype, np.integer):
+            out[k] = rng.integers(0, cfg.vocab, size=s, dtype=np.int32)
+        else:
+            out[k] = rng.standard_normal(s).astype(np.float32) * 0.1
+    return out
 
 
 def load_reference_params(cfg: ModelConfig, tree, *, tp: int, device=None):

@@ -68,12 +68,16 @@ def init(cfg: ModelConfig, gen: torch.Generator, tp: int = L.DEFAULT_TP, *,
     return params
 
 
-def _layer_fwd(cfg: ModelConfig, dims: AttnDims, h, lp):
+def _mlp(cfg: ModelConfig, lp, x):
+    return L.apply_mlp(lp["mlp"], x, cfg.act, gated=cfg.act == "silu")
+
+
+def _layer_fwd(cfg: ModelConfig, dims: AttnDims, h, lp, ffn=_mlp):
+    """One layer: attention, then ``ffn(cfg, lp, x)`` (the MLP here, the
+    routed experts in :mod:`.moe`), each behind its norm and residual."""
     a, kv = L.attention_full(lp["attn"], dims, L.apply_norm(lp["ln1"], h, cfg.norm))
     h = h + a
-    m = L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], h, cfg.norm), cfg.act,
-                    gated=cfg.act == "silu")
-    return h + m, kv
+    return h + ffn(cfg, lp, L.apply_norm(lp["ln2"], h, cfg.norm)), kv
 
 
 def unstack_layers(params, n_layers: int):
@@ -91,7 +95,7 @@ def unstack_layers(params, n_layers: int):
     return [pick(parts, i) for i in range(n_layers)]
 
 
-def backbone(cfg: ModelConfig, params, h, *, tp: int):
+def backbone(cfg: ModelConfig, params, h, *, tp: int, ffn=_mlp):
     """Apply all transformer layers to embeddings h: (B,T,D).
 
     Under autograd, ``cfg.remat`` recomputes each layer in the backward
@@ -100,7 +104,7 @@ def backbone(cfg: ModelConfig, params, h, *, tp: int):
     dims = _dims(cfg, tp)
 
     def layer(h, lp):
-        return _layer_fwd(cfg, dims, h, lp)[0]
+        return _layer_fwd(cfg, dims, h, lp, ffn)[0]
 
     remat = cfg.remat and torch.is_grad_enabled() and h.requires_grad
     for lp in unstack_layers(params, cfg.n_layers):
@@ -124,26 +128,37 @@ def logits_fn(cfg: ModelConfig, params, tokens, *, tp: int = L.DEFAULT_TP):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, tp: int = L.DEFAULT_TP,
-               dtype=torch.float32, device: torch.device):
+               dtype=torch.float32, quantize: bool = False, device: torch.device):
+    """k/v (L,B,max_len,Hkv,hd) in ``dtype``, or with ``quantize`` int8 k/v
+    plus their float32 per-token, per-head scales ``ks``/``vs``
+    (L,B,max_len,Hkv,1), and ``pos``."""
     dims = _dims(cfg, tp)
     shape = (cfg.n_layers, batch, max_len, dims.plan.n_kv_phys, cfg.head_dim_)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.zeros((), dtype=torch.int32, device=device),
-    }
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+    if quantize:
+        for key in ("k", "v"):
+            cache[key] = torch.zeros(shape, dtype=torch.int8, device=device)
+            cache[key + "s"] = torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                           device=device)
+        return cache
+    for key in ("k", "v"):
+        cache[key] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
 
 
-def prefill(cfg: ModelConfig, params, tokens, cache, *, tp: int = L.DEFAULT_TP):
-    """Fill the cache with a full prompt, in place; returns (last-token
-    logits (B,1,Vp), cache)."""
+def prefill_embedded(cfg: ModelConfig, params, h, cache, *, tp: int, ffn=_mlp):
+    """The prefill of embeddings h (B,T,D): every layer's k/v rows written
+    into the cache at 0..T-1 and ``pos`` set to T, in place; returns
+    (last-position logits (B,1,Vp), cache)."""
     dims = _dims(cfg, tp)
-    B, T = tokens.shape
+    T = h.shape[1]
+    if "ks" in cache:
+        raise ValueError("an int8 cache is filled by decode steps: prefill writes "
+                         "unquantized rows")
     if T > cache["k"].shape[2]:
         raise ValueError(f"prompt of {T} tokens exceeds the cache's {cache['k'].shape[2]}")
-    h = L.embed_in(cfg, params["embed"], tokens)
     for i in range(cfg.n_layers):
-        h, (k, v) = _layer_fwd(cfg, dims, h, layer_params(params, i))
+        h, (k, v) = _layer_fwd(cfg, dims, h, layer_params(params, i), ffn)
         cache["k"][i, :, :T] = k
         cache["v"][i, :, :T] = v
     h = L.apply_norm(params["ln_f"], h, cfg.norm)
@@ -152,22 +167,33 @@ def prefill(cfg: ModelConfig, params, tokens, cache, *, tp: int = L.DEFAULT_TP):
     return L.unembed(head, h[:, -1:, :], cfg.padded_vocab()), cache
 
 
-def decode_step(cfg: ModelConfig, params, cache, token, *, tp: int = L.DEFAULT_TP):
+def prefill(cfg: ModelConfig, params, tokens, cache, *, tp: int = L.DEFAULT_TP):
+    """Fill the cache with a full prompt, in place; returns (last-token
+    logits (B,1,Vp), cache)."""
+    h = L.embed_in(cfg, params["embed"], tokens)
+    return prefill_embedded(cfg, params, h, cache, tp=tp)
+
+
+def decode_step(cfg: ModelConfig, params, cache, token, *, tp: int = L.DEFAULT_TP,
+                ffn=_mlp):
     """One decode step: token (B,1) int32 -> (logits (B,1,Vp), cache).
 
     Writes the token's k/v rows at ``cache["pos"]`` and advances it, in place.
+    An int8 cache (the scale buffers ``"ks"``/``"vs"`` present, as in the
+    reference) takes :func:`~.layers.attention_decode`'s quantized route.
     """
     dims = _dims(cfg, tp)
     h = L.embed_in(cfg, params["embed"], token)
     pos = cache["pos"]
+    quant = "ks" in cache
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
-        a, _, _ = L.attention_decode(lp["attn"], dims, L.apply_norm(lp["ln1"], h, cfg.norm),
-                                     cache["k"][i], cache["v"][i], pos)
+        extra = {} if not quant else {
+            "cache_k_scale": cache["ks"][i], "cache_v_scale": cache["vs"][i]}
+        a = L.attention_decode(lp["attn"], dims, L.apply_norm(lp["ln1"], h, cfg.norm),
+                               cache["k"][i], cache["v"][i], pos, **extra)[0]
         h = h + a
-        m = L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], h, cfg.norm), cfg.act,
-                        gated=cfg.act == "silu")
-        h = h + m
+        h = h + ffn(cfg, lp, L.apply_norm(lp["ln2"], h, cfg.norm))
     h = L.apply_norm(params["ln_f"], h, cfg.norm)
     pos += 1
     head = params.get("head", params["embed"])

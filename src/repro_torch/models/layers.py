@@ -1,6 +1,6 @@
 """Shared model building blocks of the port (functional, plain dicts of tensors).
 
-The functions the dense decoder family uses, with the reference package's
+The functions the model families use, with the reference package's
 signatures and layouts (``models/layers.py`` there): activations (B,T,D),
 projections (B,T,H,hd), caches (B,S,Hkv,hd), heads laid out by
 :mod:`.attention_plan`.  Parameters are float32 masters, cast to the
@@ -11,7 +11,9 @@ kernels through :mod:`repro_torch.kernels.ops`: ``rmsnorm`` the RMSNorm
 kernel, ``attention_full`` the flash-attention kernel (which tiles the query
 axis itself, so the reference's query blocking, there for TPU memory, has
 no counterpart) and ``attention_decode`` the flash-decode kernel.  On the
-CPU the same calls take the kernels' plain versions.
+CPU the same calls take the kernels' plain versions.  ``layernorm`` and
+``attention_decode`` over an int8 cache are plain PyTorch on both, as the
+reference has them in ``jnp``.
 
 Under autograd (grad enabled and an input that requires grad, as in a
 train step) ``rmsnorm`` and ``attention_full`` take the differentiable
@@ -115,12 +117,13 @@ class AttnDims:
     head_dim: int
     qkv_bias: bool = False
     rope_theta: float = 10000.0
+    causal: bool = True
 
     @classmethod
     def make(cls, d_model, n_heads, n_kv_heads, head_dim, *, tp=DEFAULT_TP,
-             qkv_bias=False, rope_theta=10000.0):
+             qkv_bias=False, rope_theta=10000.0, causal=True):
         return cls(d_model, plan_heads(n_heads, n_kv_heads, tp), head_dim,
-                   qkv_bias, rope_theta)
+                   qkv_bias, rope_theta, causal)
 
 
 def init_attention(gen, dims: AttnDims, *, device):
@@ -143,43 +146,69 @@ def init_attention(gen, dims: AttnDims, *, device):
     return p
 
 
-def _qkv(p, dims: AttnDims, x, positions):
-    """x: (B,T,D) -> q (B,T,Hq,hd), k/v (B,T,Hkv,hd), rope applied."""
+def _qkv(p, dims: AttnDims, x, positions, *, kv: bool = True):
+    """x: (B,T,D) -> q (B,T,Hq,hd), k/v (B,T,Hkv,hd), rope applied (k and v
+    None unless ``kv``)."""
     q = torch.einsum("btd,dhk->bthk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("btd,dhk->bthk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("btd,dhk->bthk", x, p["wv"].to(x.dtype))
+    k = torch.einsum("btd,dhk->bthk", x, p["wk"].to(x.dtype)) if kv else None
+    v = torch.einsum("btd,dhk->bthk", x, p["wv"].to(x.dtype)) if kv else None
     if dims.qkv_bias:
         q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
+        if kv:
+            k = k + p["bk"].to(x.dtype)
+            v = v + p["bv"].to(x.dtype)
     if dims.rope_theta > 0:
         cos, sin = rope_tables(positions, dims.head_dim, dims.rope_theta)
         q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        if kv:
+            k = apply_rope(k, cos, sin)
     return q, k, v
 
 
-def attention_full(p, dims: AttnDims, x):
+def attention_full(p, dims: AttnDims, x, *, kv_override=None):
     """Full-sequence attention (training / prefill).  Returns (out, (k, v)).
 
     The core is the flash-attention kernel on (B,H,T,hd) views of the
     projections (no copy: the kernel reads strides), or under autograd the
     trainable one (forward with statistics, dQ and dK/dV kernels).  Its
     causal mask is top-left aligned, which is the reference's mask here
-    because q and k cover the same T positions.
+    because q and k cover the same T positions.  ``kv_override`` (k, v),
+    each (B,S,Hkv,hd), is cross-attention: the keys and values are those
+    (the encoder memory's, S free), unmasked, and x gives the queries only.
     """
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)
-    q, k, v = _qkv(p, dims, x, positions)
+    q, k, v = _qkv(p, dims, x, positions, kv=kv_override is None)
+    if kv_override is not None:
+        k, v = kv_override
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     attend = ops.flash_attention_trainable if records_grad(qh, kh, vh) \
         else ops.flash_attention
-    o = attend(qh, kh, vh, causal=True)
+    o = attend(qh, kh, vh, causal=dims.causal and kv_override is None)
     out = torch.einsum("bthk,hkd->btd", o.transpose(1, 2), p["wo"].to(x.dtype))
     return out, (k, v)
 
 
-def attention_decode(p, dims: AttnDims, x1, cache_k, cache_v, pos):
+def quantize_kv(x):
+    """Per-(token, head) symmetric int8 quantization: (vals_i8, scales_f32).
+
+    x: (..., hd) -> int8 of x's shape + a float32 scale with hd reduced to
+    1.  ``torch.round`` rounds half to even, as ``jnp.round`` does, so the
+    values equal the reference's bitwise.
+    """
+    xf = x.to(torch.float32)
+    amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q, scale, dtype):
+    return (q.to(torch.float32) * scale).to(dtype)
+
+
+def attention_decode(p, dims: AttnDims, x1, cache_k, cache_v, pos,
+                     cache_k_scale=None, cache_v_scale=None):
     """Single-token decode against a KV cache.
 
     x1: (B,1,D); cache_k/v: (B,S,Hkv,hd); pos: int32 0-d tensor on the
@@ -188,15 +217,40 @@ def attention_decode(p, dims: AttnDims, x1, cache_k, cache_v, pos):
     copies of a donated buffer); returns (out, cache_k, cache_v).  The core
     is the flash-decode kernel, reading the cache through a (B,Hkv,S,hd)
     view; it reads ``pos`` on the device, so a step needs no host sync.
+
+    With ``cache_*_scale`` (B,S,Hkv,1) the cache is int8 (per token and head
+    scales, :func:`quantize_kv`): the new row is quantized and written with
+    its scales, in place, and the cache is dequantized on the fly in plain
+    PyTorch, as the reference does in ``jnp`` (the flash-decode kernel reads
+    float32 and bf16 caches); returns (out, cache_k, cache_v, cache_k_scale,
+    cache_v_scale).
     """
     q, k1, v1 = _qkv(p, dims, x1, pos.reshape(1))
     at = pos.reshape(1).to(torch.long)
-    cache_k.index_copy_(1, at, k1.to(cache_k.dtype))
-    cache_v.index_copy_(1, at, v1.to(cache_v.dtype))
-    o = ops.decode_attention(q.transpose(1, 2), cache_k.transpose(1, 2),
-                             cache_v.transpose(1, 2), pos)      # (B,Hq,1,hd)
-    out = torch.einsum("bthk,hkd->btd", o.transpose(1, 2), p["wo"].to(x1.dtype))
-    return out, cache_k, cache_v
+    if cache_k_scale is None:
+        cache_k.index_copy_(1, at, k1.to(cache_k.dtype))
+        cache_v.index_copy_(1, at, v1.to(cache_v.dtype))
+        o = ops.decode_attention(q.transpose(1, 2), cache_k.transpose(1, 2),
+                                 cache_v.transpose(1, 2), pos)      # (B,Hq,1,hd)
+        out = torch.einsum("bthk,hkd->btd", o.transpose(1, 2), p["wo"].to(x1.dtype))
+        return out, cache_k, cache_v
+    for cache, scales, row in ((cache_k, cache_k_scale, k1), (cache_v, cache_v_scale, v1)):
+        vals, s = quantize_kv(row)
+        cache.index_copy_(1, at, vals)
+        scales.index_copy_(1, at, s)
+    B, S = x1.shape[0], cache_k.shape[1]
+    g, hd = dims.plan.group_size, dims.head_dim
+    f32 = torch.float32
+    qh = q.reshape(B, dims.plan.n_kv_phys, g, hd) * (1.0 / math.sqrt(hd))
+    k_eff = dequantize_kv(cache_k, cache_k_scale, f32)
+    v_eff = dequantize_kv(cache_v, cache_v_scale, f32)
+    s = torch.einsum("bhgd,bshd->bhgs", qh.to(f32), k_eff)
+    valid = torch.arange(S, device=x1.device) <= pos
+    w = torch.softmax(torch.where(valid, s, -1e30), dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", w, v_eff).to(x1.dtype)
+    o = o.reshape(B, 1, dims.plan.n_q_pad, hd)
+    out = torch.einsum("bthk,hkd->btd", o, p["wo"].to(x1.dtype))
+    return out, cache_k, cache_v, cache_k_scale, cache_v_scale
 
 
 # ---------------------------------------------------------------------------

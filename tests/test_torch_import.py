@@ -47,6 +47,16 @@ def test_training_modules_are_checked(module):
     assert PORT / module in PORT_FILES
 
 
+# the model families ported last (moe, encdec, vlm, ssm) and what they share
+ZOO_MODULES = ["models/moe.py", "models/encdec.py", "models/vlm.py", "models/xlstm.py",
+               "models/dense.py", "models/layers.py", "models/api.py"]
+
+
+@pytest.mark.parametrize("module", ZOO_MODULES)
+def test_zoo_modules_are_checked(module):
+    assert PORT / module in PORT_FILES
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = _imported_roots(path) & set(FORBIDDEN)

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import ARCHS, reduced_config
+from repro_torch.configs import reduced_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.kernels.decode_attention import decode_attention_kernel
 from repro_torch.kernels.flash_attention import flash_attention_kernel
@@ -27,7 +27,6 @@ from repro_torch.models import api
 
 TP = 2
 DENSE = ["smollm-360m", "llama3.2-1b", "qwen2-1.5b"]
-OTHER = sorted(a for a, c in ARCHS.items() if c.family not in ("dense", "hybrid"))
 F32_TOL = dict(rtol=2e-4, atol=2e-5)
 
 
@@ -185,15 +184,6 @@ def test_load_reference_params_rejects_mismatches(fault):
         match = "embed/table: dtype"
     with pytest.raises(ValueError, match=match):
         api.load_reference_params(_cfg("smollm-360m"), tree, tp=TP, device="cpu")
-
-
-@pytest.mark.parametrize("arch", OTHER)
-def test_other_families_are_not_ported_yet(arch):
-    cfg = reduced_config(arch)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        api.init(cfg, torch.Generator(), tp=TP, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        api.make_batch(cfg, ShapeConfig("t", "train", 8, 2))
 
 
 def test_make_batch_equals_reference():
