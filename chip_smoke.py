@@ -237,6 +237,22 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    cross-attention and DBRX's prefill, flash-decode at Phi-3's step and
    RMSNorm at Phi-3's and DBRX's prefill rows, each against its bound, its
    plain version and one PyTorch call.
+19. The other families train at full width (run right after phase 1, while
+   the card's memory is empty; ``make_train_step``, 3 steps of
+   8 sequences at seed 0, bf16 compute, float32 masters, remat, tp=1, AdamW
+   lr 3e-4, clip 1.0; ``TokenPipeline`` batches, ``make_batch``'s with the
+   stubbed frames or patches for encdec and vlm): Zamba2-2.7B (x 1024,
+   row 8 under autograd through ``SSDScanFn`` and its VJP), Granite MoE
+   (x 1024), SeamlessM4T (x 512, 128 frames), Phi-3-vision (x 512, 576
+   patches; depth cut 32 -> 16, see ``FAM_RUNS``) and xLSTM-350M (x 512).
+   Launch counts per step and the routes of rows 4-8 derived from the
+   layer loops, no serving kernel (rows 1-3) and no plain version in a
+   step, the step p50, tokens/s, peak memory, losses, a profiled step's
+   idle share, and each family's reduced float32 step on the card against
+   the CPU's (1e-4).  After phase 18, rows 4-6 at the new training shapes against
+   their plain versions and ``sdpa``'s forward and backward, the SSD VJP
+   beside row 8's forward at the Zamba2 shape, and the VJP on the card
+   against the CPU's at the float32 SSD gate shapes.
 
 The last lines are a ``kernels`` JSON line (every row with its
 ``launches_by_route``; rows 1 and 2 with the old body's ``simt_ms``, their
@@ -248,7 +264,9 @@ and 7 with fig. 7's readings and routes under ``fig7``, phase 16's
 routes under ``served`` and the operators' cost per call under
 ``dispatch``; row 3 with phase 17's eager and loaded routes under
 ``aot_cluster``; rows 2, 3 and 7 with phase 18's launches by route per
-run and their times at its shapes under ``zoo``), the card's name and
+run and their times at its shapes under ``zoo``; rows 4-8 with phase
+19's launches by route per run under ``families``, rows 4-6 with their
+times at its shapes, row 8 with the SSD VJP's calls and time), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  The script needs the repo's
 ``src/`` beside it and a CUDA device; without either it exits non-zero and
 prints no result.
@@ -312,11 +330,32 @@ ZOO_GATE_FRAMES = 128        # != enc_len_for(the gate's cache), 136: the cross 
 # and a step), and the mLSTM's multi-chunk form is held against its own
 # step-by-step recurrence over ZOO_PROMPT tokens.
 XLSTM_GATE_PROMPT, XLSTM_GATE_STEPS = 16, 1
+# the other families trained at full width (phase 19): run: (arch, seq, layers
+# or None for uncut); 8 sequences a step, 3 steps, seed 0, bf16 compute, remat
+FAM_RUNS = {"a": ("zamba2-2.7b", 1024, None),
+            "b": ("granite-moe-1b-a400m", 1024, None),
+            "c": ("seamless-m4t-large-v2", 512, None),
+            # depth cut 32 -> 16: the functional AdamW holds old and new params
+            # and moments at once, 28 B a parameter, 104 GB for 32 layers
+            "d": ("phi-3-vision-4.2b", 512, 16),
+            # 128 tokens: at the reference's random init the sLSTM's backward
+            # overflows beyond ~200 (the reference's own gradient norm at 8 of
+            # its layers reads 1.2e7 at 64 tokens, 2.6e13 at 128, inf at 256;
+            # the port's at 24: 1.9e8, 1.8e14, 7.9e28, NaN at 512)
+            "e": ("xlstm-350m", 128, None)}
+FAM_B, FAM_STEPS, FAM_LR = 8, 3, 3e-4
+# the training attention shapes phase 19 adds: (B, Hq, Hkv, T, S, d, causal)
+FAM_ATTN = {"zamba2": (FAM_B, 32, 32, 1024, 1024, 80, True),          # the shared block
+            "phi3": (FAM_B, 32, 32, ZOO_PATCHES + 512, ZOO_PATCHES + 512, 96, True),
+            "seamless-enc": (FAM_B, 16, 16, ZOO_FRAMES, ZOO_FRAMES, 64, False),
+            "seamless-cross": (FAM_B, 16, 16, 512, ZOO_FRAMES, 64, False),
+            "granite": (FAM_B, 16, 8, 1024, 1024, 64, True)}
 # the reference's BWD_CASES (tests/test_profiling_and_flash_bwd.py), a short
-# last tile at Qwen2's head dim, and the train step's attention:
-# (B, Hq, Hkv, T, d, causal)
-BWD_CASES = [(1, 2, 2, 64, 16, True), (2, 4, 2, 64, 32, True), (1, 2, 1, 96, 16, False),
-             (2, 6, 2, 100, 128, True), (TRAIN_B, 15, 5, TRAIN_SEQ, 64, True)]
+# last tile at Qwen2's head dim, the train step's attention, and phase 19's:
+# (B, Hq, Hkv, T, S, d, causal)
+BWD_CASES = [(1, 2, 2, 64, 64, 16, True), (2, 4, 2, 64, 64, 32, True),
+             (1, 2, 1, 96, 96, 16, False), (2, 6, 2, 100, 100, 128, True),
+             (TRAIN_B, 15, 5, TRAIN_SEQ, TRAIN_SEQ, 64, True), *FAM_ATTN.values()]
 # the reference's kernel cases (tests/test_kernels.py) and this path's shapes
 ATTN_CASES = [  # (B, Hq, Hkv, T, S, d, causal)
     (1, 2, 2, 128, 128, 32, True), (2, 4, 2, 128, 128, 64, True),
@@ -767,7 +806,8 @@ def l2_flush_buffer(torch):
 TIME_CHUNK = 20                  # reps enqueued behind one spin kernel
 
 
-def time_ms(torch, fn, reps: int, flush, *, syncs: bool = False) -> float:
+def time_ms(torch, fn, reps: int, flush, *, syncs: bool = False,
+            chunk: int = TIME_CHUNK) -> float:
     """Mean device time of ``fn`` over ``reps`` calls, L2 flushed before
     each one (the serving step finds the cache cold: the pools were just
     copied in), measured with CUDA events around each call.
@@ -779,7 +819,7 @@ def time_ms(torch, fn, reps: int, flush, *, syncs: bool = False) -> float:
     stream until the host has enqueued the whole chunk; if the spin ended
     first, the chunk is discarded and run again behind a spin four times as
     long.  Chunks stay short so the enqueue never blocks on a full launch
-    queue.  A function that waits for the device itself (``syncs``, such as
+    queue (``chunk`` calls; fewer for a function of many launches).  A function that waits for the device itself (``syncs``, such as
     the paged plain version's host loop over the lengths) cannot be queued
     behind a spin: its events then include the host's time between its
     launches, which is what such a function costs."""
@@ -788,7 +828,7 @@ def time_ms(torch, fn, reps: int, flush, *, syncs: bool = False) -> float:
     torch.cuda.synchronize()
     cycles, total, done = 2 * 10**7, 0.0, 0
     while done < reps:
-        n = min(TIME_CHUNK, reps - done)
+        n = min(chunk, reps - done)
         if not syncs:
             torch.cuda._sleep(cycles)
         held = torch.cuda.Event()
@@ -2213,7 +2253,8 @@ def _bwd_chain(fwd, dq_fn, dkv_fn, q, k, v, do, causal):
 def phase_bwd_kernels(torch) -> dict:
     """The forward-with-statistics, dQ and dK/dV kernels against their plain
     versions: the reference's ``BWD_CASES``, a short last tile at Qwen2's
-    head dim and the training shape, float32 at 2e-4 (the reference's own
+    head dim, the training shape and phase 19's shapes (d = 80 and 96,
+    unmasked with S != T, GQA group 2), float32 at 2e-4 (the reference's own
     tolerance) and bfloat16 at 2e-2, each launch on its route (bf16 at
     these d: the tensor-core bodies); row 0 of a batched launch bitwise
     equal to a solo launch, and the model's transposed views equal to
@@ -2233,9 +2274,9 @@ def phase_bwd_kernels(torch) -> dict:
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         tol = 2e-4 if dtype == torch.float32 else 2e-2
-        for B, Hq, Hkv, T, d, causal in BWD_CASES:
+        for B, Hq, Hkv, T, S, d, causal in BWD_CASES:
             q, do = (_randn(torch, (B, Hq, T, d), dtype, s, dev) for s in (40, 41))
-            k, v = (_randn(torch, (B, Hkv, T, d), dtype, s, dev) for s in (42, 43))
+            k, v = (_randn(torch, (B, Hkv, S, d), dtype, s, dev) for s in (42, 43))
             _reset_counts()
             got = _bwd_chain(*kernels, q, k, v, do, causal)
             routes = _routes()
@@ -2252,7 +2293,7 @@ def phase_bwd_kernels(torch) -> dict:
                 torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
                 check(torch.isfinite(g.float()).all().item(), f"{name}: non-finite")
             cases += 1
-            if (B, T) != (TRAIN_B, TRAIN_SEQ) or dtype != torch.bfloat16:
+            if (B, Hq, T) != (TRAIN_B, 15, TRAIN_SEQ) or dtype != torch.bfloat16:
                 continue
             o, m, l, dq, dk, dv = got
             one = [t[:1] for t in (q, k, v, do)]
@@ -3383,13 +3424,375 @@ def phase_zoo_timing(torch) -> dict:
     return out
 
 
-def _zoo_row(zoo: dict, timing: dict, name: str) -> dict:
-    """Row ``name``'s zoo readings for the JSON line: its launches by route
-    in each run, and its times at the zoo's shapes."""
-    keys = ("ms", "cuda_core_ms", "simt_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "max_abs_err", "shape", "route")
-    return {"launches_by_route": {f"{run} {ZOO_RUNS[run][0]}": r["routes"][name]
-                                  for run, r in zoo.items()},
+# ---------------------------------------------------------------------------
+# phase 19: the other families train at full width (configuration 11)
+# ---------------------------------------------------------------------------
+
+def _family_launches(cfg) -> dict:
+    """Each counted kernel's launches in one train step with remat: a
+    rematerialised layer runs its forward twice (its norms, forwards with
+    statistics and SSD scans), and no serving kernel (rows 1-3) runs."""
+    L = cfg.n_layers
+    out = dict.fromkeys(_counts(), 0)
+    if cfg.family == "hybrid":       # each Mamba2 layer remat, the shared block not
+        G = cfg.n_layers // cfg.ssm.shared_attn_every
+        out.update(ssd_scan=2 * L, rmsnorm=2 * L + 2 * G + 1, flash_attention_fwd_stats=G,
+                   flash_attention_dq=G, flash_attention_dkv=G)
+    elif cfg.family == "encdec":     # LayerNorm; encoder, decoder self and cross
+        n = cfg.n_enc_layers + 2 * L
+        out.update(flash_attention_fwd_stats=2 * n, flash_attention_dq=n,
+                   flash_attention_dkv=n)
+    elif cfg.family == "ssm":        # a norm a block and ln_f; no attention, no remat
+        out.update(rmsnorm=L + 1)
+    else:                            # moe, vlm: the dense layer loop
+        out.update(rmsnorm=4 * L + 1, flash_attention_fwd_stats=2 * L,
+                   flash_attention_dq=L, flash_attention_dkv=L)
+    return out
+
+
+def _family_batches(cfg, seq: int, n: int, B: int = FAM_B) -> list:
+    """n train batches: ``make_batch``'s (with the stubbed frames or
+    patches) for encdec and vlm, ``TokenPipeline``'s for the others."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import api
+
+    if cfg.family in ("encdec", "vlm"):
+        shape = ShapeConfig("train", "train", seq, B)
+        return [api.make_batch(cfg, shape, seed=SEED + i) for i in range(n)]
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=B, seed=SEED))
+    return [data.batch_at(i) for i in range(n)]
+
+
+class _TrainSpies:
+    """Watchers on a counted train run, each restored on exit: calls of the
+    plain versions (on the card each would be a fallback) and the trainable
+    flash calls by (causal, S != T)."""
+
+    def __init__(self):
+        from repro_torch.kernels import flash_attention_bwd as fab
+        from repro_torch.kernels import ops, rmsnorm, ssm_scan
+
+        self.plain = [(fab, "flash_attention_fwd_stats_plain"),
+                      (fab, "flash_attention_dq_plain"), (fab, "flash_attention_dkv_plain"),
+                      (ssm_scan, "ssd_scan_plain"), (rmsnorm, "rmsnorm_plain")]
+        self.saved = [(mod, n, getattr(mod, n)) for mod, n in self.plain]
+        self.ops, self.shipped = ops, ops.flash_attention_trainable
+        self.plain_calls, self.flash = {}, {}
+
+    def __enter__(self):
+        for mod, n, fn in self.saved:
+            def call(*a, _n=n, _fn=fn, **kw):
+                self.plain_calls[_n] = self.plain_calls.get(_n, 0) + 1
+                return _fn(*a, **kw)
+            setattr(mod, n, call)
+
+        def flash(q, k, v, *, causal=True):
+            key = ("causal" if causal else "unmasked") + (" S != T" if k.shape[2] != q.shape[2]
+                                                          else "")
+            self.flash[key] = self.flash.get(key, 0) + 1
+            return self.shipped(q, k, v, causal=causal)
+
+        self.ops.flash_attention_trainable = flash
+        return self
+
+    def __exit__(self, *exc):
+        for mod, n, fn in self.saved:
+            setattr(mod, n, fn)
+        self.ops.flash_attention_trainable = self.shipped
+
+
+def _family_run(torch, run: str, arch: str, seq: int, layers) -> dict:
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import ssd_scan_vjp
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import api
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    check(cfg.remat and cfg.compute_dtype == "bfloat16", (cfg.name, cfg.remat))
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = api.init(cfg, torch.Generator(device=dev).manual_seed(SEED), tp=1, device=dev)
+    opt_state = adamw_init(params)
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in _tensors(params))
+    log(f"# train run {run}: {cfg.name} ({cfg.n_layers} layers"
+        f"{' (cut from ' + str(get_config(arch).n_layers) + ')' if layers else ''}, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}q/{cfg.n_kv_heads}kv heads of {cfg.head_dim_}, vocab "
+        f"{cfg.vocab}), {nparams / 1e6:.1f} M params, float32 masters and AdamW moments "
+        f"({16 * nparams / 1e9:.1f} GB with the gradients), init {time.perf_counter() - t0:.2f}"
+        f" s; {held / 2**20:.0f} MiB held by earlier phases")
+    step = make_train_step(cfg, tp=1, opt=AdamWConfig(lr=FAM_LR), total_steps=10,
+                           clip_norm=1.0)
+    batches = _family_batches(cfg, seq, FAM_STEPS + 1)
+
+    # the main path, counted: FAM_STEPS steps as a trainer takes them
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, step_ms = [], []
+    with _TrainSpies() as spies:
+        _reset_counts()
+        ssd_scan_vjp.calls = 0
+        for i in range(FAM_STEPS):
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, batches[i])
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))     # synchronises
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches, routes, vjp_calls = _counts(), _routes(), ssd_scan_vjp.calls
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(v) for mt in metrics for v in mt),
+          f"train run {run}: non-finite loss or grad norm {metrics}")
+    want = {k: FAM_STEPS * n for k, n in _family_launches(cfg).items()}
+    check(launches == want, f"train run {run}: launches {launches} != {want}")
+    want_vjp = FAM_STEPS * cfg.n_layers if cfg.family == "hybrid" else 0
+    check(vjp_calls == want_vjp, f"train run {run}: {vjp_calls} SSD VJP calls, want {want_vjp}")
+    for name in ("flash_attention_fwd_stats", "flash_attention_dq", "flash_attention_dkv"):
+        check_routes(routes, name, f"train run {run} (bf16, d = {cfg.head_dim_})",
+                     wgmma=want[name])
+    check_routes(routes, "rmsnorm", f"train run {run} (bf16)", vec=want["rmsnorm"])
+    check_routes(routes, "ssd_scan", f"train run {run} (bf16)", mma=want["ssd_scan"])
+    check(not spies.plain_calls, f"train run {run}: plain versions on the card "
+          f"{spies.plain_calls}")
+    if cfg.family == "encdec":
+        E, L = cfg.n_enc_layers, cfg.n_layers
+        split = {"unmasked": 2 * FAM_STEPS * E, "causal": 2 * FAM_STEPS * L,
+                 "unmasked S != T": 2 * FAM_STEPS * L}
+        check(spies.flash == split, f"seamless flash calls {spies.flash} != {split}")
+    p50 = float(np.median(step_ms))
+    tokens = FAM_B * seq
+    log(f"# train run {run} ({cfg.name}): {FAM_STEPS} steps of {FAM_B} x {seq} tokens"
+        f"{' + ' + str(cfg.n_patches) + ' patches' if cfg.family == 'vlm' else ''}"
+        f"{' + ' + str(ZOO_FRAMES) + ' frames' if cfg.family == 'encdec' else ''}: step "
+        f"ms {[round(t, 1) for t in step_ms]}, p50 {p50:.1f} = {tokens / p50 * 1e3:.0f} "
+        f"tokens/s; losses {[round(a, 4) for a, _ in metrics]}, grad norms "
+        f"{[round(b, 4) for _, b in metrics]}; launches {launches}, SSD VJP calls "
+        f"{vjp_calls}, flash calls {spies.flash}; routes "
+        f"{ {n: routes[n] for n in ROUTED if sum(routes[n].values())} }; "
+        f"max_memory_allocated {peak / 2**20:.0f} MiB")
+
+    # where the time goes: one more step under the profiler
+    saved = _snapshot()
+    profile_steps(torch, lambda: step(params, opt_state, batches[FAM_STEPS]), 1,
+                  f"train run {run} step ({cfg.name}, {FAM_B} x {seq}"
+                  f"{'' if cfg.family == 'ssm' else ', remat'})")
+    _restore(saved)
+    del params, opt_state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "routes": routes, "vjp_calls": vjp_calls, "p50_ms": p50,
+            "step_ms": step_ms, "tokens_per_s": tokens / p50 * 1e3, "peak_mib": peak / 2**20,
+            "losses": [a for a, _ in metrics], "params_m": nparams / 1e6,
+            "gate_err": _family_gate(torch, arch)}
+
+
+def _family_gate(torch, arch: str) -> float:
+    """The family's reduced config in float32 with remat, tp=1, on the card
+    against the CPU: the loss at 1e-4, and one train step's grad norm and
+    the gradients' global relative error at 1e-4, as configuration 6's
+    gate, but for the hybrid at 2e-4, the tolerance of its float32 logits
+    on the card (tests/test_torch_hybrid.py): at this init its gradient is
+    ill-conditioned (grad norm 505, 498 of it the embedding's), so the
+    card's plain float32 ops alone part from the CPU's by 3.9e-5 in the
+    grad norm, and the SSD body's split-TF32 float32 products bring that
+    to 1.04e-4.  Returns the global relative error; the largest
+    per-leaf one is printed."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import api
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(reduced_config(arch), compute_dtype="float32", remat=True)
+    cpu = api.init(cfg, torch.Generator().manual_seed(SEED), tp=1, device="cpu")
+    card = api._build((k, v.to(dev)) for k, v in api._leaves(cpu))
+    seq = 16 if cfg.family == "ssm" else 32         # xLSTM's chaos (XLSTM_GATE_PROMPT)
+    batch = _family_batches(cfg, seq, 1, B=2)[0]
+    saved = _snapshot()
+    lc, gc_ = loss_and_grads(cfg, cpu, batch, tp=1)
+    lg, gg = loss_and_grads(cfg, card, batch, tp=1)
+    want = [a for _, a in api._leaves(gc_)]
+    got = [b.cpu() for _, b in api._leaves(gg)]
+    rel = _grad_rel_err(torch, got, want)
+    leaf = max((g - w).abs().max().item() / max(w.abs().max().item(), 1e-12)
+               for g, w in zip(got, want))
+    check(all(torch.isfinite(g).all().item() for g in got), f"{arch}: non-finite gradient")
+    tol = 2e-4 if cfg.family == "hybrid" else 1e-4
+    check(rel <= tol, f"{arch} reduced float32: card vs CPU gradients {rel:.3e}")
+    check(abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc)), (float(lg), float(lc)))
+    step = make_train_step(cfg, tp=1, opt=AdamWConfig(lr=FAM_LR), total_steps=10)
+    _, _, mc = step(cpu, adamw_init(cpu), batch)
+    _, _, mg = step(card, adamw_init(card), batch)
+    for key, t in (("loss", 1e-4), ("grad_norm", tol)):
+        check(abs(float(mg[key]) - float(mc[key])) <= t * abs(float(mc[key])),
+              (arch, key, float(mg[key]), float(mc[key])))
+    _restore(saved)
+    log(f"# {cfg.name} float32 (remat, 2 x {seq}): card == CPU (loss {float(lg):.6f} / "
+        f"{float(lc):.6f}, gradients' global relative error {rel:.2e}, tol {tol:.0e}; largest "
+        f"per leaf {leaf:.2e} of the leaf's max; step loss within 1e-4, grad norm "
+        f"{float(mg['grad_norm']):.4f} / {float(mc['grad_norm']):.4f} within {tol:.0e})")
+    return rel
+
+
+def phase_families(torch) -> dict:
+    return {run: _family_run(torch, run, *spec) for run, spec in FAM_RUNS.items()}
+
+
+def ssd_vjp_work(B, T, H, P, N, Q, x_bytes):
+    """(bytes, flops) of one SSD VJP: x, dt, A, B, C and dy read once, dx,
+    ddt, dA, dB and dC written once; per (b, head, chunk of n rows) the
+    products 4 n^2 P (the intra-chunk dx.dt and dM) and 10 n N P (the local
+    state, its gradient's two products, and the inter-chunk C.S_prev
+    terms), per (b, chunk) 6 n^2 N (C.B^T, dG.B, dG^T.C)."""
+    nbytes = (3 * B * T * H * P * x_bytes + 2 * B * T * H * 4 + 2 * H * 4
+              + 4 * B * T * N * x_bytes)
+    flops = 0
+    for t0 in range(0, T, Q):
+        n = min(Q, T - t0)
+        flops += B * H * (4 * n * n * P + 10 * n * N * P) + B * 6 * n * n * N
+    return nbytes, flops
+
+
+def phase_families_timing(torch) -> dict:
+    """Rows 4-6 at phase 19's new training shapes (``FAM_ATTN``, bf16)
+    against their bounds, their plain versions and
+    ``scaled_dot_product_attention``'s forward (row 4) and backward (rows 5
+    and 6 together); the SSD VJP at the Zamba2 shape (8,1024,80,64) bf16,
+    Q 256, beside row 8's forward there, against its bound and autograd
+    through the plain version; and the VJP on the card against the VJP on
+    the CPU at the float32 SSD gate shapes, the steep decays included."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels.ssm_scan import ssd_scan_kernel, ssd_scan_plain, ssd_scan_vjp
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    flush = l2_flush_buffer(torch)
+    saved = _snapshot()
+    calls = ssd_scan_vjp.calls
+    out = {}
+    for key, (B, Hq, Hkv, T, S, d, causal) in FAM_ATTN.items():
+        q, do = (_randn(torch, (B, Hq, T, d), bf16, s, dev) for s in (60, 61))
+        k, v = (_randn(torch, (B, Hkv, S, d), bf16, s, dev) for s in (62, 63))
+        out[f"flash_attention_fwd_stats@{key}"] = flash_timing(
+            torch, q, k, v, flush, 20, stats=True, causal=causal)
+        o, m, l = fab.flash_attention_fwd_stats_kernel(q, k, v, causal=causal)
+        delta = (do.float() * o.float()).sum(-1)
+        bwd = (q, k, v, do, m, l, delta)
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                                 enable_gqa=True)
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qg, kg, vg), do, retain_graph=True), 20, flush)
+        pairs = B * Hq * (T * (T + 1) // 2 if causal else T * S)
+        qb, kb, sb = q.numel() * 2, k.numel() * 2, B * Hq * T * 4
+        shape = (f"q {tuple(q.shape)}, k,v {tuple(k.shape)} bf16 "
+                 f"{'causal' if causal else 'unmasked'}")
+        for name, nbytes, flops, kern, plain in (
+                ("flash_attention_dq", 3 * qb + 2 * kb + 3 * sb, 6 * d * pairs,
+                 lambda: (fab.flash_attention_dq_kernel(*bwd, causal=causal),),
+                 lambda: (fab.flash_attention_dq_plain(*bwd, causal=causal),)),
+                ("flash_attention_dkv", 2 * qb + 4 * kb + 3 * sb, 8 * d * pairs,
+                 lambda: fab.flash_attention_dkv_kernel(*bwd, causal=causal),
+                 lambda: fab.flash_attention_dkv_plain(*bwd, causal=causal))):
+            err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(kern(), plain()))
+            check(err <= 2e-2 * max(w.float().abs().max().item() for w in plain()) + 2e-2,
+                  f"{name} at {shape}: |err| {err}")
+            bound, by = _bound(nbytes, flops, H100_BF16_FLOPS)
+            out[f"{name}@{key}"] = dict(
+                ms=time_ms(torch, kern, 20, flush), plain_ms=time_ms(torch, plain, 3, flush),
+                library_ms=lib_bwd, library="sdpa backward (dq, dk, dv)", bound_ms=bound,
+                bound_by=by, max_abs_err=err, route=fab.flash_bwd_route(bf16, d), shape=shape,
+                work=f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP")
+        del qg, kg, vg, lib_out
+
+    # the SSD VJP beside row 8's forward at the Zamba2 shape; the blocks the
+    # attention timing cached go back first, so no allocation of the timed
+    # calls waits on the device to release one
+    torch.cuda.empty_cache()
+    case = (HYBRID_B, HYBRID_PROMPT, SSD_H, SSD_P, SSD_N, SSD_Q)
+    args = _ssd_inputs(torch, case, bf16, 64, dev)
+    dy = _randn(torch, args[0].shape, bf16, 65, dev)
+    got = ssd_scan_vjp(*args, dy, chunk=SSD_Q)
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    y = ssd_scan_plain(*leaves, chunk=SSD_Q)
+    want = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+    rel = max((g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+              for g, w in zip(got, want))
+    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    check(rel <= 2e-2, f"SSD VJP vs autograd through the plain version: {rel:.3e}")
+    nbytes, flops = ssd_vjp_work(*case, x_bytes=2)
+    bound, by = _bound(nbytes, flops, H100_TF32X3_FLOPS)
+    # the VJP and autograd's backward launch ~100 kernels a call: two calls
+    # a chunk keep the enqueue inside the launch queue
+    out["ssd_scan_vjp@zamba2"] = dict(
+        ms=time_ms(torch, lambda: ssd_scan_vjp(*args, dy, chunk=SSD_Q), 10, flush, chunk=2),
+        forward_ms=time_ms(torch, lambda: ssd_scan_kernel(*args, chunk=SSD_Q), 20, flush),
+        plain_ms=time_ms(torch, lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
+                         4, flush, chunk=2),
+        library_ms=None, bound_ms=bound, bound_by=by, max_abs_err=err, max_rel_err=rel,
+        route="torch ops (float32)", plain="autograd through the plain version",
+        shape=f"x {tuple(args[0].shape)} bf16, B, C {tuple(args[3].shape)} bf16, "
+              f"chunk {SSD_Q}",
+        work=f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at three TF32 terms")
+    del leaves, y, want, got
+
+    # the VJP on the card against the VJP on the CPU, float32
+    worst = {}
+    for case, a_scale in ([(c, 1.0) for c in SSD_CASES[4:6]]
+                          + [(c, SSD_OVERFLOW_A) for c in SSD_OVERFLOW_CASES]):
+        args = _ssd_inputs(torch, case, torch.float32, 66, dev, a_scale)
+        dy = _randn(torch, args[0].shape, torch.float32, 67, dev)
+        card = ssd_scan_vjp(*args, dy, chunk=case[5])
+        cpu = ssd_scan_vjp(*(a.cpu() for a in args), dy.cpu(), chunk=case[5])
+        exact = ssd_scan_vjp(*(a.cpu().double() for a in args), dy.cpu().double(),
+                             chunk=case[5])
+        for name, g, w, e in zip(("dx", "ddt", "dA", "dB", "dC"), card, cpu, exact):
+            g = g.cpu()
+            check(torch.isfinite(g).all().item(), f"SSD VJP {case}: non-finite {name}")
+            top = max(w.abs().max().item(), 1e-30)
+            err = (g - w).abs().max().item() / top
+            if name == "dA" and a_scale != 1.0:
+                # dA at the steep decays is the reversed cumsum of terms that
+                # dwarf their sum: float32 keeps about two digits of it on
+                # either device, so each is held to the float64 VJP, the
+                # card at most twice as far as the CPU
+                far = (g.double() - e).abs().max().item()
+                check(far <= 2 * (w.double() - e).abs().max().item() + 1e-6 * top,
+                      f"SSD VJP card vs CPU {case} A x {a_scale}: dA {far:.3e} from float64")
+            else:
+                check(err <= 1e-4, f"SSD VJP card vs CPU {case} A x {a_scale}: {name} "
+                      f"{err:.3e}")
+            worst[name] = max(worst.get(name, 0.0), err)
+    ssd_scan_vjp.calls = calls
+    _restore(saved)                         # timing launches are not the path's
+    log_timing(out)
+    log(f"# SSD VJP at {out['ssd_scan_vjp@zamba2']['shape']}: "
+        f"{out['ssd_scan_vjp@zamba2']['ms']:.4f} ms beside row 8's forward "
+        f"{out['ssd_scan_vjp@zamba2']['forward_ms']:.4f} ms; card vs CPU at the float32 gate "
+        f"shapes (steep decays included), largest error of each gradient's max {worst}")
+    out["ssd_scan_vjp@zamba2"]["card_vs_cpu"] = worst
+    return out
+
+
+def _runs_row(results: dict, runs: dict, timing: dict, name: str) -> dict:
+    """Row ``name``'s readings of phase 18 (``runs`` ZOO_RUNS) or 19
+    (FAM_RUNS) for the JSON line: its launches by route in each run, and its
+    times at the phase's shapes."""
+    keys = ("ms", "cuda_core_ms", "simt_ms", "plain_ms", "library_ms", "library",
+            "bound_ms", "bound_by", "max_abs_err", "shape", "route")
+    return {"launches_by_route": {f"{run} {runs[run][0]}": r["routes"][name]
+                                  for run, r in results.items()},
             "shapes": {key.split("@")[1]: {k: r[k] for k in keys if k in r}
                        for key, r in timing.items() if key.split("@")[0] == name}}
 
@@ -3439,6 +3842,9 @@ def main() -> int:
         return out
 
     run(phase_build)
+    # phase 19's training runs first, while the card's memory is empty:
+    # Zamba2-2.7B's step peaks at about 70 GiB of the 80
+    families = run(phase_families)
     err = run(phase_kernel)
     dense_err = run(phase_dense_kernels)
     ssd_err = run(phase_ssd_kernel)
@@ -3460,6 +3866,7 @@ def main() -> int:
     cluster = run(phase_cluster)
     zoo = run(phase_zoo)
     zoo_timing = run(phase_zoo_timing)
+    families_timing = run(phase_families_timing)
     log(f"# phase wall times (s): {walls}")
     log(f"# all phases passed in {time.perf_counter() - t_all:.1f} s")
 
@@ -3507,7 +3914,7 @@ def main() -> int:
         })
         if name in dense["routes"]:
             kernels[-1]["launches_by_route"] = dense["routes"][name]
-        kernels[-1]["zoo"] = _zoo_row(zoo, zoo_timing, name)
+        kernels[-1]["zoo"] = _runs_row(zoo, ZOO_RUNS, zoo_timing, name)
         if name in ("flash_attention", "rmsnorm"):
             kernels[-1]["fig7"] = _fig7_row(paper_timing, f"{name}@fig7",
                                             paper["fig7_routes"], name)
@@ -3533,6 +3940,7 @@ def main() -> int:
                                             "max_abs_err")}
                 | {"launches_by_route": hybrid["routes"]["decode_attention"]})
         if name == "rmsnorm":
+            kernels[-1]["families"] = _runs_row(families, FAM_RUNS, {}, name)
             kernels[-1]["routes_by_shape"] = {
                 k: r["route"] for k, r in {**dense_timing, **hybrid_timing,
                                            **train_timing}.items() if k.startswith("rmsnorm")}
@@ -3555,6 +3963,10 @@ def main() -> int:
         "cuda_core_ms": t["cuda_core_ms"],
         "float32": {k: hybrid_timing["ssd_scan@gate-f32"][k] for k in (
             "ms", "cuda_core_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+        "families": _runs_row(families, FAM_RUNS, {}, "ssd_scan") | {
+            "vjp_calls": {f"{run} {FAM_RUNS[run][0]}": r["vjp_calls"]
+                          for run, r in families.items()},
+            "vjp": families_timing["ssd_scan_vjp@zamba2"]},
     })
     for name, line in (("flash_attention_fwd_stats", 27), ("flash_attention_dq", 65),
                        ("flash_attention_dkv", 96)):
@@ -3578,6 +3990,7 @@ def main() -> int:
         })
         kernels[-1]["launches_by_route"] = training["routes"][name]
         kernels[-1]["cuda_core_ms"] = t["cuda_core_ms"]
+        kernels[-1]["families"] = _runs_row(families, FAM_RUNS, families_timing, name)
         if stats:
             kernels[-1]["tf32x3"] = _tf32x3_rows(dense_timing, name, {})
     print(json.dumps({"kernels": kernels}))

@@ -15,7 +15,7 @@ from .decode_attention import (
 from .flash_attention import flash_attention_kernel, flash_attention_plain
 from .flash_attention_bwd import FlashAttentionFn
 from .rmsnorm import RMSNormFn, rmsnorm_kernel, rmsnorm_plain
-from .ssm_scan import ssd_scan_kernel, ssd_scan_plain
+from .ssm_scan import SSDScanFn, ssd_scan_kernel, ssd_scan_plain
 
 
 def paged_decode_attention(q, k_pages, v_pages, tables, lengths,
@@ -70,6 +70,13 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, return_state: bool = False):
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk, return_state=return_state)
     return ssd_scan_kernel(x, dt, A, B, C, chunk=chunk, return_state=return_state)
+
+
+def ssd_scan_trainable(x, dt, A, B, C, *, chunk: int = 256):
+    """Differentiable SSD scan -> y (B,T,H,P), no final state: the kernel
+    (card) or the plain version (CPU) forward, the chunked float32 VJP
+    backward (see :mod:`.ssm_scan`)."""
+    return SSDScanFn.apply(x, dt, A, B, C, chunk)
 
 
 # the inference kernels' wrappers, each counting its launches per route

@@ -31,6 +31,12 @@ raises.
 of the reference's ``models/mamba2.py:ssd_chunked``: it serves CPU tensors
 (the tests) and is the yardstick the kernel is checked against on the card.
 :func:`repro_torch.kernels.ops.ssd_scan` picks by device.
+
+Training differentiates the scan through :class:`SSDScanFn`: the kernel
+forward on the card (its plain version on the CPU), and :func:`ssd_scan_vjp`
+backward, the gradient XLA derives for the reference's ``ssd_chunked``
+written by hand in chunked torch ops (the reference has no SSD backward
+kernel), the same code on both devices.
 """
 from __future__ import annotations
 
@@ -85,13 +91,22 @@ def ssd_route(dtype, N: int, P: int, Q: int) -> str:
     return "simt"
 
 
+def _wide(*ts) -> torch.dtype:
+    """The math's dtype: float32, or float64 where an input is float64."""
+    out = torch.float32
+    for t in ts:
+        out = torch.promote_types(out, t.dtype)
+    return out
+
+
 def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 256, return_state: bool = False):
-    """Plain PyTorch chunked SSD (any device, float32 math): y (B,T,H,P) in
-    x's dtype, and the final state (B,H,N,P) float32 if ``return_state``.
+    """Plain PyTorch chunked SSD (any device, float32 math, float64 for
+    float64 inputs): y (B,T,H,P) in x's dtype, and the final state (B,H,N,P)
+    float32 if ``return_state``.
 
     A T that is not a multiple of the chunk is padded with dt = 0, which is
     inert (decay 1, update 0), as the reference's ``ssd_chunked`` does."""
-    f32 = torch.float32
+    f32 = _wide(x, dt, A, B, C)
     Bsz, T, H, P = x.shape
     N = B.shape[-1]
     Q = min(chunk, T)
@@ -167,9 +182,8 @@ def ssd_scan_kernel(x, dt, A, B, C, *, chunk: int = 256, return_state: bool = Fa
     ``ssd_scan_kernel.launches`` counts launches and
     ``ssd_scan_kernel.launches_by_route`` counts them per :func:`ssd_route`.
     """
-    refuse_grad("ssd scan", "the SSD scan has no backward yet (the hybrid family "
-                "does not train, ROADMAP Queue 1 item 10): call it under "
-                "torch.no_grad()", x, dt, A, B, C)
+    refuse_grad("ssd scan", "differentiate through ops.ssd_scan_trainable (SSDScanFn)",
+                x, dt, A, B, C)
     device = require_cuda(x, "ssd scan")
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
@@ -212,3 +226,125 @@ def ssd_scan_kernel(x, dt, A, B, C, *, chunk: int = 256, return_state: bool = Fa
 
 ssd_scan_kernel.launches = 0
 ssd_scan_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def ssd_scan_vjp(x, dt, A, B, C, dy, *, chunk: int = 256):
+    """The gradients (dx, ddt, dA, dB, dC) of y = ssd_scan(x, dt, A, B, C)
+    (no final state) against the cotangent ``dy`` (B,T,H,P), each in its
+    input's dtype.
+
+    Plain torch ops in float32 (float64 for float64 inputs), chunked as the
+    forward is, on any device: the chunk-final states and the decays are
+    recomputed from the inputs, the state's gradient is carried backward
+    over the chunks (dS_{c-1} = exp(cs_last) dS_c + the inter-chunk output's
+    term), the intra-chunk terms come from C.B^T, the masked decay matrix
+    and x dt in batched products, and the cumulative decays' gradient turns
+    into dt A's by a reversed cumsum within each chunk.  Decays above the
+    diagonal are masked before the exp (they can overflow).  A short last
+    chunk is padded with zero rows, inert as dt = 0 is in the forward, so
+    the gradients are those of the unpadded scan the kernel walks.
+    ``ssd_scan_vjp.calls`` counts calls."""
+    ssd_scan_vjp.calls += 1
+    f = _wide(x, dt, A, B, C)
+    Bsz, T, H, P = x.shape
+    Q = min(chunk, T)
+    pad = (-T) % Q
+
+    def chunked(a):                      # (B,T,...) -> (B,nc,Q,...) in f
+        a = a.to(f)
+        if pad:
+            a = F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
+        return a.reshape(Bsz, -1, Q, *a.shape[2:])
+
+    Bc, Cc = chunked(B), chunked(C)                          # (B,nc,Q,N)
+    xh = chunked(x).permute(0, 1, 3, 2, 4)                   # (B,nc,H,Q,P)
+    dyh = chunked(dy).permute(0, 1, 3, 2, 4)
+    dth = chunked(dt).permute(0, 1, 3, 2)                    # (B,nc,H,Q)
+    nc = xh.shape[1]
+    xdt = xh * dth[..., None]
+    cs = torch.cumsum(dth * A.to(f)[:, None], dim=-1)        # (B,nc,H,Q)
+
+    # intra-chunk: y_i = sum_{j <= i} G_ij L_ij xdt_j, G = C.B^T,
+    # L_ij = exp(cs_i - cs_j)
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    G = Cc @ Bc.transpose(-1, -2)                            # (B,nc,Q,Q)
+    L = (cs[..., :, None] - cs[..., None, :]).masked_fill_(~mask, float("-inf")).exp_()
+    dxdt = (L * G[:, :, None]).transpose(-1, -2) @ dyh       # (B,nc,H,Q,P)
+    dML = (dyh @ xdt.transpose(-1, -2)).mul_(L)              # dM * L, zero above the diagonal
+    del L
+    dG = dML.sum(dim=2)                                      # (B,nc,Q,Q)
+    dLL = dML.mul_(G[:, :, None])                            # dL * L = d(cs_i - cs_j)
+    dcs = dLL.sum(dim=-1) - dLL.sum(dim=-2)
+    del dML, dLL
+    dC = dG @ Bc
+    dB = dG.transpose(-1, -2) @ Cc
+
+    # the chunk-final local states and the states before each chunk
+    decay_end = torch.exp(cs[..., -1:] - cs)                 # (B,nc,H,Q)
+    wx = xdt * decay_end[..., None]
+    S_local = Bc.transpose(-1, -2)[:, :, None] @ wx          # (B,nc,H,N,P)
+    dec = torch.exp(cs[..., -1])                             # (B,nc,H)
+    S = torch.zeros_like(S_local[:, 0])
+    prevs = []
+    for c in range(nc):
+        prevs.append(S)
+        S = S * dec[:, c, :, None, None] + S_local[:, c]
+    S_prev = torch.stack(prevs, dim=1)
+
+    # inter-chunk: y_i += exp(cs_i) C_i.S_prev
+    ecs = torch.exp(cs)
+    dYS = dyh @ S_prev.transpose(-1, -2)                     # (B,nc,H,Q,N)
+    dcs = dcs + ecs * (Cc[:, :, None] * dYS).sum(dim=-1)
+    dC = dC + (dYS * ecs[..., None]).sum(dim=2)
+    dS_direct = Cc.transpose(-1, -2)[:, :, None] @ (dyh * ecs[..., None])  # (B,nc,H,N,P)
+
+    # the state's gradient, carried backward over the chunks
+    g = torch.zeros_like(S)
+    dSL = [None] * nc
+    for c in reversed(range(nc)):
+        dSL[c] = g
+        g = g * dec[:, c, :, None, None] + dS_direct[:, c]
+    dSL = torch.stack(dSL, dim=1)                            # dS_local (B,nc,H,N,P)
+    dcs_last = (dSL * S_prev).sum(dim=(-1, -2)) * dec
+    dB = dB + (wx @ dSL.transpose(-1, -2)).sum(dim=2)
+    dwx = Bc[:, :, None] @ dSL                               # (B,nc,H,Q,P)
+    dxdt = dxdt + dwx * decay_end[..., None]
+    dww = (dwx * wx).sum(dim=-1)                             # d(decay_end) * decay_end
+    dcs = dcs - dww
+    dcs[..., -1] += dcs_last + dww.sum(dim=-1)
+
+    # cs = cumsum(dt A) within a chunk: a reversed cumsum, then the product rule
+    ddA = dcs.flip(-1).cumsum(-1).flip(-1)                   # (B,nc,H,Q)
+    ddt = ddA * A.to(f)[:, None] + (dxdt * xh).sum(dim=-1)
+    dA = (ddA * dth).sum(dim=(0, 1, 3))
+    dx = dxdt * dth[..., None]
+
+    dx = dx.transpose(2, 3).reshape(Bsz, nc * Q, H, P)[:, :T]
+    ddt = ddt.transpose(2, 3).reshape(Bsz, nc * Q, H)[:, :T]
+    dB = dB.reshape(Bsz, nc * Q, -1)[:, :T]
+    dC = dC.reshape(Bsz, nc * Q, -1)[:, :T]
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype), dB.to(B.dtype),
+            dC.to(C.dtype))
+
+
+ssd_scan_vjp.calls = 0
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The differentiable SSD scan, x (B,T,H,P), dt (B,T,H), A (H,), B, C
+    (B,T,N) -> y (B,T,H,P): forward :func:`ssd_scan_kernel` on the card (run
+    with grad off, as a Function's forward is) or :func:`ssd_scan_plain` on
+    the CPU, backward :func:`ssd_scan_vjp`; gradients in each input's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        scan = ssd_scan_plain if x.device.type == "cpu" else ssd_scan_kernel
+        y = scan(x, dt, A, B, C, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*ssd_scan_vjp(*ctx.saved_tensors, dy, chunk=ctx.chunk), None)

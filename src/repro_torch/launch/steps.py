@@ -2,9 +2,10 @@
 
 The reference's ``launch/steps.py`` builds mesh-shardable, jit-ready steps;
 the port runs eagerly on one device, so a step is a plain closure over the
-config and the head plan.  The reference's ``mesh``, ``layer_pspecs``,
-``batch_axes`` and ``moe_ep`` options wait for ``parallel/`` (ROADMAP Queue
-1 item 10): there is one card.
+config and the head plan, for every family.  The reference's ``mesh``,
+``layer_pspecs``, ``batch_axes`` and ``moe_ep`` options wait for
+``parallel/`` (ROADMAP Queue 1 item 10): there is one card, and MoE layers
+run ``moe_block``, as the reference's do without a mesh.
 """
 from __future__ import annotations
 
@@ -86,15 +87,10 @@ def make_train_step(
     microbatch: int = 1,
 ) -> Callable:
     """A train step ``(params, opt_state, batch) -> (params, opt_state,
-    metrics)``: the loss's gradients, clipped to ``clip_norm``, then AdamW
-    at the warmup-cosine learning rate.  Dense family only: training the
-    others (hybrid, moe, ssm, encdec, vlm) waits for ROADMAP Queue 1 item 10.
-    """
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family ({cfg.name}) is not ported yet: the "
-            f"port trains the dense family; training the {cfg.family!r} family waits "
-            f"for ROADMAP Queue 1 item 10")
+    metrics)`` of any family: the loss's gradients, clipped to
+    ``clip_norm``, then AdamW at the warmup-cosine learning rate.  An encdec
+    batch carries ``frames``, a vlm batch ``patches`` (see
+    :func:`repro_torch.models.api.make_batch`)."""
     opt = opt or AdamWConfig()
 
     def train_step(params, opt_state, batch):

@@ -1,14 +1,21 @@
 """End-to-end trainer of the port: data -> train step -> checkpoint/restart.
 
-The reference's ``launch/train.py`` on one device: the dense family, tp=1,
-float32 master weights drawn on the CPU from ``seed`` (so a run on the card
-and one on the CPU start from the same weights), synthetic batches from
+The reference's ``launch/train.py`` on one device: the token-only families
+(dense, hybrid, moe, ssm), tp=1, float32 master weights drawn on the CPU
+from ``seed`` (so a run on the card and one on the CPU start from the same
+weights), synthetic batches from
 :class:`~repro_torch.data.pipeline.TokenPipeline`, checkpoints carrying
 (params, opt_state, data cursor) so ``--resume`` continues exactly where a
-run stopped.  Runs on the card unless asked for the CPU.
+run stopped.  Runs on the card unless asked for the CPU.  The pipeline
+makes tokens only, so the encdec and vlm families, whose batches need
+``frames`` or ``patches``, are refused with a ``ValueError`` (the
+reference's ``train()`` fails on the missing key); they train through
+:func:`~repro_torch.launch.steps.make_train_step` on ``make_batch`` batches.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --full \\
       --steps 6 --batch 8 --seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b --full \\
+      --steps 3 --batch 8 --seq 1024
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --reduced \\
       --steps 20 --batch 4 --seq 64 --device cpu --ckpt-dir /tmp/ckpt
 """
@@ -21,6 +28,7 @@ import torch
 
 from ..checkpoint.checkpoint import AsyncCheckpointer, latest_step
 from ..configs import get_config, reduced_config
+from ..configs.base import ShapeConfig
 from ..core.api import resolve_device
 from ..data.pipeline import DataConfig, TokenPipeline
 from ..models import api
@@ -38,6 +46,13 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50, batch: int = 8,
     this call ran, each step synchronised), ``params``, ``opt_state`` and
     ``cfg``."""
     cfg = reduced_config(arch) if reduced else get_config(arch)
+    need = sorted(set(api.input_shapes(cfg, ShapeConfig("train", "train", seq, batch)))
+                  - {"tokens", "labels"})
+    if need:
+        raise ValueError(
+            f"train() feeds TokenPipeline batches of tokens and labels, which carry no "
+            f"{need[0]!r}: the {cfg.family} family ({cfg.name}) needs {need[0]!r} in every "
+            f"batch; train it through make_train_step on api.make_batch batches")
     device = resolve_device(device)
     tp = 1
     step_fn = make_train_step(cfg, tp=tp, opt=AdamWConfig(lr=lr),

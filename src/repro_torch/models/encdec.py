@@ -15,6 +15,10 @@ flash-decode kernel at ``pos = S_enc - 1`` (every key visible: the
 reference's unmasked ``jnp`` softmax), its self-attention the flash-decode
 kernel as in :mod:`.dense`.
 
+Under autograd ``cfg.remat`` recomputes each encoder and decoder layer in
+the backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
+of its scan bodies).
+
 The self-attention cache is updated in place, as in :mod:`.dense`.  The
 cross caches ``xk``/``xv`` are **replaced** by the prefill with the memory's
 projections, as the reference does: their length is the frames', which
@@ -23,11 +27,12 @@ need not be ``enc_len_for(max_len)``.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from . import layers as L
-from .dense import layer_params, stack_layers
+from .dense import layer_params, stack_layers, unstack_layers
 from .layers import AttnDims
 
 
@@ -86,16 +91,27 @@ def _layers(params, key: str, i: int):
     return layer_params({"layers": params[key]}, i)
 
 
+def _remat(cfg: ModelConfig) -> bool:
+    return cfg.remat and torch.is_grad_enabled()
+
+
+def _enc_layer(cfg, dims, lp, h):
+    a, _ = L.attention_full(lp["attn"], dims, L.apply_norm(lp["ln1"], h, cfg.norm))
+    h = h + a
+    return h + L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], h, cfg.norm), cfg.act,
+                           gated=False)
+
+
 def encode(cfg: ModelConfig, params, frames, *, tp: int = L.DEFAULT_TP):
     """frames: (B, S_enc, D) stubbed frame embeddings -> encoder memory."""
     dims = _self_dims(cfg, tp, causal=False)
     h = frames.to(getattr(torch, cfg.compute_dtype))
-    for i in range(cfg.n_enc_layers):
-        lp = _layers(params, "enc_layers", i)
-        a, _ = L.attention_full(lp["attn"], dims, L.apply_norm(lp["ln1"], h, cfg.norm))
-        h = h + a
-        h = h + L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], h, cfg.norm), cfg.act,
-                            gated=False)
+    remat = _remat(cfg)
+    for lp in unstack_layers({"layers": params["enc_layers"]}, cfg.n_enc_layers):
+        if remat:
+            h = checkpoint(_enc_layer, cfg, dims, lp, h, use_reentrant=False)
+        else:
+            h = _enc_layer(cfg, dims, lp, h)
     return L.apply_norm(params["ln_enc"], h, cfg.norm)
 
 
@@ -124,8 +140,16 @@ def logits_fn(cfg: ModelConfig, params, tokens, frames, *, tp: int = L.DEFAULT_T
     memory = encode(cfg, params, frames, tp=tp)
     dims_s, dims_x = _self_dims(cfg, tp, causal=True), _cross_dims(cfg, tp)
     h = L.embed_in(cfg, params["embed"], tokens)
-    for i in range(cfg.n_layers):
-        h = _dec_layer(cfg, dims_s, dims_x, _layers(params, "dec_layers", i), h, memory)[0]
+
+    def layer(lp, h, memory):
+        return _dec_layer(cfg, dims_s, dims_x, lp, h, memory)[0]
+
+    remat = _remat(cfg)
+    for lp in unstack_layers({"layers": params["dec_layers"]}, cfg.n_layers):
+        if remat:
+            h = checkpoint(layer, lp, h, memory, use_reentrant=False)
+        else:
+            h = layer(lp, h, memory)
     h = L.apply_norm(params["ln_f"], h, cfg.norm)
     return L.unembed(params["embed"], h, cfg.padded_vocab())
 

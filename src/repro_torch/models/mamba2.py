@@ -10,28 +10,33 @@ stacked on a leading L axis and the shared block is the ``shared`` dict.
 The SSD sequence mixer runs in its chunked form through
 :func:`repro_torch.kernels.ops.ssd_scan` — on the card the hand-written SSD
 kernel, which also returns the final state the prefill stores for decode,
-so the model makes no second pass and no padded copies.  A decode step
+so the model makes no second pass and no padded copies.  Under autograd (a
+train step) it takes :func:`repro_torch.kernels.ops.ssd_scan_trainable`
+instead: the same kernel forward and a chunked float32 backward.  A decode step
 advances the state one token with :func:`ssd_decode_step`, plain PyTorch
 (the reference has no kernel for it).  The shared block's attention runs the
 flash and flash-decode kernels and every norm the RMSNorm kernel, as in
 :mod:`.dense`.
 
-Differences from the reference, each for a forward pass on one card: the
-``lax.scan`` over layer groups is a Python loop; ``jax.checkpoint`` (remat)
-and the mesh sharding constraints have no counterpart; the flash kernel
-tiles the query axis itself, so there is no ``q_block``; and the cache is
-updated **in place** (``S``, ``conv``, the ``ak``/``av`` rows and ``pos``),
-where the reference returns a new cache.
+Differences from the reference, each for one card: the ``lax.scan`` over
+layer groups is a Python loop, and its ``jax.checkpoint`` (remat) of each
+Mamba2 layer is ``torch.utils.checkpoint`` (the shared block is not
+rematerialised, as there); the mesh sharding constraints have no
+counterpart; the flash kernel tiles the query axis itself, so there is no
+``q_block``; and the cache is updated **in place** (``S``, ``conv``, the
+``ak``/``av`` rows and ``pos``), where the reference returns a new cache.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..kernels.common import records_grad
 from . import layers as L
-from .dense import layer_params, stack_layers
+from .dense import layer_params, stack_layers, unstack_layers
 from .layers import AttnDims
 
 
@@ -45,8 +50,11 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int):
     x: (B,T,H,P) head inputs; dt: (B,T,H) positive step sizes (float32);
     A: (H,) negative decay rates; B_, C_: (B,T,N) input and output
     projections (one group, shared across heads).  Returns (y (B,T,H,P) in
-    x's dtype, S_final (B,H,N,P) float32).
+    x's dtype, S_final (B,H,N,P) float32).  Under autograd the scan is the
+    differentiable one, which keeps no final state: S_final is None.
     """
+    if records_grad(x, dt, A, B_, C_):
+        return ops.ssd_scan_trainable(x, dt, A, B_, C_, chunk=chunk), None
     return ops.ssd_scan(x, dt, A, B_, C_, chunk=chunk, return_state=True)
 
 
@@ -117,7 +125,10 @@ def mamba_block(cfg: ModelConfig, lp, x, *, return_state: bool = False):
     dt = h @ lp["w_dt"].to(x.dtype)
     xs = F.silu(_causal_conv(xs_raw, lp["conv"].to(x.dtype)))
     dt = F.softplus(dt.to(torch.float32) + lp["dt_bias"])
-    A = -torch.exp(lp["A_log"])
+    # in a train step A_log is the compute dtype's, as the reference's (its
+    # exp rounds there); dt * A promotes to float32 either way, so the scan
+    # takes A in float32
+    A = -torch.exp(lp["A_log"]).to(torch.float32)
     xh = xs.reshape(B, T, H, P)
     y, S_final = ssd_chunked(xh, dt, A, B_, C_, cfg.ssm.chunk)
     y = y + xh * lp["D"][None, None, :, None].to(x.dtype)
@@ -207,15 +218,21 @@ def backbone(cfg: ModelConfig, params, h, *, tp: int, cache=None):
     """The Mamba2 groups, each followed by the shared block, then the
     trailing Mamba2 layers and the final norm.  With a ``cache``, every
     layer's SSD state and conv tail and every shared application's k/v rows
-    are written into it, in place."""
+    are written into it, in place.  Without one, under autograd,
+    ``cfg.remat`` recomputes each Mamba2 layer in the backward (the
+    reference's ``jax.checkpoint`` of its scan body)."""
     dims = _attn_dims(cfg, tp)
     k = cfg.ssm.shared_attn_every
     n_groups = n_shared_applications(cfg)
     T = h.shape[1]
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    lps = unstack_layers(params, cfg.n_layers)
 
     def mamba(i, h):
-        lp = layer_params(params, i)
+        lp = lps[i]
         if cache is None:
+            if remat:
+                return checkpoint(mamba_block, cfg, lp, h, use_reentrant=False)
             return mamba_block(cfg, lp, h)
         h, st = mamba_block(cfg, lp, h, return_state=True)
         cache["S"][i].copy_(st["S"])

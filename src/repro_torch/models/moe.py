@@ -19,9 +19,15 @@ k in a fixed order (no ``index_add_``, which is an atomic float sum on
 CUDA); in bf16 this rounds once where the reference's scatter-add rounds
 after each of the k adds.
 
+Under autograd the gradients follow the reference's: the router's through
+the kept gates (the sort's values), each kept pair's token through its
+buffer row (the index assignment's backward gathers it), and a dropped
+pair's none (it lands in the sliced-away row E).
+
 Attention, norms, the cache and the layer loop are :mod:`.dense`'s, with the
 routed experts in place of the MLP, so they run the flash, flash-decode and
-RMSNorm kernels.  The reference's expert-parallel ``moe_block_ep`` waits for
+RMSNorm kernels, and a train step rematerialises each layer under
+``cfg.remat`` as the reference's ``jax.checkpoint`` of its scan body does.  The reference's expert-parallel ``moe_block_ep`` waits for
 the port's ``parallel/`` (ROADMAP Queue 1 item 10): :func:`dispatch_moe_block`
 calls :func:`moe_block`.
 """

@@ -17,7 +17,10 @@ kernel.
 Parameter names and shapes equal the reference's; ``params["layers"]`` is a
 list of per-layer dicts, as there (the two kinds have different leaves).
 The decode state is updated in place: ``prefill`` and ``decode_step`` write
-each layer's state into the cache's tensors and advance ``pos``.
+each layer's state into the cache's tensors and advance ``pos``; those are
+the only in-place writes, so autograd goes through the chunked mLSTM and
+the sLSTM loop of a train step as through any other ops (no remat, as in
+the reference).
 """
 from __future__ import annotations
 

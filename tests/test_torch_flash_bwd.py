@@ -306,7 +306,7 @@ def _forward_only_calls():
             q[:, :, :1], k, k, torch.zeros(1, dtype=torch.int32)), "no_grad"),
         "paged_decode_attention": (lambda: paged_decode_attention_kernel(
             x[:1], pool, pool, tables, torch.ones(1, dtype=torch.int32)), "no_grad"),
-        "ssd_scan": (lambda: ssd_scan_kernel(*ssd), "no_grad"),
+        "ssd_scan": (lambda: ssd_scan_kernel(*ssd), "ssd_scan_trainable"),
         "fwd_stats": (lambda: flash_attention_fwd_stats_kernel(q, k, k),
                       "flash_attention_trainable"),
     }

@@ -15,7 +15,7 @@ different places, see ROADMAP Queue 3; ``_undetermined``).  Also: remat equals n
 remat; the reference's optimizer state carries into the port's next step;
 the optimizer, schedule, clipping, loss and data pipeline equal the
 reference's; checkpoints round-trip and a resumed run equals the
-uninterrupted one; the hybrid family refuses to train.  On the card
+uninterrupted one; the hybrid family trains.  On the card
 (``gpu``): the train step through the flash-backward kernels equals the
 CPU's.
 """
@@ -490,11 +490,15 @@ def test_train_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b"])
-def test_hybrid_family_refuses_to_train(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        make_train_step(reduced_config(arch), tp=TP)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        train_mod.train(arch, steps=1, batch=1, seq=8, device="cpu")
+def test_hybrid_family_trains(arch):
+    """``train()`` lowers the hybrid family's loss as it does the dense
+    one's (``tests/test_torch_train_families.py`` holds its steps against
+    the reference's)."""
+    out = train_mod.train(arch, reduced=True, steps=12, batch=4, seq=32, log_every=4,
+                          lr=3e-3, device="cpu")
+    losses = [m["loss"] for m in out["metrics"]]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert out["cfg"].family == "hybrid"
 
 
 # ---------------------------------------------------------------------------

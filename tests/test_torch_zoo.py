@@ -41,6 +41,7 @@ from repro_torch.kernels.rmsnorm import rmsnorm_kernel
 from repro_torch.launch.serve import greedy_generate
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import api, dense, encdec, layers, vlm, xlstm
+from repro_torch.optim import adamw_init
 from repro_torch.optim.tree import tree_build, tree_items
 
 TP = 2
@@ -348,10 +349,18 @@ def test_tree_items_of_dicts_keep_sorted_key_order():
 
 
 @pytest.mark.parametrize("arch", ZOO + ["zamba2-2.7b"])
-def test_make_train_step_refuses_the_other_families(arch):
+def test_make_train_step_trains_the_other_families(arch):
+    """One float32 step of every non-dense family on ``make_batch``'s batch:
+    a finite loss, and every parameter moved by a finite update
+    (``tests/test_torch_train_families.py`` holds the steps against the
+    reference's)."""
     cfg = _cfg(arch)
-    with pytest.raises(NotImplementedError, match=rf"{cfg.family!r}.*Queue 1 item 10"):
-        make_train_step(cfg, tp=TP)
+    params = api.init(cfg, torch.Generator().manual_seed(0), tp=TP, device="cpu")
+    new, opt, metrics = make_train_step(cfg, tp=TP)(params, adamw_init(params), _batch(arch))
+    assert np.isfinite(float(metrics["loss"])) and np.isfinite(float(metrics["grad_norm"]))
+    assert int(opt["step"]) == 1
+    for (name, a), (_, b) in zip(tree_items(params), tree_items(new)):
+        assert torch.isfinite(b).all() and not torch.equal(a, b), name
 
 
 def test_entry_points_default_to_cuda():
