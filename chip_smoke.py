@@ -253,6 +253,32 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    their plain versions and ``sdpa``'s forward and backward, the SSD VJP
    beside row 8's forward at the Zamba2 shape, and the VJP on the card
    against the CPU's at the float32 SSD gate shapes.
+20. Sharded training (configuration 12; run right after phase 19): the
+   parent empties its cache and prints what it holds, then spawns two ranks
+   that share the card through gloo (``run_spmd``, route ``"shared"``),
+   each on a (data 1, model 2) mesh: (d) ``compressed_psum`` of a 2^20
+   gradient within the reference test's bound; (a) one Granite MoE layer's
+   experts (d 1024, 32 experts, top 8, ``d_ff_expert`` 512) on 8 x 1024
+   bf16 tokens through ``moe_block_ep`` against ``moe_block`` on the rank
+   at capacity 8.0, forward and every gradient within 2e-2 (global
+   relative), and at 1.25, with a router that favours 4 experts, the
+   per-sender drops, equal to the count from the routing of the rank's
+   slice and more than none; (b) SmolLM-360M's 32 layers
+   at full width as 2 pipeline stages of 16 (``pipeline_apply``, 8
+   microbatches of 1 x 512, bf16) against the 32 layers in sequence, output
+   and every stage weight's gradient within 2e-2, rows 4-7's launches
+   counted; (c) Granite MoE uncut through ``make_train_step`` with
+   ``moe_ep`` and tensor parallelism, 3 steps of 8 x 1024 ``TokenPipeline``
+   tokens: launches and routes of rows 4-7 per step, no plain version,
+   step p50, tokens/s, each rank's peak, a profiled step's idle share and,
+   from the same trace, the host time inside the process group's
+   collective ranges (an upper bound on their share: each also waits for
+   the device work queued before it) and the device time of their copies,
+   and the reduced float32 step on the same mesh on the card against the
+   one-rank CPU step (1e-4).  Then (e) a one-rank NCCL world runs (a)'s
+   layer and one all-reduce.  ``ranks_by_route`` and each rank's
+   ``collectives_by_route`` are printed.  On a machine with a card a rank
+   the two ranks run on NCCL instead, and (e) is not run.
 
 The last lines are a ``kernels`` JSON line (every row with its
 ``launches_by_route``; rows 1 and 2 with the old body's ``simt_ms``, their
@@ -266,7 +292,9 @@ routes under ``served`` and the operators' cost per call under
 ``aot_cluster``; rows 2, 3 and 7 with phase 18's launches by route per
 run and their times at its shapes under ``zoo``; rows 4-8 with phase
 19's launches by route per run under ``families``, rows 4-6 with their
-times at its shapes, row 8 with the SSD VJP's calls and time), the card's name and
+times at its shapes, row 8 with the SSD VJP's calls and time; rows 4-7
+with phase 20's launches by route per rank under ``sharded``), the card's
+name and
 power limit, and ``{"ok": true, "device": {...}}``.  The script needs the repo's
 ``src/`` beside it and a CUDA device; without either it exits non-zero and
 prints no result.
@@ -752,14 +780,24 @@ def prefill_routes(torch, prefill, prompts) -> None:
         f"{min(times['plain']):.3f}); logits agree (2e-4/2e-5)")
 
 
+COLLECTIVE_RANGES = ("gloo:", "nccl:")   # a process group's ranges around its collectives
+
+
 def profile_steps(torch, fn, steps: int,
                   label: str = "solo steps + prefill at the serving shape",
-                  ranges: tuple = ()):
+                  ranges: tuple = (), into: dict | None = None):
     """Run ``fn`` under the torch profiler and print where the device time
     of its ``steps`` steps goes: device busy time by operation, per step,
     and the device's idle share of the window's wall time.  ``ranges`` names
     ``record_function`` ranges opened inside ``fn``: each one's device time
-    (its kernels' and its children's) is printed as a row of its own."""
+    (its kernels' and its children's) is printed as a row of its own.  The
+    ranges a process group opens around its collectives (``gloo:*``,
+    ``nccl:*``) are not busy time either.  ``into`` receives the window's
+    ``wall_ms``, ``busy_ms`` and ``idle``, and from the same trace
+    ``coll_host_ms``, the host time inside the process group's own
+    collective ranges (None where the trace holds none), and
+    ``coll_device_ms``, the device time of their copies through pinned host
+    buffers (gloo on CUDA tensors) and of NCCL's kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -768,11 +806,15 @@ def profile_steps(torch, fn, steps: int,
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
+    rows, coll_host_us = [], None
     for ev in prof.key_averages():
+        collective = ev.key.startswith(COLLECTIVE_RANGES)
+        if collective and ev.device_type == torch.autograd.DeviceType.CPU:
+            coll_host_us = (coll_host_us or 0.0) + ev.cpu_time_total
         # device-side events only: a host op's device total repeats the
         # time of the kernels and copies it launched
-        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.key in ranges:
+        if (ev.device_type != torch.autograd.DeviceType.CUDA or ev.key in ranges
+                or collective):
             continue          # a range's device-side span is not busy time
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -784,6 +826,11 @@ def profile_steps(torch, fn, steps: int,
     if not rows:
         log("# profile: the profiler recorded no device time (not measured)")
         return out
+    if into is not None:
+        into.update(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms,
+                    coll_host_ms=None if coll_host_us is None else coll_host_us / 1e3,
+                    coll_device_ms=sum(ms for ms, _, key in rows
+                                       if "Pinned" in key or key.startswith("nccl")))
     log(f"# profile of {steps} {label}: "
         f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
         f"{1 - busy_ms / wall_ms:.3f}; per step, by device time:")
@@ -3785,6 +3832,401 @@ def phase_families_timing(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: sharded training over torch.distributed (configuration 12)
+# ---------------------------------------------------------------------------
+
+SPMD_WORLD = 2                   # ranks sharing the one card (route "shared")
+SPMD_TIMEOUT = 600
+EP_ARCH, EP_B, EP_T, EP_CAPS = "granite-moe-1b-a400m", 8, 1024, (8.0, 1.25)
+PP_ARCH, PP_M, PP_T = "smollm-360m", 8, 512      # 2 stages of 16 layers, microbatch 1
+SH_ARCH, SH_STEPS = "granite-moe-1b-a400m", 3     # uncut: 24 layers fit two ranks' shards
+EP_HOT, EP_HOT_SCALE = 4, 10.0   # (a)'s router: 4 experts' columns 10x, so 1.25 drops pairs
+BF16_TOL = 2e-2
+
+
+def _rel(torch, got, want) -> float:
+    """The global relative (L2) error of ``got`` against ``want``."""
+    return _grad_rel_err(torch, [got], [want])
+
+
+def _ep_inputs(torch, dev, cfg):
+    m = cfg.moe
+    D, E, F = cfg.d_model, m.num_experts, m.d_ff_expert
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    router = randn(D, E) * 0.02
+    router[:, :EP_HOT] *= EP_HOT_SCALE
+    w = {"router": router, "wg": randn(E, D, F) / D ** 0.5,
+         "wu": randn(E, D, F) / D ** 0.5, "wd": randn(E, F, D) / F ** 0.5}
+    x = randn(EP_B, EP_T, D).to(torch.bfloat16)
+    ct = randn(EP_B, EP_T, D).to(torch.bfloat16)
+    return w, x, ct
+
+
+def _spmd_ep_layer(torch, mesh, tag: str) -> dict:
+    """(a): one Granite MoE layer's experts, expert-parallel over the mesh's
+    ``model`` axis, against ``moe_block`` on this rank at capacity 8.0
+    (forward and backward), then the per-sender drops at 1.25.  The router
+    favours EP_HOT experts, so 1.25 drops pairs: the drops ``moe_block_ep``
+    made are held against a count from the routing of the rank's slice,
+    each expert's pairs beyond ``_capacity(cfg, N_local)``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding as shd
+
+    dev = mesh.device
+    base = get_config(EP_ARCH)
+    w, x, ct = _ep_inputs(torch, dev, base)
+    specs = {"router": shd.P(None, None), "wg": shd.P("model", "data", None),
+             "wu": shd.P("model", "data", None), "wd": shd.P("model", None, "data")}
+    local = shd.shard_tree(mesh, w, specs)
+    out = {}
+    for cap in EP_CAPS:
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, capacity_factor=cap))
+        seen, real_route = [], moe.route
+
+        def spy(cfg_, lp_, xf):
+            res = real_route(cfg_, lp_, xf)
+            seen.append((xf.shape[0], res[1], int(res[3].sum())))
+            return res
+
+        leaves = {k: v.clone().requires_grad_() for k, v in local.items()}
+        xl = x.clone().requires_grad_()
+        lp = {"router": leaves["router"], "experts": {k: leaves[k] for k in ("wg", "wu", "wd")}}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moe.route = spy
+        try:
+            y = moe.moe_block_ep(cfg, lp, xl, mesh)
+        finally:
+            moe.route = real_route
+        n_local = EP_B // mesh.shape["data"] * EP_T
+        n_pairs = n_local * cfg.moe.top_k
+        n_seen, top_i, n_kept = seen[0]
+        check(n_seen == n_local, f"{tag} EP routed {n_seen} tokens, not its slice's {n_local}")
+        if cap != 8.0:
+            torch.cuda.synchronize()
+            out[f"ep_fwd_ms@{cap}"] = (time.perf_counter() - t0) * 1e3
+            per_expert = torch.bincount(top_i.reshape(-1), minlength=cfg.moe.num_experts)
+            want = int((per_expert - moe._capacity(cfg, n_local)).clamp(min=0).sum())
+            out[f"drops@{cap}"] = n_pairs - n_kept
+            check(n_pairs - n_kept == want > 0,
+                  f"{tag} EP at capacity {cap}: {n_pairs - n_kept} drops, the slice's "
+                  f"routing counts {want} (and must drop some)")
+            continue
+        (y.float() * ct.float()).sum().backward()
+        torch.cuda.synchronize()
+        out["ep_fwd_bwd_ms"] = (time.perf_counter() - t0) * 1e3
+        check(n_kept == n_pairs, f"{tag} EP at capacity 8.0 dropped {n_pairs - n_kept} pairs")
+        full = {k: v.clone().requires_grad_() for k, v in w.items()}
+        xr = x.clone().requires_grad_()
+        yr = moe.moe_block(cfg, {"router": full["router"],
+                                 "experts": {k: full[k] for k in ("wg", "wu", "wd")}}, xr)
+        (yr.float() * ct.float()).sum().backward()
+        grads = shd.gather_tree(mesh, {k: leaves[k].grad for k in specs}, specs)
+        errs = {"y": _rel(torch, y, yr), "x": _rel(torch, xl.grad, xr.grad)}
+        errs.update({k: _rel(torch, grads[k], full[k].grad) for k in specs})
+        check(max(errs.values()) <= BF16_TOL,
+              f"{tag} EP layer vs moe_block (bf16, capacity 8.0): {errs}")
+        out["errs"] = errs
+        del y, yr, grads, full, xr
+    return out
+
+
+def _pipeline_check(torch, pmesh) -> dict:
+    """(b): SmolLM-360M's 32 layers at full width as 2 stages of 16, 8
+    microbatches of 1 x 512 in bf16, forward and every stage weight's
+    gradient against the 32 layers applied in sequence on this rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import dense
+    from repro_torch.optim.tree import tree_leaves, tree_map
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.pipeline import pipeline_apply, stage_split
+
+    dev = pmesh.device
+    cfg = get_config(PP_ARCH)
+    dims = dense._dims(cfg, 1)
+    S = pmesh.shape["pod"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    layers = dense.init(cfg, gen, tp=1, device=dev)["layers"]
+    x = (torch.randn(PP_M, 1, PP_T, cfg.d_model, generator=gen, device=dev)
+         .to(torch.bfloat16))
+    ct = torch.randn(PP_M, 1, PP_T, cfg.d_model, generator=gen, device=dev)
+
+    def run_layers(stack, h):
+        cast = tree_map(lambda t: t.to(torch.bfloat16), stack)
+        for lp in dense.unstack_layers({"layers": cast}, tree_leaves(cast)[0].shape[0]):
+            h = dense._layer_fwd(cfg, dims, h, lp)[0]
+        return h
+
+    spec = tree_map(lambda _: shd.P("pod"), layers)
+    local = tree_map(lambda t: t.requires_grad_(),
+                     shd.shard_tree(pmesh, stage_split(layers, S), spec))
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipeline_apply(run_layers, local, x, mesh=pmesh, axis="pod")
+    (out.float() * ct).sum().backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches, routes = _counts(), _routes()
+    # the sequential reference: all 32 layers on this rank, the microbatches
+    # as one batch
+    full = tree_map(lambda t: t.detach().clone().requires_grad_(), layers)
+    ref = run_layers(full, x.reshape(PP_M, PP_T, cfg.d_model)).reshape(out.shape)
+    (ref.float() * ct).sum().backward()
+    me, per = pmesh.axis_index("pod"), cfg.n_layers // S
+    got = [t.grad[0] for t in tree_leaves(local)]
+    want = [t.grad[me * per:(me + 1) * per] for t in tree_leaves(full)]
+    errs = {"out": _rel(torch, out, ref), "grads": _grad_rel_err(torch, got, want)}
+    check(max(errs.values()) <= BF16_TOL, f"pipeline vs sequential (bf16): {errs}")
+    L = per
+    want_launch = dict.fromkeys(launches, 0)
+    want_launch.update(rmsnorm=2 * L * (PP_M + S - 1), flash_attention_fwd_stats=L * (PP_M + S - 1),
+                       flash_attention_dq=L * (PP_M + S - 1),
+                       flash_attention_dkv=L * (PP_M + S - 1))
+    check(launches == want_launch, f"pipeline stage launches {launches} != {want_launch}")
+    return {"errs": errs, "ms": ms, "launches": launches, "routes": routes}
+
+
+def _sharded_step(torch, mesh) -> dict:
+    """(c): Granite MoE on the (1, 2) mesh, tensor-parallel attention and
+    expert-parallel experts: SH_STEPS counted steps of 8 x 1024 tokens, a
+    profiled step (its collectives read from the trace), and the reduced
+    float32 gate."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.steps import make_train_step, param_layout
+    from repro_torch.models import api
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel import sharding as shd
+
+    dev, tp = mesh.device, mesh.shape["model"]
+    cfg = get_config(SH_ARCH)
+    t0 = time.perf_counter()
+    full = api.init(cfg, torch.Generator(device=dev).manual_seed(SEED), tp=tp, device=dev)
+    specs = param_layout(cfg, full, moe_ep=True)
+    params = shd.shard_tree(mesh, full, specs)
+    n_full = sum(t.numel() for t in _tensors(full))
+    n_local = sum(t.numel() for t in _tensors(params))
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt_state = adamw_init(params)
+    init_s = time.perf_counter() - t0
+    step = make_train_step(cfg, tp=tp, opt=AdamWConfig(lr=FAM_LR), total_steps=10,
+                           mesh=mesh, moe_ep=True)
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=EP_T, global_batch=EP_B,
+                                    seed=SEED))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    metrics, step_ms = [], []
+    with _TrainSpies() as spies:
+        for i in range(SH_STEPS):
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, data.batch_at(i))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches, routes = _counts(), _routes()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(v) for mt in metrics for v in mt), f"sharded step: {metrics}")
+    check(not spies.plain_calls, f"sharded step: plain versions on the card "
+          f"{spies.plain_calls}")
+    want = {k: SH_STEPS * n for k, n in _family_launches(cfg).items()}
+    check(launches == want, f"sharded step: launches {launches} != {want}")
+    for name in ("flash_attention_fwd_stats", "flash_attention_dq", "flash_attention_dkv"):
+        check_routes(routes, name, "sharded step (bf16, d = 64)", wgmma=want[name])
+    check_routes(routes, "rmsnorm", "sharded step (bf16)", vec=want["rmsnorm"])
+
+    # one more step under the profiler
+    saved = _snapshot()
+    prof: dict = {}
+    profile_steps(torch, lambda: step(params, opt_state, data.batch_at(SH_STEPS)), 1,
+                  f"sharded train step ({cfg.name}, rank {torch.distributed.get_rank()})",
+                  into=prof)
+    _restore(saved)
+    del params, opt_state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "p50_ms": float(np.median(step_ms)),
+            "losses": [a for a, _ in metrics], "grad_norms": [b for _, b in metrics],
+            "peak_mib": peak / 2**20, "launches": launches, "routes": routes,
+            "params_full_m": n_full / 1e6, "params_local_m": n_local / 1e6,
+            "init_s": init_s, "n_layers": cfg.n_layers, "profile": prof,
+            "gate": _sharded_gate(torch, mesh)}
+
+
+def _sharded_gate(torch, mesh) -> dict:
+    """The reduced Granite MoE in float32 with remat on the same mesh on the
+    card against the one-rank step on the CPU: the loss and the gradients'
+    global relative error at 1e-4, and one train step's loss and grad norm
+    at 1e-4 (configuration 11's gate)."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.steps import loss_and_grads, make_train_step, param_layout
+    from repro_torch.models import api
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.parallel import sharding as shd
+
+    dev, tp = mesh.device, mesh.shape["model"]
+    cfg = dataclasses.replace(reduced_config(SH_ARCH), compute_dtype="float32", remat=True)
+    cpu = api.init(cfg, torch.Generator().manual_seed(SEED), tp=tp, device="cpu")
+    batch = _family_batches(cfg, 32, 1, B=2)[0]
+    specs = param_layout(cfg, cpu, moe_ep=True)
+    card = tree_map(lambda t: t.to(dev), shd.shard_tree(mesh, cpu, specs))
+    saved = _snapshot()
+    lc, gc_ = loss_and_grads(cfg, cpu, batch, tp=tp)
+    lg, gg = loss_and_grads(cfg, card, batch, tp=tp, mesh=mesh, moe_ep=True)
+    gg = shd.gather_tree(mesh, gg, specs)
+    want = [a for _, a in api._leaves(gc_)]
+    got = [b.cpu() for _, b in api._leaves(gg)]
+    rel = _grad_rel_err(torch, got, want)
+    check(rel <= 1e-4, f"sharded reduced float32: card vs CPU gradients {rel:.3e}")
+    check(abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc)), (float(lg), float(lc)))
+    kw = dict(tp=tp, opt=AdamWConfig(lr=FAM_LR), total_steps=10)
+    _, _, mc = make_train_step(cfg, **kw)(cpu, adamw_init(cpu), batch)
+    _, _, mg = make_train_step(cfg, mesh=mesh, moe_ep=True, **kw)(card, adamw_init(card), batch)
+    for key in ("loss", "grad_norm"):
+        check(abs(float(mg[key]) - float(mc[key])) <= 1e-4 * abs(float(mc[key])),
+              ("sharded gate", key, float(mg[key]), float(mc[key])))
+    _restore(saved)
+    return {"grad_rel": rel, "loss": (float(lg), float(lc)),
+            "grad_norm": (float(mg["grad_norm"]), float(mc["grad_norm"]))}
+
+
+def _compressed_check(torch, mesh) -> dict:
+    """(d): compressed_psum of each rank's 2^20 float32 gradient over the
+    ranks: the mean within the reference test's bound (two quantization
+    steps of the largest magnitude)."""
+    from repro_torch.runtime.fault_tolerance import compressed_psum
+
+    dev, n = mesh.device, mesh.size("data") * mesh.size("model")
+    g_all = [torch.randn(1 << 20, generator=torch.Generator(device=dev).manual_seed(SEED + r),
+                         device=dev) for r in range(n)]
+    me = torch.distributed.get_rank()
+    with mesh:
+        got, err = compressed_psum({"g": g_all[me]}, "model")
+    true = torch.stack(g_all).mean(0)
+    scale = float(torch.stack(g_all).abs().max()) / 127.0
+    dev_max = float((got["g"] - true).abs().max())
+    check(dev_max <= scale * 2 + 1e-5, f"compressed_psum: {dev_max} > {scale * 2 + 1e-5}")
+    return {"max_abs_err": dev_max, "bound": scale * 2 + 1e-5}
+
+
+def _spmd_rank() -> dict:
+    """One rank of phase 20's shared world: (d), (a), (b), (c)."""
+    import torch
+
+    from repro_torch.parallel import spmd
+
+    mesh = spmd.Mesh((1, SPMD_WORLD), ("data", "model"))
+    rank = torch.distributed.get_rank()
+    out = {"device": str(mesh.device), "backend": mesh.backend}
+    out["compressed_psum"] = _compressed_check(torch, mesh)
+    out["ep"] = _spmd_ep_layer(torch, mesh, f"rank {rank}")
+    out["pipeline"] = _pipeline_check(torch, spmd.Mesh((SPMD_WORLD,), ("pod",)))
+    torch.cuda.empty_cache()
+    out["train"] = _sharded_step(torch, mesh)
+    out["collectives_by_route"] = {k: dict(v) for k, v in spmd.collectives_by_route.items()}
+    return out
+
+
+def _nccl_rank() -> dict:
+    """(e): (a)'s layer in a one-rank NCCL world, and one all-reduce (run
+    where the ranks of the phase share a card, so that the ``nccl`` route is
+    launched once)."""
+    import torch
+
+    from repro_torch.parallel import spmd
+
+    mesh = spmd.Mesh((1, 1), ("data", "model"))
+    out = {"device": str(mesh.device), "backend": mesh.backend,
+           "ep": _spmd_ep_layer(torch, mesh, "nccl rank 0")}
+    x = torch.ones(4, device=mesh.device)
+    torch.distributed.all_reduce(x)
+    torch.cuda.synchronize()
+    check(torch.equal(x, torch.ones_like(x)), "one-rank NCCL all-reduce")
+    return out
+
+
+def phase_sharded(torch) -> dict:
+    """Phase 20: configuration 12, sharded training on SPMD_WORLD ranks: on
+    one card they share it through gloo (route ``"shared"``) and a one-rank
+    NCCL world follows; with a card a rank they run on NCCL."""
+    import gc
+
+    from repro_torch.parallel import spmd
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"# phase 20: the parent holds {torch.cuda.memory_allocated() / 2**20:.0f} MiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2**20:.0f} MiB reserved after "
+        f"empty_cache")
+    cards = torch.cuda.device_count()
+    route = "nccl" if SPMD_WORLD <= cards else "shared"
+    check(spmd.spmd_route(SPMD_WORLD, "cuda") == route,
+          f"{SPMD_WORLD} ranks on {cards} card(s) are not {route!r}")
+    t0 = time.perf_counter()
+    ranks = spmd.run_spmd(_spmd_rank, SPMD_WORLD, device="cuda", timeout=SPMD_TIMEOUT)
+    shared_s = time.perf_counter() - t0
+    nccl, nccl_s = None, 0.0
+    if route == "shared":
+        t0 = time.perf_counter()
+        nccl = spmd.run_spmd(_nccl_rank, 1, device="cuda", timeout=SPMD_TIMEOUT)[0]
+        nccl_s = time.perf_counter() - t0
+        check(nccl["backend"] == "nccl", nccl["backend"])
+    want_routes = ({"shared": SPMD_WORLD, "nccl": 1} if route == "shared"
+                   else {"nccl": SPMD_WORLD})
+    check(dict(spmd.ranks_by_route) == want_routes,
+          f"ranks_by_route {dict(spmd.ranks_by_route)} != {want_routes}")
+    want_rank = [("gloo", "cuda:0") if route == "shared" else ("nccl", f"cuda:{r}")
+                 for r in range(SPMD_WORLD)]
+    check([(r["backend"], r["device"]) for r in ranks] == want_rank,
+          [(r["backend"], r["device"]) for r in ranks])
+    nan = float("nan")
+    for r, res in enumerate(ranks):
+        t = res["train"]
+        prof = t["profile"]
+        wall, coll = prof.get("wall_ms"), prof.get("coll_host_ms")
+        log(f"# rank {r}: EP layer (a) errors {res['ep']['errs']}, fwd+bwd "
+            f"{res['ep']['ep_fwd_bwd_ms']:.1f} ms, per-sender drops at 1.25: "
+            f"{res['ep']['drops@1.25']} of {EP_B * EP_T * 8} pairs; pipeline (b) errors "
+            f"{res['pipeline']['errs']}, {res['pipeline']['ms']:.1f} ms fwd+bwd; "
+            f"compressed_psum (d) {res['compressed_psum']}")
+        log(f"# rank {r}: sharded step (c) {t['n_layers']} layers, {t['params_local_m']:.1f} "
+            f"of {t['params_full_m']:.1f} M params on this rank, init {t['init_s']:.1f} s; "
+            f"step ms {[round(x, 1) for x in t['step_ms']]}, p50 {t['p50_ms']:.1f} = "
+            f"{EP_B * EP_T / t['p50_ms'] * 1e3:.0f} tokens/s (both ranks together); losses "
+            f"{[round(x, 4) for x in t['losses']]}; peak {t['peak_mib']:.0f} MiB; profiled "
+            f"step wall {wall or nan:.1f} ms, device busy "
+            f"{prof.get('busy_ms', nan):.1f} ms, idle {prof.get('idle', nan):.3f}; "
+            f"collectives in the trace: host time inside the process group's ranges "
+            + (f"{coll:.1f} ms = share {coll / wall:.3f} of the step (an upper bound: each "
+               f"range also waits for the device work queued before it)"
+               if coll is not None and wall else "not measured")
+            + f", device time of their copies {prof.get('coll_device_ms', nan):.1f} ms; "
+            f"gate {t['gate']}; collectives_by_route {res['collectives_by_route']}")
+    busy = sum(res["train"]["profile"].get("busy_ms", 0.0) for res in ranks)
+    wall = max(res["train"]["profile"].get("wall_ms", 0.0) for res in ranks)
+    idle = 1 - busy / wall if wall and route == "shared" else None
+    log(f"# phase 20: ranks_by_route {dict(spmd.ranks_by_route)}; {route} world "
+        f"{shared_s:.1f} s"
+        + (f", nccl world {nccl_s:.1f} s ((e) EP layer {nccl['ep']['errs']}, drops at 1.25 "
+           f"{nccl['ep']['drops@1.25']}); the card's idle share in the profiled step, both "
+           f"ranks' busy time over the longer wall: {idle if idle is not None else nan:.3f}"
+           if nccl is not None else ""))
+    return {"ranks": ranks, "nccl": nccl, "ranks_by_route": dict(spmd.ranks_by_route),
+            "card_idle": idle}
+
+
 def _runs_row(results: dict, runs: dict, timing: dict, name: str) -> dict:
     """Row ``name``'s readings of phase 18 (``runs`` ZOO_RUNS) or 19
     (FAM_RUNS) for the JSON line: its launches by route in each run, and its
@@ -3795,6 +4237,15 @@ def _runs_row(results: dict, runs: dict, timing: dict, name: str) -> dict:
                                   for run, r in results.items()},
             "shapes": {key.split("@")[1]: {k: r[k] for k in keys if k in r}
                        for key, r in timing.items() if key.split("@")[0] == name}}
+
+
+def _sharded_row(sharded: dict, name: str) -> dict:
+    """Row ``name``'s launches by route in phase 20, per rank: the pipeline
+    stage (b) and the 3 counted train steps (c)."""
+    return {"launches_by_route": {
+        f"rank {r} {part}": res[part]["routes"][name]
+        for r, res in enumerate(sharded["ranks"]) for part in ("pipeline", "train")},
+        "ranks_by_route": sharded["ranks_by_route"]}
 
 
 def _fig7_row(timing: dict, key: str, routes: dict, name: str) -> dict:
@@ -3845,6 +4296,7 @@ def main() -> int:
     # phase 19's training runs first, while the card's memory is empty:
     # Zamba2-2.7B's step peaks at about 70 GiB of the 80
     families = run(phase_families)
+    sharded = run(phase_sharded)
     err = run(phase_kernel)
     dense_err = run(phase_dense_kernels)
     ssd_err = run(phase_ssd_kernel)
@@ -3941,6 +4393,7 @@ def main() -> int:
                 | {"launches_by_route": hybrid["routes"]["decode_attention"]})
         if name == "rmsnorm":
             kernels[-1]["families"] = _runs_row(families, FAM_RUNS, {}, name)
+            kernels[-1]["sharded"] = _sharded_row(sharded, name)
             kernels[-1]["routes_by_shape"] = {
                 k: r["route"] for k, r in {**dense_timing, **hybrid_timing,
                                            **train_timing}.items() if k.startswith("rmsnorm")}
@@ -3991,6 +4444,7 @@ def main() -> int:
         kernels[-1]["launches_by_route"] = training["routes"][name]
         kernels[-1]["cuda_core_ms"] = t["cuda_core_ms"]
         kernels[-1]["families"] = _runs_row(families, FAM_RUNS, families_timing, name)
+        kernels[-1]["sharded"] = _sharded_row(sharded, name)
         if stats:
             kernels[-1]["tf32x3"] = _tf32x3_rows(dense_timing, name, {})
     print(json.dumps({"kernels": kernels}))

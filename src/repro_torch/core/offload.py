@@ -465,6 +465,32 @@ def finalize_plan(
     return OffloadPlan(work, units, analysis.policy, coverage, decisions, call_avals)
 
 
+def plan_offloading(
+    program: Program,
+    scheme: Scheme,
+    costmodel: CostModel,
+    reentry: Callable[[int, str, tuple], tuple],
+    entry_avals: tuple[AVal, ...],
+    *,
+    compile_hook: Callable[[], None] | None = None,
+    backend: str | None = None,
+    unit_filter: Callable[[str], bool] | None = None,
+) -> OffloadPlan:
+    """One-shot planning (analysis + finalize) — the pre-staged-API entry.
+
+    ``reentry`` follows the token protocol: ``reentry(token, callee, args)``,
+    where ``token`` is the reentry-channel scalar each guest callback carries
+    (see :mod:`repro_torch.core.reentrancy`).  Units built here are invoked
+    as ``unit.call(staged_globals, dev_args, token)`` and run on ``backend``
+    (the CPU by default), where the reference's take a ``jit_wrapper``.
+    """
+    analysis = analyze_eligibility(program, scheme, unit_filter=unit_filter)
+    return finalize_plan(
+        analysis, costmodel, reentry, tuple(entry_avals),
+        compile_hook=compile_hook, backend=backend,
+    )
+
+
 def _tensor_sig(xs) -> tuple:
     return tuple((tuple(int(d) for d in x.shape), str(x.dtype)) for x in xs)
 

@@ -22,6 +22,18 @@ and ``FlashAttentionFn`` (the forward-with-statistics, dQ and dK/dV
 kernels).  Otherwise they take the forward-only kernels, whose outputs
 carry no gradient.  Both routes are kernels on the card; the choice follows
 autograd's state, not the device.
+
+**Tensor parallelism.**  Inside a step whose mesh has a ``model`` axis of
+more than one rank (:func:`~repro_torch.parallel.sharding.tensor_parallel`),
+each rank holds its shards by ``param_pspec``'s layout and these blocks do
+the communication the reference leaves to XLA's partitioner: attention is
+column-parallel over the local heads (``wq``/``wk``/``wv``) and row-parallel
+in ``wo``, the MLP column-parallel in ``wg``/``wu`` and row-parallel in
+``wd``, each followed by a psum; the vocab-sharded ``table`` embeds by a
+masked local lookup and a psum and unembeds to this rank's slice of the
+logits.  The activations between blocks are replicated over ``model``:
+each block's input enters it with ``spmd.enter`` (its cotangent psummed)
+and its output leaves by ``spmd.psum_replicated``.
 """
 from __future__ import annotations
 
@@ -33,10 +45,22 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from ..kernels.common import records_grad
+from ..parallel import sharding as shd
+from ..parallel import spmd
 from .attention_plan import HeadPlan, plan_heads
 
 DEFAULT_TP = 16
 PARAM_DTYPE = torch.float32    # master params; compute casts to bf16
+
+
+def _tp_in(x):
+    """A block's input, replicated over ``model``, under tensor parallelism."""
+    return spmd.enter(x, "model") if shd.tensor_parallel() else x
+
+
+def _tp_out(y):
+    """A row-parallel block's partial output summed over ``model``."""
+    return spmd.psum_replicated(y, "model") if shd.tensor_parallel() else y
 
 
 def _init(gen: torch.Generator, shape, device: torch.device, scale=None,
@@ -178,6 +202,7 @@ def attention_full(p, dims: AttnDims, x, *, kv_override=None):
     """
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)
+    x = _tp_in(x)
     q, k, v = _qkv(p, dims, x, positions, kv=kv_override is None)
     if kv_override is not None:
         k, v = kv_override
@@ -186,7 +211,7 @@ def attention_full(p, dims: AttnDims, x, *, kv_override=None):
         else ops.flash_attention
     o = attend(qh, kh, vh, causal=dims.causal and kv_override is None)
     out = torch.einsum("bthk,hkd->btd", o.transpose(1, 2), p["wo"].to(x.dtype))
-    return out, (k, v)
+    return _tp_out(out), (k, v)
 
 
 def quantize_kv(x):
@@ -225,7 +250,7 @@ def attention_decode(p, dims: AttnDims, x1, cache_k, cache_v, pos,
     float32 and bf16 caches); returns (out, cache_k, cache_v, cache_k_scale,
     cache_v_scale).
     """
-    q, k1, v1 = _qkv(p, dims, x1, pos.reshape(1))
+    q, k1, v1 = _qkv(p, dims, _tp_in(x1), pos.reshape(1))
     at = pos.reshape(1).to(torch.long)
     if cache_k_scale is None:
         cache_k.index_copy_(1, at, k1.to(cache_k.dtype))
@@ -233,24 +258,24 @@ def attention_decode(p, dims: AttnDims, x1, cache_k, cache_v, pos,
         o = ops.decode_attention(q.transpose(1, 2), cache_k.transpose(1, 2),
                                  cache_v.transpose(1, 2), pos)      # (B,Hq,1,hd)
         out = torch.einsum("bthk,hkd->btd", o.transpose(1, 2), p["wo"].to(x1.dtype))
-        return out, cache_k, cache_v
+        return _tp_out(out), cache_k, cache_v
     for cache, scales, row in ((cache_k, cache_k_scale, k1), (cache_v, cache_v_scale, v1)):
         vals, s = quantize_kv(row)
         cache.index_copy_(1, at, vals)
         scales.index_copy_(1, at, s)
-    B, S = x1.shape[0], cache_k.shape[1]
-    g, hd = dims.plan.group_size, dims.head_dim
+    B, S, n_kv = x1.shape[0], cache_k.shape[1], cache_k.shape[2]
+    hd = dims.head_dim
     f32 = torch.float32
-    qh = q.reshape(B, dims.plan.n_kv_phys, g, hd) * (1.0 / math.sqrt(hd))
+    qh = q.reshape(B, n_kv, q.shape[2] // n_kv, hd) * (1.0 / math.sqrt(hd))
     k_eff = dequantize_kv(cache_k, cache_k_scale, f32)
     v_eff = dequantize_kv(cache_v, cache_v_scale, f32)
     s = torch.einsum("bhgd,bshd->bhgs", qh.to(f32), k_eff)
     valid = torch.arange(S, device=x1.device) <= pos
     w = torch.softmax(torch.where(valid, s, -1e30), dim=-1)
     o = torch.einsum("bhgs,bshd->bhgd", w, v_eff).to(x1.dtype)
-    o = o.reshape(B, 1, dims.plan.n_q_pad, hd)
+    o = o.reshape(B, 1, q.shape[2], hd)
     out = torch.einsum("bthk,hkd->btd", o, p["wo"].to(x1.dtype))
-    return out, cache_k, cache_v, cache_k_scale, cache_v_scale
+    return _tp_out(out), cache_k, cache_v, cache_k_scale, cache_v_scale
 
 
 # ---------------------------------------------------------------------------
@@ -276,11 +301,12 @@ _ACTS = {
 
 def apply_mlp(p, x, act="silu", gated=True):
     actf = _ACTS[act]
+    x = _tp_in(x)
     if gated:
         h = actf(x @ p["wg"].to(x.dtype)) * (x @ p["wu"].to(x.dtype))
     else:
         h = actf(x @ p["wu"].to(x.dtype))
-    return h @ p["wd"].to(x.dtype)
+    return _tp_out(h @ p["wd"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -291,15 +317,32 @@ def init_embed(gen, vocab_padded, d_model, *, device):
     return {"table": _init(gen, (vocab_padded, d_model), device, scale=0.02)}
 
 
+def vocab_offset(table) -> int:
+    """The first vocabulary row of this rank's ``table`` shard (0 without
+    tensor parallelism)."""
+    return spmd.axis_index("model") * table.shape[0] if shd.tensor_parallel() else 0
+
+
 def embed(p, ids):
-    return p["table"][ids]
+    table = p["table"]
+    if not shd.tensor_parallel():
+        return table[ids]
+    # vocab-sharded: look up the ids this rank holds, zeros elsewhere, psum
+    local = ids - vocab_offset(table)
+    hit = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    return _tp_out(torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype)))
 
 
 def embed_in(cfg, p, ids):
     """Embedding lookup cast to the model's compute dtype (bf16 by default).
-    The reference also pins a batch sharding here; the port has no mesh."""
+    The reference also pins a batch sharding here; each rank holds its batch
+    shard already."""
     return embed(p, ids).to(getattr(torch, cfg.compute_dtype))
 
 
 def unembed(p_head, x, vocab_padded):
-    return x @ p_head["table"].to(x.dtype).T  # tied or separate head table
+    """Logits over the (padded) vocabulary; under tensor parallelism this
+    rank's slice of them, from its ``table`` shard (see
+    :func:`vocab_offset`)."""
+    return _tp_in(x) @ p_head["table"].to(x.dtype).T  # tied or separate head table

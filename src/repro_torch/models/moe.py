@@ -27,9 +27,13 @@ pair's none (it lands in the sliced-away row E).
 Attention, norms, the cache and the layer loop are :mod:`.dense`'s, with the
 routed experts in place of the MLP, so they run the flash, flash-decode and
 RMSNorm kernels, and a train step rematerialises each layer under
-``cfg.remat`` as the reference's ``jax.checkpoint`` of its scan body does.  The reference's expert-parallel ``moe_block_ep`` waits for
-the port's ``parallel/`` (ROADMAP Queue 1 item 10): :func:`dispatch_moe_block`
-calls :func:`moe_block`.
+``cfg.remat`` as the reference's ``jax.checkpoint`` of its scan body does.
+
+Under a mesh, :func:`moe_block_ep` is the reference's expert-parallel
+formulation, one rank per mesh position: route locally, exchange expert
+slabs with one all-to-all over the ``model`` axis, compute the local
+experts, all-to-all back.  :func:`dispatch_moe_block` calls it whenever a
+step installs :class:`~repro_torch.parallel.sharding.moe_ep_context`.
 """
 from __future__ import annotations
 
@@ -37,6 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..parallel import sharding as shd
+from ..parallel import spmd
 from . import dense
 from . import layers as L
 from .dense import _dims, stack_layers
@@ -143,9 +149,78 @@ def moe_block(cfg: ModelConfig, lp, x):
     return combine(he, e_flat, s_flat, keep, top_v).reshape(B, T, D)
 
 
+def moe_block_ep(cfg: ModelConfig, lp, x, mesh, *, seq_axis=None):
+    """Expert-parallel MoE: explicit all-to-all dispatch over ``model``.
+
+    The reference's ``shard_map`` block, run by each rank on its own shards:
+    x (B_local, T, D) is this rank's batch slice, replicated over
+    ``model``; the experts' weights are held as the reference's in-specs
+    lay them out, ``wg``/``wu`` (E/M, d/nd, f) and ``wd`` (E/M, f, d/nd)
+    for M ranks over ``model`` and nd over ``data``, and all-gathered over
+    ``data`` inside the layer (the reference's ``batch_axes``,
+    ``model_axis`` and ``weight_gather_axis``, fixed to the names every
+    step gives them).  Each rank routes its tokens locally with a
+    per-sender capacity ``_capacity(cfg, N_local)`` (standard EP
+    semantics), sends each expert's slab to the rank that holds it,
+    computes its local experts on the slabs of every sender, and sends the
+    results back to be combined.  With
+    ``seq_axis`` (prefill) the token dim is also sharded over that axis, so
+    the model ranks do not route the same tokens, and the output is
+    gathered back over it.
+
+    Differentiable: the collectives' backwards are their transposes and the
+    values replicated over an axis cross :func:`~repro_torch.parallel.spmd.enter`
+    and :func:`~repro_torch.parallel.spmd.leave`, as at ``shard_map``'s
+    boundary, so the backward is the mirrored exchange with the weights'
+    gradients reduce-scattered over ``data``.
+    """
+    E = cfg.moe.num_experts
+    M = mesh.shape["model"]
+    if E % M:
+        raise ValueError(f"{E} experts do not split over {M} ranks of 'model'")
+    E_loc = E // M
+    with mesh:
+        if seq_axis is not None:
+            xl = spmd.take(spmd.enter(x, seq_axis), seq_axis, 1)
+        else:
+            xl = spmd.enter(x, "model")
+        router = spmd.enter(lp["router"], "model")
+        bl, tl, D = xl.shape
+        N = bl * tl
+        xf = xl.reshape(N, D)
+        top_v, top_i, slot, keep = route(cfg, {"router": router}, xf)
+        C = _capacity(cfg, N)
+        e_flat = torch.where(keep, top_i, E).reshape(-1)
+        s_flat = torch.where(keep, slot, 0).reshape(-1)
+        xe = dispatch(xf, e_flat, s_flat, E, C)                        # (E, C, D)
+
+        # dispatch all-to-all over the expert axis: tokens per local expert
+        xr = spmd.all_to_all(xe.reshape(M, E_loc, C, D), "model", 0, 0)
+        xg = xr.movedim(0, 1).reshape(E_loc, M * C, D)
+
+        # expert compute, the weights gathered over the data axis
+        w = lp["experts"]
+        w = {"wg": spmd.all_gather(w["wg"], "data", 1),
+             "wu": spmd.all_gather(w["wu"], "data", 1),
+             "wd": spmd.all_gather(w["wd"], "data", 2)}
+        he = experts(w, xg)                                            # (E_loc, M*C, D)
+
+        # combine all-to-all back to the senders
+        hr = he.reshape(E_loc, M, C, D).movedim(1, 0)
+        hb = spmd.all_to_all(hr, "model", 0, 0).reshape(E, C, D)
+        y = combine(hb, e_flat, s_flat, keep, top_v).reshape(bl, tl, D)
+        if seq_axis is not None:
+            return spmd.leave(spmd.all_gather(y, seq_axis, 1), seq_axis)
+        return spmd.leave(y, "model")
+
+
 def dispatch_moe_block(cfg: ModelConfig, lp, x):
-    """The routed experts of one layer: :func:`moe_block` (the reference's
-    expert-parallel ``moe_block_ep`` needs a mesh, which the port lacks)."""
+    """The routed experts of one layer: :func:`moe_block_ep` when the step
+    installed an expert-parallel context, else :func:`moe_block`."""
+    ep = shd.current_moe_ep()
+    if ep is not None:
+        mesh, seq_axis = ep
+        return moe_block_ep(cfg, lp, x, mesh, seq_axis=seq_axis)
     return moe_block(cfg, lp, x)
 
 

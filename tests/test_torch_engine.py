@@ -204,3 +204,32 @@ def test_aot_save_load_roundtrip_zero_compiles(tmp_path):
     assert loaded.planned.unit_cache.aot_dispatches > 0
     for g, o in zip(got, outs):
         np.testing.assert_array_equal(g, o)
+
+
+@pytest.mark.parametrize("scheme", ["tech", "tech-gfp"])
+@pytest.mark.parametrize("workload", ["cjson", "npbbt"])
+def test_plan_offloading_equals_the_staged_plan(workload, scheme):
+    """The one-shot planner (``core/offload.py:plan_offloading``) gives the
+    plan ``mixed.trace(...).plan(...)`` gives for the same entry signature:
+    the same units with the same inlined closures, coverage, cost-model
+    decisions and per-call signatures."""
+    from repro_torch.core.convert import signature_of
+    from repro_torch.core.costmodel import CostModel, CostModelConfig
+    from repro_torch.core.offload import plan_offloading, resolve_scheme
+    from repro_torch.workloads import WORKLOADS
+
+    prog, args = WORKLOADS[workload].build("test")
+    staged = tmixed.trace(prog).plan(scheme).compile(backend="cpu").plan_for(*args)
+    hooks = []
+    plan = plan_offloading(prog, resolve_scheme(scheme), CostModel(CostModelConfig()),
+                           lambda token, callee, a: (), signature_of(args),
+                           compile_hook=lambda: hooks.append(1), backend="cpu")
+    assert sorted(plan.units) == sorted(staged.units)
+    assert len(plan.units) > 0
+    for name, unit in plan.units.items():
+        assert unit.inlined == staged.units[name].inlined
+        assert unit.global_names == staged.units[name].global_names
+    assert plan.coverage == staged.coverage
+    assert plan.decisions == staged.decisions
+    assert plan.call_avals == staged.call_avals
+    assert hooks == []          # nothing is compiled until a unit runs

@@ -57,6 +57,18 @@ def test_zoo_modules_are_checked(module):
     assert PORT / module in PORT_FILES
 
 
+# sharded training: the mesh and collectives, the layout rules, the pipeline,
+# fault tolerance and the production mesh
+PARALLEL_MODULES = ["parallel/__init__.py", "parallel/spmd.py", "parallel/sharding.py",
+                    "parallel/pipeline.py", "runtime/__init__.py",
+                    "runtime/fault_tolerance.py", "launch/mesh.py"]
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_parallel_modules_are_checked(module):
+    assert PORT / module in PORT_FILES
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = _imported_roots(path) & set(FORBIDDEN)
