@@ -267,7 +267,7 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    at full width as 2 pipeline stages of 16 (``pipeline_apply``, 8
    microbatches of 1 x 512, bf16) against the 32 layers in sequence, output
    and every stage weight's gradient within 2e-2, rows 4-7's launches
-   counted; (c) Granite MoE uncut through ``make_train_step`` with
+   counted; (c) Granite MoE at 8 of its 24 layers through ``make_train_step`` with
    ``moe_ep`` and tensor parallelism, 3 steps of 8 x 1024 ``TokenPipeline``
    tokens: launches and routes of rows 4-7 per step, no plain version,
    step p50, tokens/s, each rank's peak, a profiled step's idle share and,
@@ -279,6 +279,28 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    layer and one all-reduce.  ``ranks_by_route`` and each rank's
    ``collectives_by_route`` are printed.  On a machine with a card a rank
    the two ranks run on NCCL instead, and (e) is not run.
+21. The rest of sharded execution (configuration 13; run right after phase
+   20): two more ranks share the card through gloo.  (a) Tensor
+   parallelism on mesh (data 1, model 2), bf16, remat, full widths:
+   Zamba2-2.7B at 48 of its 54 layers (4 x 1024; the SSD scan on each
+   rank's 40 heads), xLSTM-350M uncut (4 x 128), SeamlessM4T uncut (4 x
+   512 + 128 frames), Phi-3-vision at 16 of its 32 layers (4 x 512 + 576
+   patches; the patch projection's columns gathered): 3 steps each with
+   every launch counted and routed, no plain version, step p50, tokens/s,
+   each rank's peak, a profiled step's idle and collective shares, then a
+   prefill of 128 tokens and a decode step on the rank's heads with their
+   launches counted, and the reduced float32 step against the one-rank CPU
+   step (1e-4; the hybrid 2e-4).  (b) SmolLM-360M uncut under
+   ``strategy="fsdp"`` on (data 2, model 1), 3 steps of 4 x 1024: each
+   layer's shards gathered inside it (twice a step with remat, counted),
+   launches, p50, peak, shares, and the reduced float32 gate under the same
+   layout.  (c) Sharded offload units on (data 2): configuration 3's
+   forward without its host check under ``tech-gf`` with its tokens split
+   by batch and by sequence, against the one-rank unsharded compile on the
+   card (2e-3/2e-4), crossings, conversion builds, compiles, GRT hits and
+   coverage equal, ms per call sharded and unsharded, the redistributions
+   per op; configuration 1's decode LM through a ``DecodeScheduler`` on a
+   sharded plan, its tokens and report equal to the unsharded scheduler's.
 
 The last lines are a ``kernels`` JSON line (every row with its
 ``launches_by_route``; rows 1 and 2 with the old body's ``simt_ms``, their
@@ -293,9 +315,9 @@ routes under ``served`` and the operators' cost per call under
 run and their times at its shapes under ``zoo``; rows 4-8 with phase
 19's launches by route per run under ``families``, rows 4-6 with their
 times at its shapes, row 8 with the SSD VJP's calls and time; rows 4-7
-with phase 20's launches by route per rank under ``sharded``), the card's
-name and
-power limit, and ``{"ok": true, "device": {...}}``.  The script needs the repo's
+with phase 20's launches by route per rank under ``sharded``; every row
+with phase 21's launches by route per rank and part under ``sharded``,
+``configuration 13``), the card's name and power limit, and ``{"ok": true, "device": {...}}``.  The script needs the repo's
 ``src/`` beside it and a CUDA device; without either it exits non-zero and
 prints no result.
 """
@@ -3840,7 +3862,9 @@ SPMD_WORLD = 2                   # ranks sharing the one card (route "shared")
 SPMD_TIMEOUT = 600
 EP_ARCH, EP_B, EP_T, EP_CAPS = "granite-moe-1b-a400m", 8, 1024, (8.0, 1.25)
 PP_ARCH, PP_M, PP_T = "smollm-360m", 8, 512      # 2 stages of 16 layers, microbatch 1
-SH_ARCH, SH_STEPS = "granite-moe-1b-a400m", 3     # uncut: 24 layers fit two ranks' shards
+# depth cut 24 -> 8: each uncut step's 144 all-to-alls through gloo took
+# 17-28 s, and phase 21 needs the script's time
+SH_ARCH, SH_STEPS, SH_LAYERS = "granite-moe-1b-a400m", 3, 8
 EP_HOT, EP_HOT_SCALE = 4, 10.0   # (a)'s router: 4 experts' columns 10x, so 1.25 drops pairs
 BF16_TOL = 2e-2
 
@@ -3997,6 +4021,7 @@ def _sharded_step(torch, mesh) -> dict:
     expert-parallel experts: SH_STEPS counted steps of 8 x 1024 tokens, a
     profiled step (its collectives read from the trace), and the reduced
     float32 gate."""
+    import dataclasses
     import gc
 
     from repro_torch.configs import get_config
@@ -4007,7 +4032,7 @@ def _sharded_step(torch, mesh) -> dict:
     from repro_torch.parallel import sharding as shd
 
     dev, tp = mesh.device, mesh.shape["model"]
-    cfg = get_config(SH_ARCH)
+    cfg = dataclasses.replace(get_config(SH_ARCH), n_layers=SH_LAYERS)
     t0 = time.perf_counter()
     full = api.init(cfg, torch.Generator(device=dev).manual_seed(SEED), tp=tp, device=dev)
     specs = param_layout(cfg, full, moe_ep=True)
@@ -4227,6 +4252,496 @@ def phase_sharded(torch) -> dict:
             "card_idle": idle}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the rest of sharded execution (configuration 13)
+# ---------------------------------------------------------------------------
+
+# (a) tensor parallelism over model = 2 on the other families at their full
+# widths: run: (arch, layers or None for uncut, batch, seq); bf16, remat,
+# TPF_STEPS steps, then a prefill of TPF_PROMPT tokens and a decode step.
+# Depth cuts: the two ranks share the card, each holding its half of the
+# parameters at the functional AdamW's ~29 B a parameter (phase 19), so the
+# card holds as much as one unsharded run plus the activations of two
+TPF_RUNS = {"a": ("zamba2-2.7b", 48, 4, 1024),          # 54 -> 48 (8 shared applications)
+            "b": ("xlstm-350m", None, 4, 128),           # 128: the sLSTM backward (FAM_RUNS)
+            "c": ("seamless-m4t-large-v2", None, 4, 512),
+            "d": ("phi-3-vision-4.2b", 16, 4, 512)}      # 32 -> 16, as phase 19
+TPF_STEPS, TPF_PROMPT = 3, 64
+# (b) the fsdp strategy: SmolLM-360M uncut on mesh (data 2, model 1)
+FSDP_ARCH, FSDP_B, FSDP_SEQ, FSDP_STEPS = "smollm-360m", 4, 1024, 3
+# (c) sharded units on mesh (data 2): configuration 3's program without its
+# host check (so the entry is a unit and its tokens are placed by the spec)
+# under tech-gf, and configuration 1's decode LM through a DecodeScheduler
+UNIT_SPECS = (("batch", ("data", None)), ("seq", (None, "data")))
+UNIT_REPS = 5
+SPMD21_TIMEOUT = 900
+
+
+def _tp_family_run(torch, mesh, run: str, arch: str, layers, B: int, seq: int) -> dict:
+    """(a): one family tensor-parallel over the mesh's ``model`` axis:
+    TPF_STEPS counted train steps, a profiled one, a prefill and a decode
+    step, each launch counted, and the reduced float32 gate."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.ssm_scan import ssd_scan_vjp
+    from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
+                                          make_train_step, param_layout)
+    from repro_torch.models import api
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel import sharding as shd
+
+    dev, tp = mesh.device, mesh.shape["model"]
+    rank = torch.distributed.get_rank()
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    t0 = time.perf_counter()
+    full = api.init(cfg, torch.Generator(device=dev).manual_seed(SEED), tp=tp, device=dev)
+    specs = param_layout(cfg, full)
+    params = shd.shard_tree(mesh, full, specs)
+    n_full = sum(t.numel() for t in _tensors(full))
+    n_local = sum(t.numel() for t in _tensors(params))
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt_state = adamw_init(params)
+    init_s = time.perf_counter() - t0
+    step = make_train_step(cfg, tp=tp, opt=AdamWConfig(lr=FAM_LR), total_steps=10, mesh=mesh)
+    batches = _family_batches(cfg, seq, TPF_STEPS + 1, B=B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, step_ms = [], []
+    with _TrainSpies() as spies:
+        _reset_counts()
+        ssd_scan_vjp.calls = 0
+        for i in range(TPF_STEPS):
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, batches[i])
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches, routes, vjp = _counts(), _routes(), ssd_scan_vjp.calls
+    peak = torch.cuda.max_memory_allocated()
+    what = f"tp run {run} ({cfg.name}, rank {rank})"
+    check(all(np.isfinite(v) for mt in metrics for v in mt), f"{what}: {metrics}")
+    check(not spies.plain_calls, f"{what}: plain versions on the card {spies.plain_calls}")
+    want = {k: TPF_STEPS * n for k, n in _family_launches(cfg).items()}
+    check(launches == want, f"{what}: launches {launches} != {want}")
+    check(vjp == (TPF_STEPS * cfg.n_layers if cfg.family == "hybrid" else 0), (what, vjp))
+    for name in ("flash_attention_fwd_stats", "flash_attention_dq", "flash_attention_dkv"):
+        check_routes(routes, name, f"{what} (bf16, d = {cfg.head_dim_})", wgmma=want[name])
+    check_routes(routes, "rmsnorm", f"{what} (bf16)", vec=want["rmsnorm"])
+    check_routes(routes, "ssd_scan", f"{what} (bf16, local heads)", mma=want["ssd_scan"])
+
+    saved = _snapshot()
+    prof: dict = {}
+    profile_steps(torch, lambda: step(params, opt_state, batches[TPF_STEPS]), 1,
+                  f"{what} train step", into=prof)
+    _restore(saved)
+    del opt_state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serving: a prefill of TPF_PROMPT tokens and one decode step, the cache
+    # held as cache_pspecs lays it out
+    cache = api.init_cache(cfg, B, TPF_PROMPT + 1, tp=tp, dtype=torch.bfloat16, device=dev)
+    cspecs = shd.cache_pspecs(cfg, ShapeConfig("d", "decode", TPF_PROMPT + 1, B), mesh, cache)
+    cache = shd.shard_tree(mesh, cache, cspecs)
+    tokens = np.asarray(batches[0]["tokens"])
+    prompt = {"tokens": tokens[:, :TPF_PROMPT]} | _zoo_extra(cfg, B, np.random.default_rng(SEED))
+    prefill = make_prefill_step(cfg, tp=tp, mesh=mesh)
+    decode = make_decode_step(cfg, tp=tp, mesh=mesh)
+    _reset_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, prompt, cache)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        logits2, cache = decode(params, cache, {"token": tokens[:, TPF_PROMPT:TPF_PROMPT + 1]})
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3
+    serve_launches, serve_routes = _counts(), _routes()
+    if cfg.family == "hybrid":
+        G = cfg.n_layers // cfg.ssm.shared_attn_every
+        want = _hybrid_launches(cfg.n_layers, G, prefills=1, steps=1)
+    else:
+        want = _zoo_launches(cfg, prefills=1, steps=1)
+    check(serve_launches == want, f"{what} prefill + step: launches {serve_launches} != {want}")
+    check(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(logits2).all()),
+          f"{what}: non-finite serving logits")
+    del params, cache, logits, logits2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "full_layers": get_config(arch).n_layers,
+            "B": B, "seq": seq, "step_ms": step_ms, "p50_ms": float(np.median(step_ms)),
+            "losses": [a for a, _ in metrics], "peak_mib": peak / 2**20,
+            "params_full_m": n_full / 1e6, "params_local_m": n_local / 1e6, "init_s": init_s,
+            "launches": launches, "routes": routes, "vjp_calls": vjp, "profile": prof,
+            "serve_launches": serve_launches, "serve_routes": serve_routes,
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "gate": _tp_family_gate(torch, mesh, arch)}
+
+
+def _tp_family_gate(torch, mesh, arch: str, strategy: str = "tp") -> float:
+    """The family's reduced config in float32 with remat, held by the
+    ``strategy``'s layout on ``mesh`` on the card, against the one-rank step
+    on the CPU: the loss at 1e-4 and the gradients' global relative error at
+    1e-4 (the hybrid at 2e-4, as phase 19's gate)."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.steps import loss_and_grads, param_layout
+    from repro_torch.models import api
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.parallel import sharding as shd
+
+    tp = mesh.shape["model"]
+    cfg = dataclasses.replace(reduced_config(arch), compute_dtype="float32", remat=True)
+    cpu = api.init(cfg, torch.Generator().manual_seed(SEED), tp=max(tp, 1), device="cpu")
+    seq = 16 if cfg.family == "ssm" else 32
+    batch = _family_batches(cfg, seq, 1, B=2)[0]
+    specs = param_layout(cfg, cpu, strategy=strategy, mesh=mesh)
+    card = tree_map(lambda t: t.to(mesh.device), shd.shard_tree(mesh, cpu, specs))
+    saved = _snapshot()
+    lc, gc_ = loss_and_grads(cfg, cpu, batch, tp=max(tp, 1))
+    lg, gg = loss_and_grads(cfg, card, batch, tp=max(tp, 1), mesh=mesh, strategy=strategy)
+    gg = shd.gather_tree(mesh, gg, specs)
+    _restore(saved)
+    want = [a for _, a in api._leaves(gc_)]
+    got = [b.cpu() for _, b in api._leaves(gg)]
+    rel = _grad_rel_err(torch, got, want)
+    tol = 2e-4 if cfg.family == "hybrid" else 1e-4
+    check(rel <= tol, f"{cfg.name} reduced float32 ({strategy}): card vs CPU gradients "
+          f"{rel:.3e} > {tol:.0e}")
+    check(abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc)), (arch, float(lg), float(lc)))
+    return rel
+
+
+def _fsdp_run(torch, mesh) -> dict:
+    """(b): SmolLM-360M uncut held by the fsdp strategy on (data 2, model
+    1): each layer's shards gathered inside the layer (and again in its
+    remat), FSDP_STEPS counted steps, a profiled one, and the reduced
+    float32 gate under the same layout."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.steps import make_train_step, param_layout
+    from repro_torch.models import api
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel import sharding as shd
+
+    dev = mesh.device
+    rank = torch.distributed.get_rank()
+    cfg = get_config(FSDP_ARCH)
+    full = api.init(cfg, torch.Generator(device=dev).manual_seed(SEED), tp=1, device=dev)
+    specs = param_layout(cfg, full, strategy="fsdp", mesh=mesh)
+    params = shd.shard_tree(mesh, full, specs)
+    n_full = sum(t.numel() for t in _tensors(full))
+    n_local = sum(t.numel() for t in _tensors(params))
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt_state = adamw_init(params)
+    step = make_train_step(cfg, tp=1, opt=AdamWConfig(lr=FAM_LR), total_steps=10, mesh=mesh,
+                           strategy="fsdp")
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=FSDP_SEQ, global_batch=FSDP_B,
+                                    seed=SEED))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, step_ms = [], []
+    shd.layer_gathers.update(calls=0, leaves=0)
+    with _TrainSpies() as spies:
+        _reset_counts()
+        for i in range(FSDP_STEPS):
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, data.batch_at(i))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches, routes = _counts(), _routes()
+    gathers = dict(shd.layer_gathers)
+    peak = torch.cuda.max_memory_allocated()
+    what = f"fsdp ({cfg.name}, rank {rank})"
+    check(all(np.isfinite(v) for mt in metrics for v in mt), f"{what}: {metrics}")
+    check(not spies.plain_calls, f"{what}: plain versions on the card {spies.plain_calls}")
+    want = {k: FSDP_STEPS * n for k, n in _family_launches(cfg).items()}
+    check(launches == want, f"{what}: launches {launches} != {want}")
+    for name in ("flash_attention_fwd_stats", "flash_attention_dq", "flash_attention_dkv"):
+        check_routes(routes, name, f"{what} (bf16, d = 64)", wgmma=want[name])
+    check_routes(routes, "rmsnorm", f"{what} (bf16)", vec=want["rmsnorm"])
+    # each layer gathers its shards once in the forward and once in its remat
+    check(gathers["calls"] == FSDP_STEPS * 2 * cfg.n_layers, (what, gathers))
+    saved = _snapshot()
+    prof: dict = {}
+    profile_steps(torch, lambda: step(params, opt_state, data.batch_at(FSDP_STEPS)), 1,
+                  f"{what} train step", into=prof)
+    _restore(saved)
+    del params, opt_state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "p50_ms": float(np.median(step_ms)),
+            "losses": [a for a, _ in metrics], "peak_mib": peak / 2**20,
+            "params_full_m": n_full / 1e6, "params_local_m": n_local / 1e6,
+            "launches": launches, "routes": routes, "gathers": gathers, "profile": prof,
+            "gate": _tp_family_gate(torch, mesh, FSDP_ARCH, strategy="fsdp")}
+
+
+def _call_ms(torch, fn, reps: int) -> list:
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+REPORTED = ("guest_to_host", "host_to_guest", "conversion_builds", "compiles", "grt_hits")
+
+
+def _units_run(torch, mesh) -> dict:
+    """(c): sharded offload units on (data 2): configuration 3's forward
+    under each of UNIT_SPECS against the one-rank unsharded compile on the
+    card (2e-3/2e-4, counters exact), ms per call and the partitioner's
+    redistributions per op; then configuration 1's decode LM through a
+    DecodeScheduler on a sharded plan, its tokens and report against the
+    unsharded scheduler's."""
+    import dataclasses
+    import gc
+
+    from repro_torch import mixed
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models.programs import export_attn_decode_lm, export_dense_forward
+    from repro_torch.parallel import units
+    from repro_torch.parallel.sharding import P
+    from repro_torch.serve import DecodeScheduler, StateSpec
+
+    dev = mesh.device
+    rank = torch.distributed.get_rank()
+    cfg32 = dataclasses.replace(get_config("smollm-360m"), compute_dtype="float32")
+    params = api.init(cfg32, torch.Generator(device=dev).manual_seed(SEED), tp=1, device=dev)
+    prog, (tokens,) = export_dense_forward(cfg32, params, batch=MIXED_B, seq=MIXED_SEQ,
+                                           with_host_check=False, tp=1)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    L = cfg32.n_layers
+    plain = mixed.trace(prog).plan("tech-gf").compile()
+    _reset_counts()
+    want_out, want_rep = plain.call_reported(tokens)
+    want_plan = plain.plan_for(tokens)
+    check(_counts()["flash_attention"] == L, _counts())
+    plain_ms = _call_ms(torch, lambda: plain(tokens), UNIT_REPS)
+    out = {"unsharded_ms": plain_ms, "forward": {}}
+    for name, spec in UNIT_SPECS:
+        what = f"sharded units ({name} split, rank {rank})"
+        hybrid = mixed.trace(prog).plan("tech-gf", mesh=mesh, arg_specs=(P(*spec),)).compile()
+        units.redistributions_by_op.clear()
+        _reset_counts()
+        got, rep = hybrid.call_reported(tokens)
+        launches, routes = _counts(), _routes()
+        redis = dict(units.redistributions_by_op)
+        for a, b in zip(got, want_out):
+            np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-4)
+        err = max(float(np.abs(a - b).max()) for a, b in zip(got, want_out))
+        for key in REPORTED:
+            check(getattr(rep, key) == getattr(want_rep, key),
+                  (what, key, getattr(rep, key), getattr(want_rep, key)))
+        check(dict(rep.per_function_crossings) == dict(want_rep.per_function_crossings), what)
+        plan = hybrid.plan_for(tokens)
+        check(plan.coverage.as_dict() == want_plan.coverage.as_dict(), what)
+        check(sorted(plan.units) == sorted(want_plan.units), what)
+        check(launches == {"rmsnorm": 2 * L + 1, "flash_attention": L, "decode_attention": 0,
+                           "paged_decode_attention": 0, "ssd_scan": 0, **NO_TRAIN_LAUNCHES},
+              f"{what}: launches {launches}")
+        check_routes(routes, "flash_attention", f"{what} (f32, d = 64)", tf32x3=L)
+        check_routes(routes, "rmsnorm", f"{what} (f32, D = 960)", vec=2 * L + 1)
+        saved = _snapshot()
+        ms = _call_ms(torch, lambda: hybrid(tokens), UNIT_REPS)
+        _restore(saved)
+        out["forward"][name] = {"ms": ms, "max_abs_err": err, "redistributions": redis,
+                                "launches": launches, "routes": routes,
+                                "crossings": rep.guest_to_host, "compiles": rep.compiles}
+    del plain
+    gc.collect()
+
+    # configuration 1's decode LM: the prefill entry stays on the guest (its
+    # host check), so every unit's arguments are replicated over the mesh
+    program = export_attn_decode_lm(vocab=VOCAB, d_model=D_MODEL, max_context=MAX_CTX, seed=SEED)
+    spec = StateSpec(growing={0: 1, 1: 1}, max_context=MAX_CTX, page_size=PAGE)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, VOCAB, (PROMPT,), dtype=np.int32) for _ in range(CAPACITY)]
+
+    def serve(planned):
+        sched = DecodeScheduler(planned, step="decode_step", paged_step="paged_decode_step",
+                                capacity=CAPACITY, state=spec, start=False)
+        with sched:
+            sched.warm(PROMPT)
+            streams = [sched.submit(p, n) for p, n in zip(prompts, MAX_NEW)]
+            _reset_counts()
+            t0 = time.perf_counter()
+            sched.start()
+            toks = [s.result(timeout=600) for s in streams]
+            wall = time.perf_counter() - t0
+            launches, routes = _counts(), _routes()
+        rep = sched.report()
+        return toks, rep, wall, launches, routes
+
+    units.redistributions_by_op.clear()
+    sharded_plan = mixed.trace(program).plan("tech-gfp", mesh=mesh,
+                                             arg_specs=(P("data", None),))
+    toks, rep, wall, launches, routes = serve(sharded_plan)
+    redis = dict(units.redistributions_by_op)
+    saved = _snapshot()
+    want_toks, want, want_wall, _, _ = serve(mixed.trace(program).plan("tech-gfp"))
+    _restore(saved)
+    what = f"sharded decode LM (rank {rank})"
+    for a, b in zip(toks, want_toks):
+        check(np.array_equal(a, b), f"{what}: tokens differ from the unsharded scheduler's")
+    for key in ("tokens", "steps", "prefills", "crossings", "kernel_steps", "pages_visited"):
+        check(getattr(rep, key) == getattr(want, key),
+              (what, key, getattr(rep, key), getattr(want, key)))
+    check(launches["paged_decode_attention"] >= rep.kernel_steps > 0, (what, launches))
+    check(launches["flash_attention"] == rep.prefills > 0, (what, launches))
+    check_routes(routes, "flash_attention", f"{what} prefill (f32, d = 960)",
+                 tf32x3=rep.prefills)
+    check_routes(routes, "paged_decode_attention", f"{what} paged steps",
+                 split=launches["paged_decode_attention"])
+    out["decode"] = {"tokens": rep.tokens, "wall_s": wall, "unsharded_wall_s": want_wall,
+                     "steps": rep.steps, "crossings": rep.crossings,
+                     "redistributions": redis, "launches": launches, "routes": routes}
+    return out
+
+
+def _spmd21_rank() -> dict:
+    """One rank of phase 21's shared world: (a), (b), (c)."""
+    import torch
+
+    from repro_torch.parallel import spmd
+
+    rank = torch.distributed.get_rank()
+    tp_mesh = spmd.Mesh((1, SPMD_WORLD), ("data", "model"))
+    out = {"device": str(tp_mesh.device), "backend": tp_mesh.backend, "tp": {}}
+    for run, spec in TPF_RUNS.items():
+        t0 = time.perf_counter()
+        out["tp"][run] = _tp_family_run(torch, tp_mesh, run, *spec)
+        out["tp"][run]["wall_s"] = time.perf_counter() - t0
+        log(f"# phase 21 rank {rank}: tp run {run} done in {out['tp'][run]['wall_s']:.1f} s")
+    t0 = time.perf_counter()
+    out["fsdp"] = _fsdp_run(torch, spmd.Mesh((SPMD_WORLD, 1), ("data", "model")))
+    out["fsdp"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["units"] = _units_run(torch, spmd.Mesh((SPMD_WORLD,), ("data",)))
+    out["units"]["wall_s"] = time.perf_counter() - t0
+    out["collectives_by_route"] = {k: dict(v) for k, v in spmd.collectives_by_route.items()}
+    return out
+
+
+def _share(prof: dict, key: str):
+    wall = prof.get("wall_ms")
+    return prof[key] / wall if wall and prof.get(key) is not None else None
+
+
+def phase_sharded_rest(torch) -> dict:
+    """Phase 21: configuration 13 on SPMD_WORLD ranks sharing the card
+    through gloo (route ``"shared"``; on NCCL with a card a rank): (a) the
+    other families tensor-parallel, (b) the fsdp strategy, (c) sharded
+    offload units."""
+    import gc
+
+    from repro_torch.parallel import spmd
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = dict(spmd.ranks_by_route)
+    route = "nccl" if SPMD_WORLD <= torch.cuda.device_count() else "shared"
+    t0 = time.perf_counter()
+    ranks = spmd.run_spmd(_spmd21_rank, SPMD_WORLD, device="cuda", timeout=SPMD21_TIMEOUT)
+    wall = time.perf_counter() - t0
+    check(spmd.ranks_by_route[route] == before.get(route, 0) + SPMD_WORLD,
+          dict(spmd.ranks_by_route))
+    want_rank = [("gloo", "cuda:0") if route == "shared" else ("nccl", f"cuda:{r}")
+                 for r in range(SPMD_WORLD)]
+    check([(r["backend"], r["device"]) for r in ranks] == want_rank,
+          [(r["backend"], r["device"]) for r in ranks])
+    nan = float("nan")
+    card_idle = {}
+    for run in TPF_RUNS:
+        for r, res in enumerate(ranks):
+            t = res["tp"][run]
+            prof = t["profile"]
+            share = _share(prof, "coll_host_ms")
+            log(f"# phase 21 (a) rank {r} run {run}: {t['arch']} at {t['layers']} of "
+                f"{t['full_layers']} layers, {t['B']} x {t['seq']}, {t['params_local_m']:.1f} "
+                f"of {t['params_full_m']:.1f} M params on this rank, init {t['init_s']:.1f} s; "
+                f"step ms {[round(x, 1) for x in t['step_ms']]}, p50 {t['p50_ms']:.1f} = "
+                f"{t['B'] * t['seq'] / t['p50_ms'] * 1e3:.0f} tokens/s (both ranks together); "
+                f"losses {[round(x, 4) for x in t['losses']]}; peak {t['peak_mib']:.0f} MiB; "
+                f"profiled step wall {prof.get('wall_ms', nan):.1f} ms, busy "
+                f"{prof.get('busy_ms', nan):.1f} ms, idle {prof.get('idle', nan):.3f}, "
+                f"collectives' host share "
+                + (f"{share:.3f} (an upper bound)" if share is not None else "not measured")
+                + f", their copies {prof.get('coll_device_ms', nan):.1f} ms; prefill "
+                f"{t['prefill_ms']:.1f} ms, decode step {t['decode_ms']:.1f} ms; launches a "
+                f"train run {t['launches']}, prefill + step {t['serve_launches']}; gate "
+                f"{t['gate']:.2e}; {t['wall_s']:.1f} s")
+        busy = sum(res["tp"][run]["profile"].get("busy_ms", 0.0) for res in ranks)
+        longest = max(res["tp"][run]["profile"].get("wall_ms", 0.0) for res in ranks)
+        card_idle[run] = 1 - busy / longest if longest and route == "shared" else None
+    for r, res in enumerate(ranks):
+        f = res["fsdp"]
+        prof = f["profile"]
+        share = _share(prof, "coll_host_ms")
+        log(f"# phase 21 (b) rank {r}: {FSDP_ARCH} fsdp on (data 2, model 1), {FSDP_B} x "
+            f"{FSDP_SEQ} a step, {f['params_local_m']:.1f} of {f['params_full_m']:.1f} M params "
+            f"held; step ms {[round(x, 1) for x in f['step_ms']]}, p50 {f['p50_ms']:.1f} = "
+            f"{FSDP_B * FSDP_SEQ / f['p50_ms'] * 1e3:.0f} tokens/s (both ranks); losses "
+            f"{[round(x, 4) for x in f['losses']]}; peak {f['peak_mib']:.0f} MiB; layer gathers "
+            f"{f['gathers']}; profiled step idle {prof.get('idle', nan):.3f}, collectives' host "
+            f"share " + (f"{share:.3f}" if share is not None else "not measured")
+            + f"; gate {f['gate']:.2e}; {f['wall_s']:.1f} s")
+        u = res["units"]
+        for name, fw in u["forward"].items():
+            log(f"# phase 21 (c) rank {r}: forward, {name} split: ms per call "
+                f"{[round(x, 1) for x in fw['ms']]} (median {np.median(fw['ms']):.1f}) against "
+                f"unsharded {[round(x, 1) for x in u['unsharded_ms']]} (median "
+                f"{np.median(u['unsharded_ms']):.1f}); max |err| {fw['max_abs_err']:.2e}; "
+                f"crossings {fw['crossings']}, compiles {fw['compiles']}; redistributions "
+                f"by op {fw['redistributions']}")
+        d = u["decode"]
+        log(f"# phase 21 (c) rank {r}: decode LM on a sharded plan: {d['tokens']} tokens in "
+            f"{d['wall_s']:.2f} s ({d['steps']} steps, {d['crossings']} crossings; unsharded "
+            f"{d['unsharded_wall_s']:.2f} s), tokens equal; redistributions by op "
+            f"{d['redistributions']}; launches {d['launches']}; {u['wall_s']:.1f} s; "
+            f"collectives_by_route {res['collectives_by_route']}")
+    busy = sum(res["fsdp"]["profile"].get("busy_ms", 0.0) for res in ranks)
+    longest = max(res["fsdp"]["profile"].get("wall_ms", 0.0) for res in ranks)
+    card_idle["fsdp"] = 1 - busy / longest if longest and route == "shared" else None
+    log(f"# phase 21: {route} world {wall:.1f} s; the card's idle share in each profiled "
+        f"step, both ranks' busy time over the longer wall: "
+        + ", ".join(f"{k} {v:.3f}" if v is not None else f"{k} not measured"
+                    for k, v in card_idle.items()))
+    return {"ranks": ranks, "card_idle": card_idle}
+
+
+def _sharded21_row(s21: dict, name: str) -> dict:
+    """Row ``name``'s launches by route in phase 21, per rank and part."""
+    out = {}
+    for r, res in enumerate(s21["ranks"]):
+        for run, t in res["tp"].items():
+            out[f"rank {r} tp {run} {t['arch']} train"] = t["routes"][name]
+            out[f"rank {r} tp {run} {t['arch']} prefill+step"] = t["serve_routes"][name]
+        out[f"rank {r} fsdp train"] = res["fsdp"]["routes"][name]
+        for split, fw in res["units"]["forward"].items():
+            out[f"rank {r} units forward {split}"] = fw["routes"][name]
+        out[f"rank {r} units decode"] = res["units"]["decode"]["routes"][name]
+    return {k: v for k, v in out.items() if sum(v.values())}
+
+
 def _runs_row(results: dict, runs: dict, timing: dict, name: str) -> dict:
     """Row ``name``'s readings of phase 18 (``runs`` ZOO_RUNS) or 19
     (FAM_RUNS) for the JSON line: its launches by route in each run, and its
@@ -4297,6 +4812,7 @@ def main() -> int:
     # Zamba2-2.7B's step peaks at about 70 GiB of the 80
     families = run(phase_families)
     sharded = run(phase_sharded)
+    sharded21 = run(phase_sharded_rest)
     err = run(phase_kernel)
     dense_err = run(phase_dense_kernels)
     ssd_err = run(phase_ssd_kernel)
@@ -4339,6 +4855,7 @@ def main() -> int:
         "simt_ms": timing["simt_ms"],
         "cluster": timing["cluster"],
         "ms_by_cluster": timing["ms_by_cluster"],
+        "sharded": {"configuration 13": _sharded21_row(sharded21, "paged_decode_attention")},
     }]
     for name, replaces in (("decode_attention", "src/repro/kernels/decode_attention.py:34"),
                            ("flash_attention", "src/repro/kernels/flash_attention.py:25"),
@@ -4367,6 +4884,7 @@ def main() -> int:
         if name in dense["routes"]:
             kernels[-1]["launches_by_route"] = dense["routes"][name]
         kernels[-1]["zoo"] = _runs_row(zoo, ZOO_RUNS, zoo_timing, name)
+        kernels[-1]["sharded"] = {"configuration 13": _sharded21_row(sharded21, name)}
         if name in ("flash_attention", "rmsnorm"):
             kernels[-1]["fig7"] = _fig7_row(paper_timing, f"{name}@fig7",
                                             paper["fig7_routes"], name)
@@ -4393,7 +4911,7 @@ def main() -> int:
                 | {"launches_by_route": hybrid["routes"]["decode_attention"]})
         if name == "rmsnorm":
             kernels[-1]["families"] = _runs_row(families, FAM_RUNS, {}, name)
-            kernels[-1]["sharded"] = _sharded_row(sharded, name)
+            kernels[-1]["sharded"] |= _sharded_row(sharded, name)
             kernels[-1]["routes_by_shape"] = {
                 k: r["route"] for k, r in {**dense_timing, **hybrid_timing,
                                            **train_timing}.items() if k.startswith("rmsnorm")}
@@ -4420,6 +4938,7 @@ def main() -> int:
             "vjp_calls": {f"{run} {FAM_RUNS[run][0]}": r["vjp_calls"]
                           for run, r in families.items()},
             "vjp": families_timing["ssd_scan_vjp@zamba2"]},
+        "sharded": {"configuration 13": _sharded21_row(sharded21, "ssd_scan")},
     })
     for name, line in (("flash_attention_fwd_stats", 27), ("flash_attention_dq", 65),
                        ("flash_attention_dkv", 96)):
@@ -4444,7 +4963,8 @@ def main() -> int:
         kernels[-1]["launches_by_route"] = training["routes"][name]
         kernels[-1]["cuda_core_ms"] = t["cuda_core_ms"]
         kernels[-1]["families"] = _runs_row(families, FAM_RUNS, families_timing, name)
-        kernels[-1]["sharded"] = _sharded_row(sharded, name)
+        kernels[-1]["sharded"] = _sharded_row(sharded, name) | {
+            "configuration 13": _sharded21_row(sharded21, name)}
         if stats:
             kernels[-1]["tf32x3"] = _tf32x3_rows(dense_timing, name, {})
     print(json.dumps({"kernels": kernels}))

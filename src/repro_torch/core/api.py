@@ -249,6 +249,8 @@ class Traced:
         scheme: str | Scheme = "tech-gfp",
         *,
         costmodel: CostModel | None = None,
+        mesh=None,
+        arg_specs=None,
         compute_dtype: str | None = "float32",
         unit_filter: Callable[[str], bool] | None = None,
         unit_cache: "UnitCache | None" = None,
@@ -270,6 +272,15 @@ class Traced:
         compilable set against the independent re-derivation in
         :mod:`repro_torch.analysis` and raises :class:`PlanVerificationError`
         if they disagree — the plan is rejected, not silently trusted.
+
+        ``mesh`` (a :class:`~repro_torch.parallel.spmd.Mesh`, every rank of
+        the world running the same calls) makes the units sharded: the
+        entry unit's arguments are placed by ``arg_specs`` (a
+        :class:`~repro_torch.parallel.sharding.P` or ``None`` per entry
+        argument; ``None`` or omitted: replicated), every other unit's
+        arguments and every program constant are replicated, and each unit
+        computes the global result, which every rank gets back in full
+        (:mod:`repro_torch.parallel.units`).
         """
         scheme = resolve_scheme(scheme)
         try:
@@ -293,6 +304,8 @@ class Traced:
             scheme=scheme,
             analysis=analysis,
             costmodel=costmodel or CostModel(CostModelConfig()),
+            mesh=mesh,
+            arg_specs=None if arg_specs is None else tuple(arg_specs),
             compute_dtype=compute_dtype,
             unit_filter=unit_filter,
             unit_cache=unit_cache if unit_cache is not None else UnitCache(),
@@ -376,6 +389,8 @@ class PlannedProgram:
     scheme: Scheme
     analysis: EligibilityAnalysis      # unit_filter already applied inside
     costmodel: CostModel
+    mesh: object                       # spmd.Mesh of sharded units, or None
+    arg_specs: tuple | None            # the entry unit's argument specs
     compute_dtype: str | None
     unit_filter: Callable[[str], bool] | None = None
     unit_cache: UnitCache = dataclasses.field(default_factory=UnitCache, compare=False)
@@ -397,7 +412,9 @@ class PlannedProgram:
         with whatever batch each caller brings (the unit is built once per
         rank/dtype/backend).
 
-        Scheme, cost model, compute dtype, and unit filter carry over.
+        Scheme, cost model, mesh, compute dtype, and unit filter carry
+        over; ``arg_specs`` do not (they describe the original entry's
+        arguments).
         """
         traced = self.traced.with_entry(entry)
         if traced is self.traced:
@@ -405,6 +422,8 @@ class PlannedProgram:
         return traced.plan(
             self.scheme,
             costmodel=self.costmodel,
+            mesh=self.mesh,
+            arg_specs=None,
             compute_dtype=self.compute_dtype,
             unit_filter=self.unit_filter,
             unit_cache=self.unit_cache,
@@ -424,7 +443,7 @@ class PlannedProgram:
         :func:`repro_torch.serve.aot.save_planned`).
 
         Raises :class:`repro_torch.serve.aot.AotError` when the plan carries
-        a ``unit_filter`` (not serializable).
+        non-serializable state (``unit_filter``, ``mesh``, ``arg_specs``).
         """
         from ..serve.aot import save_planned  # serve builds on core; lazy
 
@@ -455,7 +474,9 @@ class PlannedProgram:
         ``None`` means ``"cuda"`` (raising where no CUDA device is present),
         ``"cpu"`` runs them on the CPU.  The same plan can be compiled
         several times for different devices — the shared unit cache keys
-        units by device so targets never collide.
+        units by device so targets never collide.  A sharded plan's units
+        run on its mesh's device (the rank's card, or the CPU), which
+        ``backend`` must name.
         """
         return CompiledHybrid(self, backend=backend)
 
@@ -638,6 +659,7 @@ class _SignatureExecutor:
             compile_hook=_dispatch_compile_hook,
             unit_cache=planned.unit_cache,
             backend=str(self.device),
+            mesh=planned.mesh,
         )
 
     def call(self, args: Sequence[np.ndarray]) -> tuple[tuple, RunStats, float]:
@@ -663,6 +685,8 @@ class _SignatureExecutor:
                 for a in arg_avals
             )
         out_avals, _ = abstract_eval(self.plan.program, unit.fname, eff_avals)
+        # only the entry unit's arguments are the caller's, placed by arg_specs
+        specs = planned.arg_specs if unit.fname == self.plan.program.entry else None
         return build_plan(
             self.plan.program,
             unit.fname,
@@ -671,6 +695,8 @@ class _SignatureExecutor:
             unit.global_names,
             device=self.device,
             compute_dtype=planned.compute_dtype,
+            mesh=planned.mesh,
+            arg_specs=specs,
         )
 
 
@@ -697,6 +723,10 @@ class CompiledHybrid:
         # resolved now, so a missing device fails at compile(), not at the
         # first call
         self.device = resolve_device(backend)
+        mesh = planned.mesh
+        if mesh is not None and self.device != torch.device(mesh.device):
+            raise ValueError(f"a plan sharded over {mesh} runs its units on the rank's "
+                             f"device {mesh.device}, not {self.device}")
         self._states: dict[tuple[AVal, ...], _SignatureExecutor] = {}
         self._plan_lock = threading.Lock()
         self._last_state: _SignatureExecutor | None = None

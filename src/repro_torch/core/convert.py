@@ -16,6 +16,12 @@ references propagated to the host side").
 Building a plan is deliberately real work (aval resolution and the device
 placement of every global).  The baseline scheme rebuilds it on every
 crossing; the GRT caches it (see :mod:`repro_torch.core.grt`).
+
+Under a mesh (a :class:`~repro_torch.parallel.spmd.Mesh`, every rank of the
+world running the same guest program) the host side is a DTensor per value
+(:mod:`repro_torch.parallel.units`): ``convert_in`` keeps this rank's shard
+of each argument by its spec (``None``: replicated), the staged globals are
+replicated, and ``convert_out`` gives every rank the full value.
 """
 from __future__ import annotations
 
@@ -60,16 +66,19 @@ class ConversionPlan:
     arg_avals: tuple[AVal, ...]
     out_avals: tuple[AVal, ...]
     global_names: tuple[str, ...]
-    staged_globals: tuple[torch.Tensor, ...]   # device tensors
+    staged_globals: tuple[torch.Tensor, ...]   # device tensors (DTensors under a mesh)
     device: torch.device
     compute_dtype: str | None                  # cast floating args on entry
+    mesh: Any = None                           # spmd.Mesh of a sharded unit
+    in_specs: tuple | None = None              # a spec (or None) per arg under a mesh
 
     # -- marshaling ---------------------------------------------------------
 
     def convert_in(self, args: Sequence[np.ndarray]) -> tuple[torch.Tensor, ...]:
-        """Guest → host: cast + place every argument on the unit's device."""
+        """Guest → host: cast + place every argument on the unit's device
+        (under a mesh: this rank's shard of it, as a DTensor)."""
         out = []
-        for a in args:
+        for i, a in enumerate(args):
             a = np.asarray(a)
             if (
                 self.compute_dtype is not None
@@ -77,20 +86,37 @@ class ConversionPlan:
                 and a.dtype != np.dtype(self.compute_dtype)
             ):
                 a = a.astype(self.compute_dtype)
-            out.append(place(a, self.device))
+            t = place(a, self.device)
+            if self.mesh is not None:
+                from ..parallel.units import to_mesh
+
+                t = to_mesh(self.mesh, t, self.in_specs[i] if self.in_specs else None)
+            out.append(t)
         return tuple(out)
 
     def convert_out(self, outs: Sequence[torch.Tensor]) -> tuple[np.ndarray, ...]:
         """Host → guest: gather to host memory (blocking: the copy waits for
         the device stream).  Always a fresh array, never a view of a guest
         input that the unit passed through (on the CPU a tensor and its
-        numpy array share memory)."""
+        numpy array share memory).  Under a mesh every rank gets the full
+        value."""
+        if self.mesh is not None:
+            from ..parallel.units import to_host
+
+            outs = [to_host(o) for o in outs]
         return tuple(o.to("cpu", copy=True).numpy() for o in outs)
 
 
-def stage_globals(program: Program, names: Sequence[str], device: torch.device) -> tuple:
-    """Place every referenced program constant on ``device`` (the GRT caches this)."""
-    return tuple(place(program.constants[n], device) for n in names)
+def stage_globals(program: Program, names: Sequence[str], device: torch.device,
+                  mesh=None) -> tuple:
+    """Place every referenced program constant on ``device``, replicated
+    over ``mesh`` when given (the GRT caches this)."""
+    staged = tuple(place(program.constants[n], device) for n in names)
+    if mesh is None:
+        return staged
+    from ..parallel.units import to_mesh
+
+    return tuple(to_mesh(mesh, t) for t in staged)
 
 
 def build_plan(
@@ -102,17 +128,23 @@ def build_plan(
     *,
     device: torch.device,
     compute_dtype: str | None = None,
+    mesh=None,
+    arg_specs: Sequence | None = None,
 ) -> ConversionPlan:
     """Construct the full calling-conversion recipe for one offload unit.
 
     This is the work GRT amortizes: aval validation and the device staging
-    of globals both happen here.
+    of globals both happen here.  Under ``mesh`` the arguments are placed
+    by ``arg_specs`` (one spec or ``None`` per argument; omitted: all
+    replicated) and the globals replicated.
     """
     # validate avals (the paper's "correct parameter delivery" requirement)
     for i, a in enumerate(arg_avals):
         if any(d < 0 for d in a.shape):
             raise ValueError(f"{fname}: bad aval for arg {i}: {a}")
-    staged = stage_globals(program, global_names, device)
+    if arg_specs is not None and len(arg_specs) != len(arg_avals):
+        raise ValueError(f"{fname}: {len(arg_specs)} arg_specs for {len(arg_avals)} args")
+    staged = stage_globals(program, global_names, device, mesh)
     return ConversionPlan(
         fname=fname,
         arg_avals=tuple(arg_avals),
@@ -121,4 +153,6 @@ def build_plan(
         staged_globals=staged,
         device=device,
         compute_dtype=compute_dtype,
+        mesh=mesh,
+        in_specs=tuple(arg_specs) if mesh is not None and arg_specs is not None else None,
     )

@@ -62,10 +62,9 @@ class HybridExecutor:
     signatures work instead of misconverting — they just account to their
     own per-signature state rather than ``self.stats``.
 
-    ``mesh`` and ``arg_specs`` (sharded offload units) belong to the
-    multi-card slice of the port (``parallel/``); passing either raises
-    :class:`NotImplementedError` rather than planning without them.
-    ``backend`` is the device of the units (``None``: the CUDA card).
+    ``mesh`` and ``arg_specs`` plan sharded offload units (see
+    :meth:`repro_torch.core.api.Traced.plan`); ``backend`` is the device of
+    the units (``None``: the CUDA card; under a mesh, the rank's device).
     """
 
     def __init__(
@@ -89,11 +88,6 @@ class HybridExecutor:
         )
         if entry_avals is None:
             raise ValueError("entry_avals required (shape/dtype of entry args)")
-        if mesh is not None or arg_specs is not None:
-            raise NotImplementedError(
-                "HybridExecutor(mesh=..., arg_specs=...): sharded offload units "
-                "come with the parallel/ slice of the port (torch.distributed); "
-                "they are not carried yet")
         self.entry_avals = tuple(entry_avals)
         # .plan() raises NativeInfeasibleError here, like the old constructor
         self.compiled: CompiledHybrid = (
@@ -101,6 +95,8 @@ class HybridExecutor:
             .plan(
                 scheme,
                 costmodel=costmodel,
+                mesh=mesh,
+                arg_specs=arg_specs,
                 compute_dtype=compute_dtype,
                 unit_filter=unit_filter,
             )

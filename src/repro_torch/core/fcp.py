@@ -66,12 +66,15 @@ def trace_function(
     args: Sequence,
     token=None,
     device: torch.device | None = None,
+    run_op: Callable | None = None,
 ) -> tuple:
     """Run ``fname`` as torch ops on ``device`` (default: the CPU).
 
     ``token`` is the reentry-channel id every guest callback carries (see
     :mod:`repro_torch.core.reentrancy`); ``None`` (direct lowering outside an
-    offload unit) uses the zero token, an int32 like every channel id."""
+    offload unit) uses the zero token, an int32 like every channel id.
+    ``run_op(kind, torch_fn, params, ins)``, when given, runs each leaf op
+    (a sharded unit's counter, :func:`repro_torch.parallel.units.run_op`)."""
     if token is None:
         token = np.int32(0)
     device = torch.device("cpu") if device is None else device
@@ -85,23 +88,28 @@ def trace_function(
             callee = op.params["callee"]
             if policy.should_inline(callee):
                 outs = trace_function(
-                    program, callee, policy, reentry, globals_env, ins, token, device
+                    program, callee, policy, reentry, globals_env, ins, token, device,
+                    run_op,
                 )
             else:
                 outs = emit_guest_callback(reentry, program, callee, ins, token, device)
         elif op.kind == "repeat":
             outs = _trace_repeat(program, op, policy, reentry, globals_env, ins,
-                                 token, device)
+                                 token, device, run_op)
         else:
             opdef = op.opdef()
             if opdef.torch_fn is None:
                 raise HostOnlyOpError(op.kind, fname)
-            outs = opdef.torch_fn(op.params, *ins)
+            if run_op is None:
+                outs = opdef.torch_fn(op.params, *ins)
+            else:
+                outs = run_op(op.kind, opdef.torch_fn, op.params, ins)
         env.update(zip(op.outputs, outs))
     return tuple(env[r] for r in fn.returns)
 
 
-def _trace_repeat(program, op, policy, reentry, globals_env, ins, token, device) -> tuple:
+def _trace_repeat(program, op, policy, reentry, globals_env, ins, token, device,
+                  run_op=None) -> tuple:
     callee, times = op.params["callee"], op.params["times"]
     if not policy.should_inline(callee):
         # The planner guarantees repeat ops only reach host lowering when the
@@ -125,7 +133,7 @@ def _trace_repeat(program, op, policy, reentry, globals_env, ins, token, device)
     for _ in range(times):
         outs = trace_function(
             program, callee, policy, reentry, globals_env,
-            list(carried) + list(invariant), token, device
+            list(carried) + list(invariant), token, device, run_op
         )
         carried = tuple(o.to(dt) for o, dt in zip(outs[:ncarry], carry_dtypes))
         extras = tuple(outs[ncarry:])

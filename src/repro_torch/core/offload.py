@@ -180,6 +180,7 @@ def unit_cache_key(
     fname: str,
     arg_avals: tuple[AVal, ...],
     backend: str | None = None,
+    sharded: bool = False,
 ) -> tuple:
     """Cache key for an offload unit: function + per-arg rank/dtype.
 
@@ -188,9 +189,11 @@ def unit_cache_key(
     and dtypes* share one unit (reentry is routed through the token
     registry, see :mod:`repro_torch.core.api`).  ``backend`` partitions the
     cache when the same plan is compiled for several devices
-    (``compile(backend=...)``).
+    (``compile(backend=...)``); ``sharded`` keeps a mesh plan's units, which
+    run on DTensors, apart from an unsharded plan's.
     """
-    return (fname, tuple((len(a.shape), str(a.dtype)) for a in arg_avals), backend)
+    key = (fname, tuple((len(a.shape), str(a.dtype)) for a in arg_avals), backend)
+    return key + ("sharded",) if sharded else key
 
 
 class UnitCache:
@@ -415,13 +418,15 @@ def finalize_plan(
     compile_hook: Callable[[], None] | None = None,
     unit_cache: UnitCache | None = None,
     backend: str | None = None,
+    mesh=None,
 ) -> OffloadPlan:
     """Per-signature planning: cost gate + unit construction.
 
     When ``unit_cache`` is given, units are shared across signatures via
     :func:`unit_cache_key` — callers must then pass signature-independent
     ``reentry``/``compile_hook`` dispatchers (the staged API's call-context
-    routing), since one unit may serve many executor states.
+    routing), since one unit may serve many executor states.  Under ``mesh``
+    the units run sharded (:mod:`repro_torch.parallel.units`).
     """
     scheme = analysis.scheme
     work = analysis.program
@@ -431,10 +436,11 @@ def finalize_plan(
 
     def make_unit(fname: str, avals: tuple[AVal, ...]) -> OffloadUnit:
         factory = lambda: _make_unit(work, fname, analysis.policy, reentry,
-                                     compile_hook, device)
+                                     compile_hook, device, sharded=mesh is not None)
         if unit_cache is None:
             return factory()
-        return unit_cache.get_or_build(unit_cache_key(fname, avals, backend), factory)
+        key = unit_cache_key(fname, avals, backend, sharded=mesh is not None)
+        return unit_cache.get_or_build(key, factory)
 
     if not scheme.offload and not scheme.native:
         return OffloadPlan(work, {}, analysis.policy, coverage, decisions)
@@ -482,12 +488,17 @@ def plan_offloading(
     where ``token`` is the reentry-channel scalar each guest callback carries
     (see :mod:`repro_torch.core.reentrancy`).  Units built here are invoked
     as ``unit.call(staged_globals, dev_args, token)`` and run on ``backend``
-    (the CPU by default), where the reference's take a ``jit_wrapper``.
+    (``None``: the CUDA card, raising where there is none, as every entry
+    point of the port; ``"cpu"`` on the CPU), where the reference's take a
+    ``jit_wrapper``.
     """
+    from .api import resolve_device    # api builds on this module
+
+    device = str(resolve_device(backend))
     analysis = analyze_eligibility(program, scheme, unit_filter=unit_filter)
     return finalize_plan(
         analysis, costmodel, reentry, tuple(entry_avals),
-        compile_hook=compile_hook, backend=backend,
+        compile_hook=compile_hook, backend=device,
     )
 
 
@@ -502,17 +513,30 @@ def _make_unit(
     reentry: Callable,
     compile_hook: Callable[[], None] | None,
     device: torch.device,
+    *,
+    sharded: bool = False,
 ) -> OffloadUnit:
+    """A unit running ``fname`` (its inlined closure) as torch ops on
+    ``device``; ``sharded``: on DTensors over a mesh, each op's
+    redistributions counted (:mod:`repro_torch.parallel.units`)."""
     inlined, gnames = inline_closure(program, fname, policy)
     seen: set = set()
     seen_lock = threading.Lock()
 
     def body(globals_tuple, args_tuple, reentry_token):
         genv = dict(zip(gnames, globals_tuple))
-        return trace_function(
-            program, fname, policy, reentry, genv, list(args_tuple),
-            reentry_token, device,
-        )
+        if not sharded:
+            return trace_function(
+                program, fname, policy, reentry, genv, list(args_tuple),
+                reentry_token, device,
+            )
+        from ..parallel import units
+
+        with units.unit_scope():
+            return trace_function(
+                program, fname, policy, reentry, genv, list(args_tuple),
+                reentry_token, device, units.run_op,
+            )
 
     def call(globals_tuple, args_tuple, reentry_token):
         # An eager unit runs its body on every call, so "compiles" is

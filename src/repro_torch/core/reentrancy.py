@@ -53,6 +53,10 @@ def emit_guest_callback(
     in_avals = tuple(AVal(tuple(map(int, a.shape)), numpy_dtype(a.dtype).name)
                      for a in args)
     out_avals, _ = abstract_eval(program, callee, in_avals)
+    if any(type(a).__name__ == "DTensor" for a in args):   # a sharded unit's values
+        from ..parallel.units import to_host
+
+        args = [to_host(a) for a in args]
     outs = reentry(int(token), callee, tuple(a.cpu().numpy() for a in args))
     return tuple(
         torch.from_numpy(np.array(o, dtype=canonical_dtype(av.dtype))).to(device)

@@ -117,3 +117,59 @@ paged_decode_attention = torch.ops.repro_torch.paged_decode_attention.default
 
 # the kernel sources these operators launch on CUDA (``build.build`` names)
 SOURCES = ("flash_attention", "rmsnorm", "paged_decode_attention")
+
+
+# ---------------------------------------------------------------------------
+# sharding rules (DTensor) for sharded offload units
+# ---------------------------------------------------------------------------
+
+_RULES_REGISTERED = False
+
+
+def register_sharding_rules() -> None:
+    """Teach DTensor the three operators, for the sharded offload units of
+    :mod:`repro_torch.parallel.units` (idempotent; imports DTensor only
+    here).  Each rule lists the placements under which the operator runs on
+    a rank's local tensors, per mesh axis; any other placement of the inputs
+    is redistributed to replicated before the call, so the kernel always
+    runs, on whole rows, heads or sequences:
+
+    * ``rmsnorm``: local over any dim but the normalised last one (w
+      replicated);
+    * ``flash_attention``: local over the batch, or over the heads where
+      the kv heads split as evenly as the q heads (each rank keeps whole
+      GQA groups);
+    * ``paged_decode_attention``: local over the batch (q, the fresh rows,
+      the block tables and lengths split; the page pools replicated).
+    """
+    global _RULES_REGISTERED
+    if _RULES_REGISTERED:
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    R = Replicate()
+
+    @register_sharding(rmsnorm)
+    def _rmsnorm_rule(x, w, eps):
+        rules = [([R], [R, R, None])]
+        rules += [([Shard(d)], [Shard(d), R, None]) for d in range(len(x.shape) - 1)]
+        return rules
+
+    @register_sharding(flash_attention)
+    def _flash_rule(q, k, v, causal, scale):
+        rules = [([R], [R, R, R, None, None]), ([Shard(0)], [Shard(0)] * 3 + [None, None])]
+        n = q.mesh.size()
+        if q.shape[1] % n == 0 and k.shape[1] % n == 0:
+            rules.append(([Shard(1)], [Shard(1)] * 3 + [None, None]))
+        return rules
+
+    @register_sharding(paged_decode_attention)
+    def _paged_rule(q, k_pages, v_pages, tables, lengths, kn, vn):
+        fresh = [None if t is None else R for t in (kn, vn)]
+        rules = [([R], [R, R, R, R, R] + fresh)]
+        fresh = [None if t is None else Shard(0) for t in (kn, vn)]
+        rules.append(([Shard(0)], [Shard(0), R, R, Shard(0), Shard(0)] + fresh))
+        return rules
+
+    _RULES_REGISTERED = True

@@ -17,6 +17,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..parallel import sharding as shd
 from . import layers as L
 from .layers import AttnDims
 
@@ -74,7 +75,10 @@ def _mlp(cfg: ModelConfig, lp, x):
 
 def _layer_fwd(cfg: ModelConfig, dims: AttnDims, h, lp, ffn=_mlp):
     """One layer: attention, then ``ffn(cfg, lp, x)`` (the MLP here, the
-    routed experts in :mod:`.moe`), each behind its norm and residual."""
+    routed experts in :mod:`.moe`), each behind its norm and residual.  A
+    sharded step's ZeRO/FSDP shards are gathered here, inside the layer
+    (``constrain_layer_params``)."""
+    lp = shd.constrain_layer_params(lp, cast_to=getattr(torch, cfg.compute_dtype))
     a, kv = L.attention_full(lp["attn"], dims, L.apply_norm(lp["ln1"], h, cfg.norm))
     h = h + a
     return h + ffn(cfg, lp, L.apply_norm(lp["ln2"], h, cfg.norm)), kv
@@ -187,7 +191,8 @@ def decode_step(cfg: ModelConfig, params, cache, token, *, tp: int = L.DEFAULT_T
     pos = cache["pos"]
     quant = "ks" in cache
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+        lp = shd.constrain_layer_params(layer_params(params, i),
+                                        cast_to=getattr(torch, cfg.compute_dtype))
         extra = {} if not quant else {
             "cache_k_scale": cache["ks"][i], "cache_v_scale": cache["vs"][i]}
         a = L.attention_decode(lp["attn"], dims, L.apply_norm(lp["ln1"], h, cfg.norm),

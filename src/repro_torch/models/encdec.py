@@ -19,6 +19,14 @@ Under autograd ``cfg.remat`` recomputes each encoder and decoder layer in
 the backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
 of its scan bodies).
 
+**Tensor parallelism**: the encoder's self-attention, the decoder's self-
+and cross-attention and the non-gated MLP run on this rank's heads and
+columns through :mod:`.layers` (as in :mod:`.dense`); the encoder memory
+enters each cross-attention's key and value projections
+(``spmd.enter``: its cotangent, partial over the heads, is psummed); the
+LayerNorms run replicated; the ``k``, ``v``, ``xk`` and ``xv`` caches hold
+the local heads.
+
 The self-attention cache is updated in place, as in :mod:`.dense`.  The
 cross caches ``xk``/``xv`` are **replaced** by the prefill with the memory's
 projections, as the reference does: their length is the frames', which
@@ -31,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..parallel import sharding as shd
 from . import layers as L
 from .dense import layer_params, stack_layers, unstack_layers
 from .layers import AttnDims
@@ -96,6 +105,7 @@ def _remat(cfg: ModelConfig) -> bool:
 
 
 def _enc_layer(cfg, dims, lp, h):
+    lp = shd.constrain_layer_params(lp, key="enc_layers")
     a, _ = L.attention_full(lp["attn"], dims, L.apply_norm(lp["ln1"], h, cfg.norm))
     h = h + a
     return h + L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], h, cfg.norm), cfg.act,
@@ -117,7 +127,9 @@ def encode(cfg: ModelConfig, params, frames, *, tp: int = L.DEFAULT_TP):
 
 def _memory_kv(lp, memory, dtype):
     """The cross-attention's keys and values: the memory's projections
-    (B, S_enc, Hkv, hd), no bias and no rotation, as in the reference."""
+    (B, S_enc, Hkv, hd), no bias and no rotation, as in the reference (this
+    rank's heads under tensor parallelism)."""
+    memory = L._tp_in(memory)
     km = torch.einsum("bsd,dhk->bshk", memory, lp["xattn"]["wk"].to(dtype))
     vm = torch.einsum("bsd,dhk->bshk", memory, lp["xattn"]["wv"].to(dtype))
     return km, vm
@@ -125,6 +137,7 @@ def _memory_kv(lp, memory, dtype):
 
 def _dec_layer(cfg, dims_self, dims_x, lp, h, memory):
     """One decoder layer over the memory: (h, self (k, v), cross (k, v))."""
+    lp = shd.constrain_layer_params(lp, key="dec_layers")
     a, kv_self = L.attention_full(lp["attn"], dims_self, L.apply_norm(lp["ln1"], h, cfg.norm))
     h = h + a
     hq = L.apply_norm(lp["lnx"], h, cfg.norm)
@@ -199,18 +212,18 @@ def decode_step(cfg: ModelConfig, params, cache, token, *, tp: int = L.DEFAULT_T
     S_enc = cache["xk"].shape[2]
     last = torch.full((), S_enc - 1, dtype=torch.int32, device=pos.device)
     for i in range(cfg.n_layers):
-        lp = _layers(params, "dec_layers", i)
+        lp = shd.constrain_layer_params(_layers(params, "dec_layers", i), key="dec_layers")
         a, _, _ = L.attention_decode(lp["attn"], dims_s, L.apply_norm(lp["ln1"], h, cfg.norm),
                                      cache["k"][i], cache["v"][i], pos)
         h = h + a
         # cross-attention over the (static) encoder memory's k/v: every key
         # visible, so the flash-decode kernel at pos = S_enc - 1
-        hq = L.apply_norm(lp["lnx"], h, cfg.norm)
+        hq = L._tp_in(L.apply_norm(lp["lnx"], h, cfg.norm))
         q = torch.einsum("btd,dhk->bthk", hq, lp["xattn"]["wq"].to(h.dtype))
         o = ops.decode_attention(q.transpose(1, 2), cache["xk"][i].transpose(1, 2),
                                  cache["xv"][i].transpose(1, 2), last)
-        h = h + torch.einsum("bthk,hkd->btd", o.transpose(1, 2),
-                             lp["xattn"]["wo"].to(h.dtype))
+        h = h + L._tp_out(torch.einsum("bthk,hkd->btd", o.transpose(1, 2),
+                                       lp["xattn"]["wo"].to(h.dtype)))
         m = L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], h, cfg.norm), cfg.act, gated=False)
         h = h + m
     h = L.apply_norm(params["ln_f"], h, cfg.norm)

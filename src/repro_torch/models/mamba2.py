@@ -18,6 +18,17 @@ advances the state one token with :func:`ssd_decode_step`, plain PyTorch
 flash and flash-decode kernels and every norm the RMSNorm kernel, as in
 :mod:`.dense`.
 
+**Tensor parallelism** (a step whose mesh has a ``model`` axis of more than
+one rank, :func:`~repro_torch.parallel.sharding.tensor_parallel`): each rank
+holds ``param_pspec``'s shards, ``w_z``, ``w_x``, ``w_dt``, ``conv``,
+``A_log``, ``D`` and ``dt_bias`` split by heads and ``w_out`` by its rows,
+and runs the block on its local heads (the SSD scan, row 8, included): the
+normed input and the replicated ``w_B``/``w_C`` enter it
+(``spmd.enter``: their cotangents, partial over the heads, are psummed),
+and ``w_out``'s partial product is psummed.  The caches hold the local
+heads' ``S`` and conv channels (``cache_pspecs``).  The shared block runs
+:mod:`.layers`' attention and MLP, tensor-parallel as in :mod:`.dense`.
+
 Differences from the reference, each for one card: the ``lax.scan`` over
 layer groups is a Python loop, and its ``jax.checkpoint`` (remat) of each
 Mamba2 layer is ``torch.utils.checkpoint`` (the shared block is not
@@ -35,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..kernels.common import records_grad
+from ..parallel import sharding as shd
 from . import layers as L
 from .dense import layer_params, stack_layers, unstack_layers
 from .layers import AttnDims
@@ -113,15 +125,26 @@ def _causal_conv(x, w):
     return out
 
 
+def _local_dims(cfg: ModelConfig, lp):
+    """(d_inner, H) of the heads this rank holds: all of them, or under
+    tensor parallelism its shard's (``w_dt``'s columns)."""
+    P = _dims_mamba(cfg)[2]
+    H = lp["w_dt"].shape[-1]
+    return H * P, H
+
+
 def mamba_block(cfg: ModelConfig, lp, x, *, return_state: bool = False):
-    """x: (B,T,D) -> (B,T,D) (optionally also the decode-ready state)."""
-    d_inner, H, P, N = _dims_mamba(cfg)
+    """x: (B,T,D) -> (B,T,D) (optionally also the decode-ready state), on
+    this rank's heads under tensor parallelism."""
+    lp = shd.constrain_layer_params(lp)
+    _, _, P, N = _dims_mamba(cfg)
+    d_inner, H = _local_dims(cfg, lp)
     B, T, D = x.shape
-    h = L.apply_norm(lp["ln"], x, "rmsnorm")
+    h = L._tp_in(L.apply_norm(lp["ln"], x, "rmsnorm"))
     z = h @ lp["w_z"].to(x.dtype)
     xs_raw = h @ lp["w_x"].to(x.dtype)
-    B_ = h @ lp["w_B"].to(x.dtype)
-    C_ = h @ lp["w_C"].to(x.dtype)
+    B_ = h @ L._tp_in(lp["w_B"]).to(x.dtype)
+    C_ = h @ L._tp_in(lp["w_C"]).to(x.dtype)
     dt = h @ lp["w_dt"].to(x.dtype)
     xs = F.silu(_causal_conv(xs_raw, lp["conv"].to(x.dtype)))
     dt = F.softplus(dt.to(torch.float32) + lp["dt_bias"])
@@ -133,7 +156,7 @@ def mamba_block(cfg: ModelConfig, lp, x, *, return_state: bool = False):
     y, S_final = ssd_chunked(xh, dt, A, B_, C_, cfg.ssm.chunk)
     y = y + xh * lp["D"][None, None, :, None].to(x.dtype)
     y = y.reshape(B, T, d_inner) * F.silu(z)
-    out = x + y @ lp["w_out"].to(x.dtype)
+    out = x + L._tp_out(y @ lp["w_out"].to(x.dtype))
     if return_state:
         K = cfg.ssm.conv_kernel
         return out, {"S": S_final, "conv": xs_raw[:, T - (K - 1):, :]}
@@ -146,15 +169,18 @@ def mamba_decode(cfg: ModelConfig, lp, state, x1):
     Returns (out, new state); the caller stores the state.  Types follow the
     reference's promotions: with a float32 conv state, the convolved input
     and everything after it are float32 (``jnp`` promotes bf16 with f32).
+    Under tensor parallelism the state and the heads are this rank's.
     """
-    d_inner, H, P, N = _dims_mamba(cfg)
+    lp = shd.constrain_layer_params(lp)
+    _, _, P, N = _dims_mamba(cfg)
+    d_inner, H = _local_dims(cfg, lp)
     B = x1.shape[0]
     dtype = x1.dtype
-    h = L.apply_norm(lp["ln"], x1, "rmsnorm")[:, 0]
+    h = L._tp_in(L.apply_norm(lp["ln"], x1, "rmsnorm")[:, 0])
     z = h @ lp["w_z"].to(dtype)
     xs = h @ lp["w_x"].to(dtype)
-    B_ = h @ lp["w_B"].to(dtype)
-    C_ = h @ lp["w_C"].to(dtype)
+    B_ = h @ L._tp_in(lp["w_B"]).to(dtype)
+    C_ = h @ L._tp_in(lp["w_C"]).to(dtype)
     dt = h @ lp["w_dt"].to(dtype)
     # conv state: (B, K-1, d_inner) of past inputs
     wide = torch.promote_types(state["conv"].dtype, xs.dtype)
@@ -172,7 +198,7 @@ def mamba_decode(cfg: ModelConfig, lp, state, x1):
     # jnp.matmul promotes mixed operands; torch.matmul refuses them
     w = lp["w_out"].to(dtype)
     wide = torch.promote_types(y.dtype, w.dtype)
-    out = x1 + y.to(wide) @ w.to(wide)
+    out = x1 + L._tp_out(y.to(wide) @ w.to(wide))
     return out, {"S": S2, "conv": new_conv}
 
 
@@ -204,6 +230,7 @@ def init(cfg: ModelConfig, gen: torch.Generator, tp: int = L.DEFAULT_TP, *,
 
 
 def _shared_block_full(cfg, sp, h, dims):
+    sp = shd.constrain_layer_params(sp, key="shared")
     a, kv = L.attention_full(sp["attn"], dims, L.apply_norm(sp["ln1"], h, cfg.norm))
     h = h + a
     m = L.apply_mlp(sp["mlp"], L.apply_norm(sp["ln2"], h, cfg.norm), "silu", gated=True)
@@ -312,10 +339,10 @@ def decode_step(cfg: ModelConfig, params, cache, token, *, tp: int = L.DEFAULT_T
         cache["conv"][i].copy_(st["conv"])
         return h
 
-    sp = params["shared"]
     for g in range(n_groups):
         for i in range(g * k, (g + 1) * k):
             h = mamba(i, h)
+        sp = shd.constrain_layer_params(params["shared"], key="shared")
         a, _, _ = L.attention_decode(sp["attn"], dims, L.apply_norm(sp["ln1"], h, cfg.norm),
                                      cache["ak"][g], cache["av"][g], pos)
         h = h + a

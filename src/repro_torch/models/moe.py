@@ -179,12 +179,19 @@ def moe_block_ep(cfg: ModelConfig, lp, x, mesh, *, seq_axis=None):
     if E % M:
         raise ValueError(f"{E} experts do not split over {M} ranks of 'model'")
     E_loc = E // M
+    # under the fsdp strategy the batch may be split over "model" too: then
+    # the model ranks route different tokens, which neither enter nor leave
+    # as values replicated over it
+    split = shd.tokens_split_over("model")
+    if split and seq_axis is not None:
+        raise ValueError("moe_block_ep: the tokens are split over 'model' already; "
+                         "seq_axis must be None")
     with mesh:
         if seq_axis is not None:
             xl = spmd.take(spmd.enter(x, seq_axis), seq_axis, 1)
         else:
-            xl = spmd.enter(x, "model")
-        router = spmd.enter(lp["router"], "model")
+            xl = x if split else spmd.enter(x, "model")
+        router = lp["router"] if split else spmd.enter(lp["router"], "model")
         bl, tl, D = xl.shape
         N = bl * tl
         xf = xl.reshape(N, D)
@@ -211,7 +218,7 @@ def moe_block_ep(cfg: ModelConfig, lp, x, mesh, *, seq_axis=None):
         y = combine(hb, e_flat, s_flat, keep, top_v).reshape(bl, tl, D)
         if seq_axis is not None:
             return spmd.leave(spmd.all_gather(y, seq_axis, 1), seq_axis)
-        return spmd.leave(y, "model")
+        return y if split else spmd.leave(y, "model")
 
 
 def dispatch_moe_block(cfg: ModelConfig, lp, x):

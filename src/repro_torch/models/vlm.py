@@ -6,12 +6,20 @@ stub there and here: the caller supplies precomputed patch embeddings
 embedding space and they are prepended to the token embeddings.  Logits
 are the text positions'.  Everything past the fusion is :mod:`.dense`'s:
 the cache covers patches and text, a decode step is a dense one.
+
+Under tensor parallelism ``patch_proj`` is split by its output columns
+(``P(None, "model")``): each rank projects the patches to its slice of the
+embedding, and the slices are gathered across ``model`` before they join
+the token stream (``spmd.gather_replicated``, whose backward keeps the
+rank's slice of the cotangent).
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig
+from ..parallel import sharding as shd
+from ..parallel import spmd
 from . import dense
 from . import layers as L
 
@@ -28,6 +36,8 @@ def init(cfg: ModelConfig, gen: torch.Generator, tp: int = L.DEFAULT_TP, *,
 def _fuse(cfg: ModelConfig, params, tokens, patches):
     patches = patches.to(getattr(torch, cfg.compute_dtype))
     pe = patches @ params["patch_proj"].to(patches.dtype)       # (B,P,D)
+    if shd.tensor_parallel():
+        pe = spmd.gather_replicated(pe, "model", 2)
     te = L.embed_in(cfg, params["embed"], tokens)               # (B,T,D)
     return torch.cat([pe.to(te.dtype), te], dim=1)
 

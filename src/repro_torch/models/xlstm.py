@@ -14,6 +14,19 @@ kernel.
   weights, a sequential loop over T.  Every ``slstm_every``-th layer is an
   sLSTM block, the rest mLSTM.
 
+**Tensor parallelism** (a step whose mesh has a ``model`` axis of more than
+one rank): each rank holds ``param_pspec``'s shards with the mLSTM
+override.  The mLSTM splits the value width ``dv`` (``wv``, ``wo_gate``,
+the rows of ``wo``; its C state on ``dv``): ``wq``, ``wk``, ``wi``, ``wf``
+and ``fb`` stay replicated, because the normaliser needs all of ``dk``, and
+enter the block with the normed input (``spmd.enter``: their cotangents,
+partial over ``dv``, are psummed); ``wo``'s partial product is psummed.
+The sLSTM splits ``wx``'s output D and its (B, D) states; its recurrent
+term stays local because a rank's D shard holds whole heads, so the rank
+takes its heads' blocks of the replicated ``rh`` and its slice of ``fb``
+(``spmd.take``).  A ``model`` axis that does not divide the heads would
+need h gathered every step: :func:`check_tensor_parallel` refuses it.
+
 Parameter names and shapes equal the reference's; ``params["layers"]`` is a
 list of per-layer dicts, as there (the two kinds have different leaves).
 The decode state is updated in place: ``prefill`` and ``decode_step`` write
@@ -30,6 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..parallel import sharding as shd
+from ..parallel import spmd
 from . import layers as L
 
 F32 = torch.float32
@@ -45,6 +60,25 @@ def _dims(cfg: ModelConfig):
 
 def is_slstm_layer(cfg: ModelConfig, i: int) -> bool:
     return (i + 1) % cfg.xlstm.slstm_every == 0
+
+
+def check_tensor_parallel(cfg: ModelConfig, model: int) -> None:
+    """Raise :class:`ValueError` unless ``model`` ranks can split xLSTM:
+    the mLSTM's ``dv`` and the sLSTM's heads (so that each rank's D shard
+    holds whole heads and the recurrence needs no gather)."""
+    H, _, dv = _dims(cfg)
+    if cfg.n_heads % model or dv % model:
+        raise ValueError(f"{cfg.name}: a 'model' axis of {model} ranks must divide the "
+                         f"{cfg.n_heads} heads and the mLSTM's dv {dv}: the sLSTM's "
+                         f"recurrence would need h gathered every step")
+
+
+def _local(x, dim: int):
+    """A replicated leaf's slice of this rank's heads under tensor
+    parallelism (its cotangent psummed, then zero outside the slice)."""
+    if not shd.tensor_parallel():
+        return x
+    return spmd.take(spmd.enter(x, "model"), "model", dim)
 
 
 # ---------------------------------------------------------------------------
@@ -149,17 +183,23 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, chunk: int):
     return y.reshape(B, T, H, -1).to(q.dtype), {"C": C, "n": n, "m": m}
 
 
+def _replicated(lp, *names):
+    """The mLSTM's replicated leaves as they enter per-rank code."""
+    return [L._tp_in(lp[n]) for n in names]
+
+
 def mlstm_block(cfg: ModelConfig, lp, x, *, return_state: bool = False):
     dt = x.dtype
-    h = L.apply_norm(lp["ln"], x, "rmsnorm")
-    q = torch.einsum("btd,dhk->bthk", h, lp["wq"].to(dt))
-    k = torch.einsum("btd,dhk->bthk", h, lp["wk"].to(dt))
+    h = L._tp_in(L.apply_norm(lp["ln"], x, "rmsnorm"))
+    wq, wk, wi, wf, fb = _replicated(lp, "wq", "wk", "wi", "wf", "fb")
+    q = torch.einsum("btd,dhk->bthk", h, wq.to(dt))
+    k = torch.einsum("btd,dhk->bthk", h, wk.to(dt))
     v = torch.einsum("btd,dhk->bthk", h, lp["wv"].to(dt))
-    i_pre = torch.einsum("btd,dh->bth", h, lp["wi"].to(dt))
-    f_pre = torch.einsum("btd,dh->bth", h, lp["wf"].to(dt)) + lp["fb"].to(dt)
+    i_pre = torch.einsum("btd,dh->bth", h, wi.to(dt))
+    f_pre = torch.einsum("btd,dh->bth", h, wf.to(dt)) + fb.to(dt)
     y, state = mlstm_chunked(q, k, v, i_pre, f_pre, chunk=128)
     og = torch.sigmoid(torch.einsum("btd,dhe->bthe", h, lp["wo_gate"].to(dt)))
-    out = x + torch.einsum("bthe,hed->btd", y * og, lp["wo"].to(dt))
+    out = x + L._tp_out(torch.einsum("bthe,hed->btd", y * og, lp["wo"].to(dt)))
     return (out, state) if return_state else out
 
 
@@ -168,13 +208,14 @@ def mlstm_decode(cfg: ModelConfig, lp, state, x1):
     Returns (out, new state)."""
     H, dk, dv = _dims(cfg)
     dt = x1.dtype
-    h = L.apply_norm(lp["ln"], x1, "rmsnorm")[:, 0]
-    q = torch.einsum("bd,dhk->bhk", h, lp["wq"].to(dt)) / math.sqrt(dk)
-    k = torch.einsum("bd,dhk->bhk", h, lp["wk"].to(dt)).to(F32)
+    h = L._tp_in(L.apply_norm(lp["ln"], x1, "rmsnorm")[:, 0])
+    wq, wk, wi, wf, fb = _replicated(lp, "wq", "wk", "wi", "wf", "fb")
+    q = torch.einsum("bd,dhk->bhk", h, wq.to(dt)) / math.sqrt(dk)
+    k = torch.einsum("bd,dhk->bhk", h, wk.to(dt)).to(F32)
     v = torch.einsum("bd,dhk->bhk", h, lp["wv"].to(dt)).to(F32)
-    i_pre = torch.einsum("bd,dh->bh", h, lp["wi"].to(dt)).to(F32)
+    i_pre = torch.einsum("bd,dh->bh", h, wi.to(dt)).to(F32)
     # jnp promotes the bf16 projection with the float32 bias to float32
-    f_pre = (torch.einsum("bd,dh->bh", h, lp["wf"].to(dt)) + lp["fb"]).to(F32)
+    f_pre = (torch.einsum("bd,dh->bh", h, wf.to(dt)) + fb).to(F32)
     logf = F.logsigmoid(f_pre)
     m_new = torch.maximum(logf + state["m"], i_pre)
     w_old = torch.exp(logf + state["m"] - m_new)
@@ -188,7 +229,7 @@ def mlstm_decode(cfg: ModelConfig, lp, state, x1):
     denom = torch.maximum(torch.abs(den), torch.exp(-m_new))
     y = (num / denom[..., None]).to(dt)
     og = torch.sigmoid(torch.einsum("bd,dhe->bhe", h, lp["wo_gate"].to(dt)))
-    out = x1 + torch.einsum("bhe,hed->bd", y * og, lp["wo"].to(dt))[:, None, :]
+    out = x1 + L._tp_out(torch.einsum("bhe,hed->bd", y * og, lp["wo"].to(dt)))[:, None, :]
     return out, {"C": C2, "n": n2, "m": m_new}
 
 
@@ -208,14 +249,17 @@ def init_slstm_layer(cfg: ModelConfig, gen, *, device):
     }
 
 
-def _slstm_cell(lp, gx, h, c, n, m, H: int):
+def _slstm_cell(rh, fb, gx, h, c, n, m):
     """One sLSTM step: gx (B,4,D) input gates, h (B,D) in the compute dtype,
-    c, n, m (B,D) float32 -> (h2, c2, n2, m2)."""
+    c, n, m (B,D) float32, with the recurrent blocks ``rh`` (4,H,dh,dh) and
+    the forget bias ``fb`` (D,) of the heads held (this rank's, under
+    tensor parallelism) -> (h2, c2, n2, m2)."""
     B, _, D = gx.shape
+    H = rh.shape[1]
     hh = h.reshape(B, H, D // H).to(gx.dtype)
-    gr = torch.einsum("bhk,ghke->bghe", hh, lp["rh"].to(gx.dtype)).reshape(B, 4, D)
+    gr = torch.einsum("bhk,ghke->bghe", hh, rh.to(gx.dtype)).reshape(B, 4, D)
     g = (gx + gr).to(F32)
-    i_pre, f_pre, z_pre, o_pre = g[:, 0], g[:, 1] + lp["fb"], g[:, 2], g[:, 3]
+    i_pre, f_pre, z_pre, o_pre = g[:, 0], g[:, 1] + fb, g[:, 2], g[:, 3]
     logf = F.logsigmoid(f_pre)
     m2 = torch.maximum(logf + m, i_pre)
     iw = torch.exp(i_pre - m2)
@@ -227,28 +271,29 @@ def _slstm_cell(lp, gx, h, c, n, m, H: int):
 
 
 def slstm_block(cfg: ModelConfig, lp, x, *, return_state: bool = False):
-    H = cfg.n_heads
-    B, T, D = x.shape
-    hx = L.apply_norm(lp["ln"], x, "rmsnorm")
+    B, T, _ = x.shape
+    hx = L._tp_in(L.apply_norm(lp["ln"], x, "rmsnorm"))
     gates_x = torch.einsum("btd,dge->btge", hx, lp["wx"].to(x.dtype))  # (B,T,4,D)
+    D = gates_x.shape[-1]
+    rh, fb = _local(lp["rh"], 1), _local(lp["fb"], 0)
     h = torch.zeros((B, D), dtype=x.dtype, device=x.device)
     c = torch.zeros((B, D), dtype=F32, device=x.device)
     n = torch.zeros((B, D), dtype=F32, device=x.device)
     m = torch.full((B, D), NEG_INIT, dtype=F32, device=x.device)
     ys = []
     for t in range(T):
-        h, c, n, m = _slstm_cell(lp, gates_x[:, t], h, c, n, m, H)
+        h, c, n, m = _slstm_cell(rh, fb, gates_x[:, t], h, c, n, m)
         ys.append(h)
-    out = x + torch.stack(ys, dim=1) @ lp["wo"].to(x.dtype)
+    out = x + L._tp_out(torch.stack(ys, dim=1) @ lp["wo"].to(x.dtype))
     return (out, {"h": h, "c": c, "n": n, "m": m}) if return_state else out
 
 
 def slstm_decode(cfg: ModelConfig, lp, state, x1):
-    hx = L.apply_norm(lp["ln"], x1, "rmsnorm")[:, 0]
+    hx = L._tp_in(L.apply_norm(lp["ln"], x1, "rmsnorm")[:, 0])
     gx = torch.einsum("bd,dge->bge", hx, lp["wx"].to(x1.dtype))
-    h2, c2, n2, m2 = _slstm_cell(lp, gx, state["h"], state["c"], state["n"], state["m"],
-                                 cfg.n_heads)
-    out = x1 + (h2 @ lp["wo"].to(x1.dtype))[:, None, :]
+    h2, c2, n2, m2 = _slstm_cell(_local(lp["rh"], 1), _local(lp["fb"], 0), gx,
+                                 state["h"], state["c"], state["n"], state["m"])
+    out = x1 + L._tp_out(h2 @ lp["wo"].to(x1.dtype))[:, None, :]
     return out, {"h": h2, "c": c2, "n": n2, "m": m2}
 
 
@@ -272,10 +317,11 @@ def backbone(cfg: ModelConfig, params, h, *, cache=None):
     final state is copied into it, in place."""
     for i in range(cfg.n_layers):
         blk = slstm_block if is_slstm_layer(cfg, i) else mlstm_block
+        lp = shd.constrain_layer_params(params["layers"][i], index=i)
         if cache is None:
-            h = blk(cfg, params["layers"][i], h)
+            h = blk(cfg, lp, h)
         else:
-            h, st = blk(cfg, params["layers"][i], h, return_state=True)
+            h, st = blk(cfg, lp, h, return_state=True)
             _store(cache["layers"][i], st)
     return L.apply_norm(params["ln_f"], h, "rmsnorm")
 
@@ -325,7 +371,8 @@ def decode_step(cfg: ModelConfig, params, cache, token, *, tp: int = L.DEFAULT_T
     h = L.embed_in(cfg, params["embed"], token)
     for i in range(cfg.n_layers):
         dec = slstm_decode if is_slstm_layer(cfg, i) else mlstm_decode
-        h, st = dec(cfg, params["layers"][i], cache["layers"][i], h)
+        lp = shd.constrain_layer_params(params["layers"][i], index=i)
+        h, st = dec(cfg, lp, cache["layers"][i], h)
         _store(cache["layers"][i], st)
     h = L.apply_norm(params["ln_f"], h, "rmsnorm")
     cache["pos"] += 1

@@ -41,6 +41,10 @@ class P(tuple):
     def __new__(cls, *parts):
         return super().__new__(cls, parts)
 
+    def __getnewargs__(self):
+        # pickled (to a spawned rank) as its parts, not as one tuple part
+        return tuple(self)
+
     def __repr__(self) -> str:
         return f"PartitionSpec({', '.join(repr(p) for p in self)})"
 
@@ -321,13 +325,19 @@ def layer_slice_pspecs(cfg: ModelConfig, params: Any, *, strategy: str, mesh,
                        key: str = "layers") -> Any:
     """Per-layer (scan-slice) shard specs: stacked specs minus the L axis."""
     full = param_pspecs(cfg, params, strategy=strategy, mesh=mesh)
-    stacked = dict(tree_items(params[key]))
+    return strip_layer_axis(full[key], params[key])
+
+
+def strip_layer_axis(specs: Any, stacked: Any) -> Any:
+    """A spec tree of stacked (L, ...) leaves as one layer's: each spec
+    without its first entry."""
+    shapes = dict(tree_items(stacked))
 
     def strip(name, spec):
-        parts = list(spec) + [None] * (len(stacked[name].shape) - len(spec))
+        parts = list(spec) + [None] * (len(shapes[name].shape) - len(spec))
         return P(*parts[1:])
 
-    return tree_build((name, strip(name, spec)) for name, spec in tree_items(full[key]))
+    return tree_build((name, strip(name, spec)) for name, spec in _spec_items(specs))
 
 
 # ---------------------------------------------------------------------------
@@ -414,17 +424,27 @@ _ACT_CTX: list = []
 
 
 class activation_sharding:
-    """Context manager installing the mesh of the step it wraps: the models
-    read it from here (:func:`tensor_parallel`).  The reference's context
-    also carries ``layer_pspecs`` and ``batch_axes`` to steer XLA's
-    propagation; per-rank eager code holds its shards already, so the port
-    takes neither (ROADMAP, Differences)."""
+    """Context manager installing the layout of the step it wraps, which the
+    models read from here: the mesh, the ``strategy`` (``"tp"``: tensor
+    parallelism over ``model``, :func:`tensor_parallel`; ``"fsdp"``: none),
+    the axes that split the batch (``batch_axes``, a name or a tuple) and
+    ``layer_pspecs``, the per-layer specs :func:`constrain_layer_params`
+    gathers a layer's leaves by (a dict from the params' layer key,
+    ``"layers"``, ``"enc_layers"``, ``"dec_layers"`` or ``"shared"``, to a
+    spec tree of one layer, or for xLSTM's list of layers a list of them).
+    The reference's context steers XLA's propagation with the same specs;
+    here they say what each rank gathers."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, *, strategy: str = "tp", layer_pspecs=None,
+                 batch_axes=None, skip=()):
         self.mesh = mesh
+        self.strategy = strategy
+        self.layer_pspecs = layer_pspecs
+        self.batch_axes = batch_axes
+        self.skip = tuple(skip)
 
     def __enter__(self):
-        _ACT_CTX.append(self.mesh)
+        _ACT_CTX.append(self)
         return self
 
     def __exit__(self, *exc):
@@ -432,21 +452,78 @@ class activation_sharding:
 
 
 def tensor_parallel() -> bool:
-    """Whether the active step runs tensor parallelism: the mesh of the
-    innermost :class:`activation_sharding` has a ``model`` axis of more
-    than one rank."""
-    return bool(_ACT_CTX) and _ACT_CTX[-1].shape.get("model", 1) > 1
+    """Whether the active step runs tensor parallelism: the innermost
+    :class:`activation_sharding` has strategy ``"tp"`` and a ``model`` axis
+    of more than one rank."""
+    return (bool(_ACT_CTX) and _ACT_CTX[-1].strategy == "tp"
+            and _ACT_CTX[-1].mesh.shape.get("model", 1) > 1)
 
 
-def constrain_layer_params(lp, cast_to=None):
-    """The reference pins a layer slice's params to their shard specs so XLA
-    streams FSDP gathers per layer.  Per-rank eager code holds its shards
-    already: the params come back as they are, floating ones cast to
-    ``cast_to`` when given."""
-    if cast_to is None:
+def tokens_split_over(axis: str) -> bool:
+    """Whether the active step's batch is split over ``axis`` (so the ranks
+    along it hold different tokens; under ``"tp"`` only the data axes
+    split it)."""
+    return bool(_ACT_CTX) and axis in _axes_of(_ACT_CTX[-1].batch_axes)
+
+
+def _gathered(axis: str, strategy: str) -> bool:
+    return strategy == "fsdp" or axis != "model"
+
+
+def gathered_axes(spec: P, strategy: str) -> tuple[str, ...]:
+    """The axes a step gathers a leaf of ``spec`` over before using it: all
+    that split it under ``"fsdp"``; under ``"tp"`` those but ``model``,
+    whose shards the tensor-parallel code uses as they are."""
+    return tuple(a for a in spec_axes(spec) if _gathered(a, strategy))
+
+
+layer_gathers: dict = {"calls": 0, "leaves": 0}
+
+
+def gather_params(tree: Any, specs: Any, cast_to=None) -> Any:
+    """``tree`` (this rank's shards, laid out as ``specs``) with each leaf
+    gathered over :func:`gathered_axes` of the active step, floating leaves
+    first cast to ``cast_to`` on the shard (so the gather moves that dtype).
+    The gather's backward keeps this rank's slice of the summed cotangent: a
+    reduce-scatter.  Leaves named in the context's ``skip`` (the experts an
+    expert-parallel block gathers itself) pass through."""
+    from .spmd import all_gather
+
+    ctx = _ACT_CTX[-1]
+    spec_of = dict(_spec_items(specs))
+    out, n = [], 0
+    with ctx.mesh:
+        for name, x in tree_items(tree):
+            if cast_to is not None and x.is_floating_point():
+                x = x.to(cast_to)
+            if not any(name.startswith(k) for k in ctx.skip):
+                for dim, part in enumerate(spec_of[name]):
+                    axes = tuple(a for a in _axes_of(part) if ctx.mesh.shape[a] > 1
+                                 and _gathered(a, ctx.strategy))
+                    if axes:
+                        x = all_gather(x, axes, dim)
+                        n += 1
+            out.append((name, x))
+    layer_gathers["leaves"] += n
+    return tree_build(out)
+
+
+def constrain_layer_params(lp, cast_to=None, *, key: str = "layers", index: int | None = None):
+    """A layer's parameters as its code uses them.  The reference pins a
+    layer slice's params to their shard specs so that XLA streams the FSDP
+    gathers, one layer at a time.  Here, inside a sharded step that holds
+    ZeRO/FSDP shards (the context's ``layer_pspecs`` for ``key``; ``index``
+    picks xLSTM's layer), each leaf is gathered over the axes that split it
+    (:func:`gather_params`), inside the layer and its remat, so one layer's
+    full weights exist at a time.  Floating leaves are cast to ``cast_to``
+    first, on the shard, so the gather moves that dtype.  Elsewhere the
+    params come back as they are (the layers cast each leaf at its use)."""
+    ctx = _ACT_CTX[-1] if _ACT_CTX else None
+    specs = None if ctx is None or ctx.layer_pspecs is None else ctx.layer_pspecs.get(key)
+    if specs is None:
         return lp
-    return tree_build((name, x.to(cast_to) if x.is_floating_point() else x)
-                      for name, x in tree_items(lp))
+    layer_gathers["calls"] += 1
+    return gather_params(lp, specs if index is None else specs[index], cast_to)
 
 
 _MOE_EP_CTX: list = []

@@ -353,6 +353,18 @@ class _AllGather(torch.autograd.Function):
             None, None, None
 
 
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _all_gather(mesh, x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the output is replicated: every rank holds the whole cotangent
+        return _take(ctx.mesh, g, ctx.axis, ctx.dim), None, None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, split, concat):
@@ -414,6 +426,14 @@ def all_gather(x, axis, dim: int = 0, tiled: bool = True):
     if tiled:
         return _AllGather.apply(x, mesh, axis, dim)
     return _AllGather.apply(x.unsqueeze(dim), mesh, axis, dim)
+
+
+def gather_replicated(x, axis, dim: int):
+    """Every rank's x along ``axis``, concatenated along ``dim``, as a value
+    replicated over ``axis``: the backward keeps this rank's slice of the
+    cotangent, which every rank holds whole (``all_gather`` then
+    :func:`leave`, with the two backward steps folded)."""
+    return _GatherReplicated.apply(x, current_mesh(), axis, dim)
 
 
 def all_to_all(x, axis: str, split: int, concat: int):

@@ -323,6 +323,9 @@ def save_planned(planned: PlannedProgram, path) -> dict:
     if planned.unit_filter is not None:
         raise AotError("cannot save a plan with a unit_filter (not serializable); "
                        "save the unfiltered plan or re-plan at load time")
+    if planned.mesh is not None or planned.arg_specs is not None:
+        raise AotError("cannot save a plan with mesh/arg_specs (device topology "
+                       "is a property of the loading host, not the artifact)")
 
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)

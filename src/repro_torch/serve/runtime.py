@@ -163,6 +163,8 @@ class MixedServer:
         self._fallback = self.planned.traced.plan(
             Scheme.base().with_grt(),
             costmodel=self.planned.costmodel,
+            mesh=self.planned.mesh,
+            arg_specs=self.planned.arg_specs,
             compute_dtype=self.planned.compute_dtype,
             unit_filter=lambda f: False,
         ).compile(backend=str(self.hybrid.device))

@@ -169,23 +169,6 @@ def test_plan_verify_accepts_sound_and_rejects_forged(monkeypatch):
     assert any(d.code == "RA201" for d in ei.value.diagnostics)
 
 
-def test_deferred_stages_raise_not_implemented():
-    """Sharded offload units (``mesh`` / ``arg_specs``) are the one stage of
-    the engine not yet ported: asking for them raises, naming the slice."""
-    import warnings
-
-    from repro_torch.core import HybridExecutor
-    from repro_torch.core.convert import aval_of
-
-    prog = texport(vocab=VOCAB, d_model=DM, max_context=CTX)
-    avals = [aval_of(a) for a in _attn_args("prefill")]
-    for kw in ({"mesh": object()}, {"arg_specs": (None,)}):
-        with pytest.raises(NotImplementedError, match="parallel"), \
-                warnings.catch_warnings():
-            warnings.simplefilter("ignore", DeprecationWarning)
-            HybridExecutor(prog, "tech-gfp", entry_avals=avals, backend="cpu", **kw)
-
-
 def test_aot_save_load_roundtrip_zero_compiles(tmp_path):
     """``save_aot`` then ``load_aot`` round-trips the attention LM's warm
     plan, and the loaded plan replays the saved calls with zero compiles
@@ -204,6 +187,28 @@ def test_aot_save_load_roundtrip_zero_compiles(tmp_path):
     assert loaded.planned.unit_cache.aot_dispatches > 0
     for g, o in zip(got, outs):
         np.testing.assert_array_equal(g, o)
+
+
+def test_plan_offloading_defaults_to_the_card():
+    """The one-shot planner's units run on the CUDA card unless the caller
+    asks for the CPU, as every entry point of the port: without a card and
+    without ``backend`` it raises instead of building CPU units."""
+    import torch
+
+    from repro_torch.core.convert import signature_of
+    from repro_torch.core.costmodel import CostModel, CostModelConfig
+    from repro_torch.core.offload import plan_offloading, resolve_scheme
+    from repro_torch.workloads import WORKLOADS
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    prog, args = WORKLOADS["cjson"].build("test")
+    with pytest.raises(ValueError, match="CUDA"):
+        plan_offloading(prog, resolve_scheme("tech-gf"), CostModel(CostModelConfig()),
+                        lambda token, callee, a: (), signature_of(args))
+    plan = plan_offloading(prog, resolve_scheme("tech-gf"), CostModel(CostModelConfig()),
+                           lambda token, callee, a: (), signature_of(args), backend="cpu")
+    assert len(plan.units) > 0
 
 
 @pytest.mark.parametrize("scheme", ["tech", "tech-gfp"])

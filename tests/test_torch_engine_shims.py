@@ -520,17 +520,8 @@ def test_profiled_costmodel_still_offloads_hot_heavy_functions():
 
 
 # ---------------------------------------------------------------------------
-# the port's shim contract: devices and the keywords of the multi-card slice
+# the port's shim contract: devices
 # ---------------------------------------------------------------------------
-
-
-def test_shim_refuses_mesh_and_arg_specs():
-    prog = build_program()
-    for kw in ({"mesh": object()}, {"arg_specs": (None,)}):
-        with pytest.raises(NotImplementedError, match="parallel"), \
-                warnings.catch_warnings():
-            warnings.simplefilter("ignore", DeprecationWarning)
-            HybridExecutor(prog, "tech", entry_avals=[aval_of(arg(8))], backend="cpu", **kw)
 
 
 def test_shim_default_backend_is_cuda():

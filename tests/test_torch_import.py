@@ -60,7 +60,7 @@ def test_zoo_modules_are_checked(module):
 # sharded training: the mesh and collectives, the layout rules, the pipeline,
 # fault tolerance and the production mesh
 PARALLEL_MODULES = ["parallel/__init__.py", "parallel/spmd.py", "parallel/sharding.py",
-                    "parallel/pipeline.py", "runtime/__init__.py",
+                    "parallel/pipeline.py", "parallel/units.py", "runtime/__init__.py",
                     "runtime/fault_tolerance.py", "launch/mesh.py"]
 
 

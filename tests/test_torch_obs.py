@@ -90,6 +90,9 @@ def test_histogram_merge_property():
     durations = st.lists(st.integers(min_value=0, max_value=10**12),
                          max_size=50)
 
+    # no per-example deadline: under several loaded test workers one example
+    # can take longer than hypothesis' default 200 ms without anything wrong
+    @hypothesis.settings(deadline=None)
     @hypothesis.given(durations, durations, durations)
     def run(xs, ys, zs):
         a, b, c = obs.Histogram(), obs.Histogram(), obs.Histogram()

@@ -14,8 +14,12 @@ parameters 1e-4 of each leaf's largest magnitude, plus 2% of the
 learning-rate steps where a gradient near AdamW's eps set the step, as in
 ``tests/test_torch_train.py``); prefill and a decode
 step against one rank (logits 1e-5); the hybrid family data-parallel on a
-(4, 1) mesh.  Under ``model = 2`` the hybrid family raises
-``NotImplementedError``.  Elastic resume: ``train()`` takes 2 steps on 4
+(4, 1) mesh.  The other four families (Zamba2, xLSTM, SeamlessM4T,
+Phi-3-vision) tensor-parallel on the (2, 2) world, against one rank and the
+reference's gradients, prefill and decode; the fsdp layouts (the fully
+sharded strategy, ZeRO on tensor parallelism): three steps of SmolLM and
+Granite MoE and a prefill against one rank with the layer gathers counted,
+and the other families' gradients.  Elastic resume: ``train()`` takes 2 steps on 4
 ranks and checkpoints, then restores on ``plan_elastic_mesh(2,
 model_parallel=2)`` and takes 2 more; the result equals 4 uninterrupted
 steps on 4 ranks within 1e-5.
@@ -32,6 +36,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.launch import train as train_mod
 from repro_torch.launch.steps import (
+    cache_layout,
     loss_and_grads,
     make_decode_step,
     make_prefill_step,
@@ -241,14 +246,233 @@ def test_hybrid_trains_data_parallel(sharded):
     assert ("all_to_all" in counts) == (_cfg(arch).family == "moe")
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-350m", "seamless-m4t-large-v2",
-                                  "phi-3-vision-4.2b"])
-def test_other_families_refuse_tensor_parallelism(arch):
-    mesh = types.SimpleNamespace(shape={"data": 1, "model": 2}, axis_names=("data", "model"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        make_train_step(reduced_config(arch), tp=2, mesh=mesh)
+# ---------------------------------------------------------------------------
+# the other four families under tensor parallelism, and the fsdp layouts
+# ---------------------------------------------------------------------------
+
+FAMILIES = ["zamba2-2.7b", "xlstm-350m", "seamless-m4t-large-v2", "phi-3-vision-4.2b"]
+# (arch, strategy, fsdp): the fully sharded strategy and ZeRO on tensor
+# parallelism, three train steps each
+FSDP_RUNS = [("smollm-360m", "fsdp", False), ("granite-moe-1b-a400m", "fsdp", False),
+             ("smollm-360m", "tp", True), ("granite-moe-1b-a400m", "tp", True)]
+# gradients under both layouts: the other families, and with a batch of 2
+# (split over data alone, so the model ranks gather equal gradients)
+FSDP_GRADS = [(arch, strategy, strategy == "tp", BATCH) for arch in FAMILIES
+              for strategy in ("fsdp", "tp")] + [
+    ("smollm-360m", "fsdp", False, 2), ("granite-moe-1b-a400m", "fsdp", False, 2)]
+
+
+def _family_batch(cfg, batch, kind="train", seq=SEQ):
+    """``batch`` with the stubbed frames or patches an encdec or vlm batch
+    carries (``make_batch``'s, seed 1)."""
+    extra = api.make_batch(cfg, ShapeConfig("x", kind, seq, BATCH), seed=1)
+    return dict(batch) | {k: v for k, v in extra.items() if k in ("frames", "patches")}
+
+
+def _family_rank(arch, tree, batch):
+    """One rank of the (2, 2) world: the family's loss and gradients,
+    prefill and a decode step under tensor parallelism."""
+    cfg = _cfg(arch)
+    mesh = spmd.Mesh((2, 2), ("data", "model"))
+    full = api.load_reference_params(cfg, tree, tp=TP, device="cpu")
+    specs = param_layout(cfg, full)
+    params = shd.shard_tree(mesh, full, specs)
+    loss, grads = loss_and_grads(cfg, params, batch, tp=TP, mesh=mesh)
+    out = {"loss": float(loss), "grads": _flat(shd.gather_tree(mesh, grads, specs))}
+    cache = api.init_cache(cfg, BATCH, CACHE, tp=TP, device="cpu")
+    cspecs = shd.cache_pspecs(cfg, ShapeConfig("d", "decode", CACHE, BATCH), mesh, cache)
+    cache = shd.shard_tree(mesh, cache, cspecs)
+    prompt = _family_batch(cfg, {"tokens": batch["tokens"][:, :PROMPT]}, "prefill", PROMPT)
+    with torch.no_grad():
+        logits, cache = make_prefill_step(cfg, tp=TP, mesh=mesh)(params, prompt, cache)
+        out["prefill"] = _gathered_logits(mesh, logits).numpy()
+        logits, cache = make_decode_step(cfg, tp=TP, mesh=mesh)(
+            params, cache, {"token": batch["tokens"][:, PROMPT:PROMPT + 1]})
+        out["decode"] = _gathered_logits(mesh, logits).numpy()
+    return out
+
+
+def _fsdp_rank(arch, strategy, fsdp, batches):
+    """One rank of the (2, 2) world: three train steps held by the layout
+    of ``strategy`` and ``fsdp``, and the layer gathers of one more loss."""
+    cfg = _cfg(arch)
+    moe_ep = cfg.family == "moe"
+    mesh = spmd.Mesh((2, 2), ("data", "model"))
+    full = api.init(cfg, torch.Generator().manual_seed(0), tp=TP, device="cpu")
+    specs = param_layout(cfg, full, moe_ep=moe_ep, strategy=strategy, fsdp=fsdp, mesh=mesh)
+    params = shd.shard_tree(mesh, full, specs)
+    step = make_train_step(cfg, tp=TP, opt=AdamWConfig(lr=LR), mesh=mesh, moe_ep=moe_ep,
+                           strategy=strategy, fsdp=fsdp, **STEP_KW)
+    opt_state, metrics = adamw_init(params), []
+    for b in batches:
+        params, opt_state, m = step(params, opt_state, b)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    # a prefill under the same layout: each layer gathers its leaves once
+    shape = ShapeConfig("p", "prefill", CACHE, BATCH)
+    cache = api.init_cache(cfg, BATCH, CACHE, tp=TP, device="cpu")
+    cache = shd.shard_tree(mesh, cache, cache_layout(cfg, shape, mesh, cache,
+                                                     strategy=strategy))
+    shd.layer_gathers.update(calls=0, leaves=0)
+    prefill = make_prefill_step(cfg, tp=TP, mesh=mesh, moe_ep=moe_ep, strategy=strategy,
+                                fsdp=fsdp)
+    with torch.no_grad():
+        logits, _ = prefill(params, {"tokens": batches[0]["tokens"][:, :PROMPT]}, cache)
+    batch_axes = shd.batch_pspecs(cfg, shape, mesh, strategy=strategy)["tokens"][0]
+    vocab = "model" if strategy == "tp" else None
+    logits = shd.gather_tree(mesh, {"l": logits}, {"l": shd.P(batch_axes, None, vocab)})["l"]
+    return {"metrics": metrics, "params": _flat(shd.gather_tree(mesh, params, specs)),
+            "specs": dict(shd._spec_items(specs)), "gathers": dict(shd.layer_gathers),
+            "prefill": logits.numpy()}
+
+
+def _grads_batch(arch, batches, rows):
+    cfg = _cfg(arch)
+    batch = batches[arch] if arch in batches else _batches(cfg, n=1)[0]
+    return {k: v[:rows] for k, v in batch.items()}
+
+
+def _fsdp_grads_rank(arch, strategy, fsdp, batch):
+    cfg = _cfg(arch)
+    moe_ep = cfg.family == "moe"
+    mesh = spmd.Mesh((2, 2), ("data", "model"))
+    full = api.init(cfg, torch.Generator().manual_seed(0), tp=TP, device="cpu")
+    specs = param_layout(cfg, full, moe_ep=moe_ep, strategy=strategy, fsdp=fsdp, mesh=mesh)
+    loss, grads = loss_and_grads(cfg, shd.shard_tree(mesh, full, specs), batch, tp=TP,
+                                 mesh=mesh, moe_ep=moe_ep, strategy=strategy, fsdp=fsdp)
+    return float(loss), _flat(shd.gather_tree(mesh, grads, specs))
+
+
+def _other_ranks(trees, batches):
+    out = {arch: _family_rank(arch, trees[arch], batches[arch]) for arch in FAMILIES}
+    for arch, strategy, fsdp in FSDP_RUNS:
+        out[(arch, strategy, fsdp)] = _fsdp_rank(arch, strategy, fsdp,
+                                                 _batches(_cfg(arch)))
+    for arch, strategy, fsdp, rows in FSDP_GRADS:
+        out[("grads", arch, strategy, fsdp, rows)] = _fsdp_grads_rank(
+            arch, strategy, fsdp, _grads_batch(arch, batches, rows))
+    return out
+
+
+@pytest.fixture(scope="module")
+def other_families():
+    trees = {arch: _reference_init(arch) for arch in FAMILIES}
+    batches = {arch: _family_batch(_cfg(arch), _batches(_cfg(arch), n=1)[0])
+               for arch in FAMILIES}
+    ranks = spmd.run_spmd(_other_ranks, 4, device="cpu", args=(trees, batches), timeout=600)
+    return trees, batches, ranks
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_other_families_run_tensor_parallel(other_families, arch):
+    """Zamba2 (heads of the SSD and of the shared block split), xLSTM (the
+    mLSTM's dv and the sLSTM's heads split), SeamlessM4T (self- and
+    cross-attention heads, the MLP's columns) and Phi-3-vision (the patch
+    projection's columns gathered before the token stream) on ``model = 2``:
+    the loss and every gradient leaf against the port's one rank and
+    against ``jax.grad`` of the reference's unsharded loss (1e-4 of each
+    leaf's largest magnitude), prefill and a decode step against one rank
+    (1e-5)."""
+    trees, batches, ranks = other_families
+    cfg = _cfg(arch)
+    params = api.load_reference_params(cfg, trees[arch], tp=TP, device="cpu")
+    loss, grads = loss_and_grads(cfg, params, batches[arch], tp=TP)
+    one, ref = _flat(grads), _reference_grads(arch, trees[arch], batches[arch])
+    cache = api.init_cache(cfg, BATCH, CACHE, tp=TP, device="cpu")
+    prompt = _family_batch(cfg, {"tokens": batches[arch]["tokens"][:, :PROMPT]}, "prefill",
+                           PROMPT)
+    with torch.no_grad():
+        prefill, cache = api.prefill(cfg, params, prompt, cache, tp=TP)
+        decode, _ = api.decode(cfg, params, cache,
+                               {"token": batches[arch]["tokens"][:, PROMPT:PROMPT + 1]}, tp=TP)
+    for r in ranks:
+        got = r[arch]
+        np.testing.assert_allclose(got["loss"], float(loss), rtol=1e-6)
+        _assert_leaves_close(got["grads"], one, 1e-4)
+        _assert_leaves_close(got["grads"], ref, 1e-4)
+        np.testing.assert_allclose(got["prefill"], prefill.numpy(), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got["decode"], decode.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("run", FSDP_GRADS,
+                         ids=lambda r: f"{r[0]}-{r[1]}{'-zero' if r[2] else ''}-b{r[3]}")
+def test_fsdp_gradients_equal_one_rank(other_families, run):
+    """The loss and gradients held by the fully sharded layout and by ZeRO
+    on tensor parallelism (xLSTM's list of layers, the hybrid's shared block
+    and the encoder-decoder's two stacks each gathered in their loops), and
+    under the fully sharded layout with a batch that splits over data alone
+    (the dense and the moe family), against one rank, 1e-4 of each leaf's
+    largest magnitude."""
+    arch, strategy, fsdp, rows = run
+    _, batches, ranks = other_families
+    cfg = _cfg(arch)
+    params = api.init(cfg, torch.Generator().manual_seed(0), tp=TP, device="cpu")
+    loss, grads = loss_and_grads(cfg, params, _grads_batch(arch, batches, rows), tp=TP)
+    for r in ranks:
+        got_loss, got = r[("grads",) + run]
+        np.testing.assert_allclose(got_loss, float(loss), rtol=1e-6)
+        _assert_leaves_close(got, _flat(grads), 1e-4)
+
+
+def test_xlstm_refuses_a_model_axis_that_splits_heads():
+    """The sLSTM's recurrence stays local only where a rank's D shard holds
+    whole heads; any other ``model`` axis is refused."""
+    cfg = reduced_config("xlstm-350m")
+    mesh = types.SimpleNamespace(shape={"data": 1, "model": 3 * cfg.n_heads},
+                                 axis_names=("data", "model"))
+    with pytest.raises(ValueError, match="gathered every step"):
+        make_train_step(cfg, tp=2, mesh=mesh)
     with pytest.raises(ValueError, match="moe_ep=True"):
-        make_train_step(reduced_config("granite-moe-1b-a400m"), tp=2, mesh=mesh)
+        make_train_step(reduced_config("granite-moe-1b-a400m"), tp=2,
+                        mesh=types.SimpleNamespace(shape={"data": 1, "model": 2},
+                                                   axis_names=("data", "model")))
+
+
+@pytest.mark.parametrize("run", FSDP_RUNS, ids=lambda r: f"{r[0]}-{r[1]}{'-zero' if r[2] else ''}")
+def test_fsdp_steps_equal_one_rank(other_families, run):
+    """Three steps held by ``strategy="fsdp"`` (every leaf split over as
+    many axes as divide it, the batch over data and model; Granite MoE's
+    experts expert-parallel and split over data) or by ZeRO on tensor
+    parallelism (``fsdp=True``) against the port's one-rank steps, at the
+    tolerances of the tensor-parallel steps above; and in one more loss,
+    each layer gathers its split leaves once, inside the layer."""
+    arch, strategy, fsdp = run
+    _, _, ranks = other_families
+    cfg = _cfg(arch)
+    params = api.init(cfg, torch.Generator().manual_seed(0), tp=TP, device="cpu")
+    step = make_train_step(cfg, tp=TP, opt=AdamWConfig(lr=LR), **STEP_KW)
+    opt_state, metrics, near_eps = adamw_init(params), [], {}
+    opt = AdamWConfig()
+    for b in _batches(cfg):
+        params, opt_state, m = step(params, opt_state, b)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        n = int(opt_state["step"])
+        for name, v in _flat(opt_state["v"]).items():
+            near = np.sqrt(v / (1.0 - opt.b2 ** n)) < 100 * opt.eps
+            near_eps[name] = near_eps.get(name, False) | near
+    cache = api.init_cache(cfg, BATCH, CACHE, tp=TP, device="cpu")
+    with torch.no_grad():
+        prefill, _ = api.prefill(cfg, params, {"tokens": _batches(cfg)[0]["tokens"][:, :PROMPT]},
+                                 cache, tp=TP)
+    for r in ranks:
+        got = r[run]
+        np.testing.assert_allclose(np.array(got["metrics"]), np.array(metrics), rtol=1e-5)
+        _assert_leaves_close(got["params"], _flat(params), 1e-4, near_eps)
+        np.testing.assert_allclose(got["prefill"], prefill.numpy(), rtol=1e-4, atol=1e-4)
+        specs = got["specs"]
+        assert any("data" in shd.spec_axes(s) for s in specs.values())
+        # every split leaf is gathered once where it is used: the layers'
+        # inside each layer (the hybrid's shared block at each of its
+        # applications), the rest once a step; the experts by their
+        # expert-parallel block
+        def split(prefix):
+            return sum(1 for name, s in specs.items() if name.startswith(prefix)
+                       and not name.startswith("layers/experts/")
+                       and [a for a in shd.gathered_axes(s, strategy) if a in ("data", "model")])
+        groups = cfg.n_layers // cfg.ssm.shared_attn_every if cfg.family == "hybrid" else 0
+        top = split("") - split("layers/") - split("shared/")
+        assert got["gathers"]["calls"] == cfg.n_layers + groups
+        assert got["gathers"]["leaves"] == (cfg.n_layers * split("layers/")
+                                            + groups * split("shared/") + top)
 
 
 def _float32_reduced(arch, **kw):

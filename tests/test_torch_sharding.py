@@ -132,8 +132,10 @@ def test_constraints_are_identity_in_eager_code():
     assert shd.constrain_batch(x, None) is x
     lp = {"w": torch.randn(2, 2), "i": torch.arange(3)}
     assert shd.constrain_layer_params(lp) is lp
-    cast = shd.constrain_layer_params(lp, cast_to=torch.bfloat16)
-    assert cast["w"].dtype == torch.bfloat16 and cast["i"].dtype == torch.int64
+    # outside a sharded step that holds shards, as the reference's outside
+    # its activation context: the params as they are, cast_to or not (the
+    # layers cast each leaf at its use)
+    assert shd.constrain_layer_params(lp, cast_to=torch.bfloat16) is lp
 
 
 def _round_trip(arch):
