@@ -301,6 +301,33 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    coverage equal, ms per call sharded and unsharded, the redistributions
    per op; configuration 1's decode LM through a ``DecodeScheduler`` on a
    sharded plan, its tokens and report equal to the unsharded scheduler's.
+22. Sequence-parallel decode at a global batch of 1 (configuration 14; run
+   right after phase 21).  (a) Row 2's log-sum-exp output
+   (``return_lse``) on both bodies against the plain version at the dense
+   and hybrid step shapes and at the sequence-parallel shape, q (1,32,1,80)
+   float32 against one rank's (1,32,262144,80) bf16 slice at positions
+   from none visible to past the slice (o unchanged by asking for it, the
+   lse within 2e-5 of its magnitude, -inf where nothing is visible); its
+   time with and without lse in two runs each, the plain version, ``sdpa``
+   and the 0.801 ms bound.  (b) Zamba2-2.7B uncut (54 layers, 9
+   shared-attention applications) at ``long_500k``, computing in float32:
+   two ranks share the card through gloo on (data 2, model 1), each holding
+   half of a bf16 k/v cache of 524,288 positions (each block of 4096 from a
+   seed of its own), 8 decode steps from position 524,280 and 8 across the
+   ranks' boundary from 262,140, each step from the seeded SSD state and
+   conv window (the model at random init is chaotic: see ``SP_TOL``);
+   after the ranks exit, the one-rank decode on the same seeded state and
+   tokens, and again from the state scaled by one float32 ulp (the
+   yardstick, reported).  Gates: every step's logits within 5e-3 of the
+   one rank's largest, greedy tokens equal, every ``decode_attention``
+   launch ``"split"`` (9 a step).  Step p50 and range, peak a rank, the
+   collectives' host share and the card's idle share of two profiled
+   steps.  (c) The dry run in a subprocess on this machine's torch:
+   SmolLM-360M ``decode_32k`` multi, Qwen2-1.5B ``long_500k`` (skipped
+   with the reference's reason), Zamba2-2.7B ``long_500k`` single, Granite
+   MoE ``train_4k`` under ``strategy="fsdp"``, and (b)'s own cell on a
+   (data 2, model 1) world, whose predicted rank bytes are printed beside
+   (b)'s measured peak.
 
 The last lines are a ``kernels`` JSON line (every row with its
 ``launches_by_route``; rows 1 and 2 with the old body's ``simt_ms``, their
@@ -317,7 +344,8 @@ run and their times at its shapes under ``zoo``; rows 4-8 with phase
 times at its shapes, row 8 with the SSD VJP's calls and time; rows 4-7
 with phase 20's launches by route per rank under ``sharded``; every row
 with phase 21's launches by route per rank and part under ``sharded``,
-``configuration 13``), the card's name and power limit, and ``{"ok": true, "device": {...}}``.  The script needs the repo's
+``configuration 13``; row 2 with phase 22's ``lse`` readings and its
+sequence-parallel launches by route under ``sequence_parallel``), the card's name and power limit, and ``{"ok": true, "device": {...}}``.  The script needs the repo's
 ``src/`` beside it and a CUDA device; without either it exits non-zero and
 prints no result.
 """
@@ -1564,12 +1592,13 @@ def _cuda_core_call(q, k, v, stats: bool, causal: bool = True):
 CLUSTER_SIZES = (1, 2, 4, 8, 16)     # the split bodies' cluster sizes timed beside the shipped one
 
 
-def _decode_entry(torch, q, k, v, pos, nsplit=None):
+def _decode_entry(torch, q, k, v, pos, nsplit=None, lse: bool = False):
     """A call of the dense flash-decode through a C entry, on inputs the
     wrapper takes: the CUDA-core body (``decode_attention_fwd``, the body of
     every launch before the split one) when ``nsplit`` is None, else the
-    split body at that cluster size.  Timed beside the wrapper in the same
-    run, never on a path.  Returns (call, output)."""
+    split body at that cluster size; with ``lse`` it also writes each row's
+    log-sum-exp.  Timed beside the wrapper in the same run, never on a
+    path.  Returns (call, output), the output (o, lse) with ``lse``."""
     import ctypes
     import math
 
@@ -1579,6 +1608,7 @@ def _decode_entry(torch, q, k, v, pos, nsplit=None):
     B, Hq, _, d = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     out = torch.empty((B, Hq, 1, d), dtype=q.dtype, device=q.device)
+    rows = torch.empty((B, Hq), dtype=torch.float32, device=q.device) if lse else None
     qs, ks, vs = strides(q), strides(k), strides(v)
     args = [ptr(q), ptr(k), ptr(v), ptr(pos), ptr(out), DTYPE_CODES[q.dtype],
             DTYPE_CODES[k.dtype], B, Hq, Hkv, S, d, *qs[:2], *ks[:3], *vs[:3],
@@ -1586,12 +1616,13 @@ def _decode_entry(torch, q, k, v, pos, nsplit=None):
     lib, st = da._dense_library(), stream(q.device)
     if nsplit is None:
         def call():
-            check(lib.decode_attention_fwd(*args, st) == 0, "CUDA-core decode failed")
+            check(lib.decode_attention_fwd(*args, ptr(rows), st) == 0,
+                  "CUDA-core decode failed")
     else:
         def call():
-            check(lib.decode_attention_fwd_split(*args, nsplit, st) == 0,
+            check(lib.decode_attention_fwd_split(*args, nsplit, ptr(rows), st) == 0,
                   f"split decode at C = {nsplit} failed")
-    return call, out
+    return call, ((out, rows) if lse else out)
 
 
 def _paged_entry(torch, q, kp, vp, tables, lens, kn, vn, nsplit=None):
@@ -4728,6 +4759,394 @@ def phase_sharded_rest(torch) -> dict:
     return {"ranks": ranks, "card_idle": card_idle}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: sequence-parallel decode at a global batch of 1 (configuration 14)
+# ---------------------------------------------------------------------------
+
+# long_500k (src/repro_torch/configs/base.py): decode against 524,288
+# positions at batch 1, Zamba2-2.7B at full width and depth (54 layers, the
+# shared block 9 times), its bf16 k/v cache split over two data ranks.  Per
+# rank: 10.8 GB of float32 parameters, 24.2 GB of k/v (half the sequence)
+# and 71 MB of SSD state, about 35 GB, 70 GB for both on the one card
+SP_ARCH, SP_SEQ, SP_BLOCK = "zamba2-2.7b", 524_288, 4096
+SP_STARTS, SP_STEPS = (524_280, 262_140), 8      # the cache's end; across the ranks' boundary
+SP_TIMEOUT = 600
+# Zamba2 at random init is chaotic: a rounding difference (the fold's order
+# of sums) grows through its 54 layers and from step to step, in bf16
+# compute past any kernel tolerance.  So (b) computes in float32 (the hybrid
+# decode runs in float32 after its first layer anyway; the cache stays
+# bf16), and every step starts from the seeded SSD state and conv window
+# (the k/v rows written by earlier steps stay): a step's logits then differ
+# only by that step's own rounding, held at phase 11's float32 end-to-end
+# gate; the yardstick (SP_ULP) shows how far one ulp of the state moves them
+SP_TOL = 5e-3
+SP_ULP = 2.0 ** -23             # the yardstick: the seeded state scaled by 1 + one float32 ulp
+# (a): row 2 at the sequence-parallel shape, one rank's slice: q (1,32,1,80)
+# float32 (the hybrid decode's promotion) against (1,32,262144,80) bf16 k/v,
+# read as the model's (B,S,H,d) cache; local positions: none visible, the
+# first tile, its edge, the cluster's two runs' edge, the whole slice, past it
+SP_SLICE = SP_SEQ // 2
+SP_LSE_POS = (-1, 0, 63, 64, 131_071, 131_072, SP_SLICE - 1, SP_SLICE + 5)
+# (c): the dry run's cells on this machine's torch, and (b)'s own cell
+DRYRUN_CELLS = (("smollm-360m", "decode_32k", "multi", {}),
+                ("qwen2-1.5b", "long_500k", "single", {}),
+                ("zamba2-2.7b", "long_500k", "single", {}),
+                ("granite-moe-1b-a400m", "train_4k", "single", {"strategy": "fsdp"}),
+                ("zamba2-2.7b", "long_500k", "data=2,model=1", {}))
+DRYRUN_TIMEOUT = 600
+
+
+def _lse_err(torch, got, want) -> float:
+    """Max |difference| of two log-sum-exps relative to max(1, |want|), with
+    each -inf (nothing visible) required on both sides."""
+    empty = torch.isneginf(want)
+    check(torch.equal(torch.isneginf(got), empty), "lse: -inf rows differ")
+    if bool(empty.all()):
+        return 0.0
+    g, w = got[~empty], want[~empty]
+    return ((g - w).abs() / w.abs().clamp_min(1.0)).max().item()
+
+
+def _lse_case(torch, q, k, v, pos, tol: float) -> dict:
+    """Row 2 with ``return_lse`` on the routed body and on the simt body
+    (C entry) against the plain version: (o err, lse err, route)."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_kernel, decode_attention_plain, decode_route)
+
+    p = torch.tensor([pos], dtype=torch.int32, device=q.device)
+    o, lse = decode_attention_kernel(q, k, v, p, return_lse=True)
+    plain_o, plain_lse = decode_attention_plain(q, k, v, p, return_lse=True)
+    simt, (so, slse) = _decode_entry(torch, q, k, v, p, lse=True)
+    simt()
+    o_only = decode_attention_kernel(q, k, v, p)
+    torch.cuda.synchronize()
+    check(torch.equal(o, o_only), "the lse output changed o")
+    out = {"o_err": (o.float() - plain_o.float()).abs().max().item(),
+           "lse_err": _lse_err(torch, lse, plain_lse),
+           "simt_o_err": (so.float() - plain_o.float()).abs().max().item(),
+           "simt_lse_err": _lse_err(torch, slse, plain_lse),
+           "route": decode_route(k.dtype, q.shape[-1], q.shape[1] // k.shape[1], k, v)}
+    for key in ("o_err", "lse_err", "simt_o_err", "simt_lse_err"):
+        check(out[key] <= tol, f"row 2 with lse at pos {pos}: {key} {out[key]:.3e} > {tol}")
+    if pos < 0:
+        check(bool((o == 0).all()), "row 2 with lse: nothing visible must give exact zeros")
+    return out
+
+
+def _lse_phase(torch) -> dict:
+    """(a): row 2's lse output against the plain version at the dense and
+    hybrid step shapes and at the sequence-parallel shape, its time with
+    and without lse in two runs each, the plain version, sdpa, the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import decode_attention_kernel
+
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    saved = _snapshot()
+    cases = {}
+    # the dense step: q (8,15,1,64) bf16 against a float32 cache (8,545,5,64) at pos 528
+    q = _randn(torch, (8, 15, 1, 64), bf16, 220, dev)
+    kc, vc = (_randn(torch, (8, 545, 5, 64), f32, s, dev).transpose(1, 2) for s in (221, 222))
+    cases["dense step"] = _lse_case(torch, q, kc, vc, 528, 2e-2)
+    # the hybrid step: q (8,32,1,80) float32 against its float32 cache (8,1057,32,80)
+    q = _randn(torch, (8, 32, 1, 80), f32, 223, dev)
+    kc, vc = (_randn(torch, (8, 1057, 32, 80), f32, s, dev).transpose(1, 2) for s in (224, 225))
+    cases["hybrid step"] = _lse_case(torch, q, kc, vc, 1040, TOL)
+    del kc, vc
+    # the sequence-parallel shape
+    q = _randn(torch, (1, 32, 1, 80), f32, 226, dev)
+    g = torch.Generator(device=dev).manual_seed(227)
+    k, v = (torch.randn((1, SP_SLICE, 32, 80), generator=g, device=dev).to(bf16).transpose(1, 2)
+            for _ in "kv")
+    for pos in SP_LSE_POS:
+        cases[f"sp pos {pos}"] = _lse_case(torch, q, k, v, pos, TOL)
+    check(all(c["route"] == "split" for c in cases.values()),
+          {k: c["route"] for k, c in cases.items()})
+    flush = l2_flush_buffer(torch)
+    p = torch.tensor([SP_SLICE - 1], dtype=torch.int32, device=dev)
+    runs = {"with lse": [], "without lse": []}
+    for _ in range(2):
+        runs["without lse"].append(time_ms(torch, lambda: decode_attention_kernel(q, k, v, p),
+                                           40, flush))
+        runs["with lse"].append(time_ms(
+            torch, lambda: decode_attention_kernel(q, k, v, p, return_lse=True), 40, flush))
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+
+    plain_ms = time_ms(torch, lambda: decode_attention_plain(q, k, v, p), 3, flush)
+    qb = q.to(bf16)
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qb, k, v), 20, flush)
+    # each k/v element read once, q read and o and lse written once; 4 d
+    # flops per (key, query row) on the CUDA cores
+    nbytes = 2 * SP_SLICE * 32 * 80 * 2 + q.numel() * 4 * 2 + 32 * 4
+    bound, by = _bound(nbytes, 4 * 80 * SP_SLICE * 32, H100_FP32_FLOPS)
+    del k, v, flush
+    torch.cuda.empty_cache()
+    _restore(saved)
+    ms = float(np.median(runs["with lse"]))
+    out = {"cases": cases, "runs_ms": runs, "ms": ms,
+           "ms_no_lse": float(np.median(runs["without lse"])),
+           "plain_ms": plain_ms, "library_ms": library_ms, "library": "sdpa (q cast to bf16)",
+           "bound_ms": bound, "bound_by": by,
+           "max_abs_err": max(max(c["o_err"], c["simt_o_err"]) for c in cases.values()),
+           "max_lse_rel_err": max(max(c["lse_err"], c["simt_lse_err"])
+                                  for c in cases.values()),
+           "shape": f"q (1,32,1,80) f32, k/v (1,32,{SP_SLICE},80) bf16"}
+    out["lse_cost_ms"] = out["ms"] - out["ms_no_lse"]
+    log(f"# phase 22 (a): row 2 with lse at {out['shape']}: ms with lse {runs['with lse']}, "
+        f"without {runs['without lse']} (two runs each), plain {plain_ms:.3f}, "
+        f"{out['library']} {library_ms:.3f}, bound {bound:.4f} ms by {by}; max |o err| "
+        f"{out['max_abs_err']:.2e}, max lse rel err {out['max_lse_rel_err']:.2e}; cases "
+        + ", ".join(f"{name}: {c['route']} o {c['o_err']:.1e} lse {c['lse_err']:.1e} simt "
+                    f"{c['simt_o_err']:.1e}/{c['simt_lse_err']:.1e}"
+                    for name, c in cases.items()))
+    return out
+
+
+def _sp_cache(torch, cfg, lo: int, n: int, dev):
+    """The bf16 hybrid cache of positions [lo, lo + n): each SP_BLOCK of k
+    and v rows drawn from a seed of its own (its global block index), so a
+    rank's half and the one-rank cache hold the same values; the SSD states
+    and conv windows from one seed (replicated over the data ranks)."""
+    from repro_torch.models import api
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cache = api.init_cache(cfg, 1, n, tp=1, dtype=bf16, device=dev)
+    for j in range(n // SP_BLOCK):
+        blk = lo // SP_BLOCK + j
+        for i, name in enumerate(("ak", "av")):
+            g = torch.Generator(device=dev).manual_seed(SEED * 1_000_003 + 2 * blk + i)
+            rows = cache[name][:, :, j * SP_BLOCK:(j + 1) * SP_BLOCK]
+            rows.copy_(torch.randn(rows.shape, generator=g, device=dev, dtype=f32))
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    for name in ("S", "conv"):
+        cache[name].copy_(0.1 * torch.randn(cache[name].shape, generator=g, device=dev,
+                                            dtype=f32))
+    return cache
+
+
+def _sp_config():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(SP_ARCH), compute_dtype="float32")
+
+
+def _sp_decode(torch, step, params, cache, vocab: int, tokens=None) -> dict:
+    """SP_STEPS decode steps from each of SP_STARTS, each from the cache's
+    SSD state and conv window as they were on entry (see SP_TOL): greedy
+    from a seeded first token, or teacher-forced with ``tokens``; each
+    step's logits over the vocabulary, its token and its wall time."""
+    dev = cache["pos"].device
+    seeded = {name: cache[name].clone() for name in ("S", "conv")}
+    tok = int(np.random.default_rng(SEED + 22).integers(0, vocab))
+    logits, fed, step_ms = [], [], []
+    for start in SP_STARTS:
+        cache["pos"].fill_(start)
+        for _ in range(SP_STEPS):
+            if tokens is not None:
+                tok = tokens[len(fed)]
+            fed.append(tok)
+            token = torch.full((1, 1), tok, dtype=torch.int32, device=dev)
+            for name, x in seeded.items():
+                cache[name].copy_(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                lg, cache = step(params, cache, {"token": token})
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            lg = lg.float()[0, -1, :vocab]
+            logits.append(lg.cpu().numpy())
+            tok = int(lg.argmax())
+    return {"logits": np.stack(logits), "tokens": fed, "argmax": [int(x.argmax())
+                                                                   for x in logits],
+            "step_ms": step_ms}
+
+
+def _sp_rank() -> dict:
+    """One data rank of (b): its half of the seeded cache, the same seeded
+    parameters (the model axis has one rank, so the full parameters are its
+    shards), SP_STEPS steps from each start, counted; then two profiled
+    steps."""
+    import torch
+
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import api
+    from repro_torch.parallel import spmd
+
+    mesh = spmd.Mesh((SPMD_WORLD, 1), ("data", "model"))
+    rank, dev = torch.distributed.get_rank(), mesh.device
+    cfg = _sp_config()
+    t0 = time.perf_counter()
+    params = api.init(cfg, torch.Generator(device=dev).manual_seed(SEED), tp=1, device=dev)
+    half = SP_SEQ // SPMD_WORLD
+    cache = _sp_cache(torch, cfg, rank * half, half, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    step = make_decode_step(cfg, tp=1, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    spmd.reset_collectives()
+    _reset_counts()
+    out = _sp_decode(torch, step, params, cache, cfg.vocab)
+    launches, routes = _counts(), _routes()
+    coll = {k: v.as_dict() for k, v in spmd.collective_stats.items()}
+    peak = torch.cuda.max_memory_allocated()
+    prof = {}
+    token = torch.full((1, 1), out["tokens"][-1], dtype=torch.int32, device=dev)
+
+    def two():
+        with torch.no_grad():
+            for _ in range(2):
+                step(params, cache, {"token": token})
+    cache["pos"].fill_(SP_STARTS[1])
+    profile_steps(torch, two, 2, label=f"rank {rank} sequence-parallel decode steps",
+                  into=prof)
+    out.update(rank=rank, device=str(dev), backend=mesh.backend, setup_s=setup_s,
+               launches=launches, routes=routes, collectives=coll, peak_mib=peak / 2**20,
+               profile=prof, local_ak=tuple(cache["ak"].shape))
+    return out
+
+
+def _dryrun_subprocess() -> list:
+    """(c): the dry run's cells in a subprocess on this machine's torch (no
+    card, no other rank: a fake world)."""
+    code = ("import json, sys\n"
+            f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+            "from repro_torch.launch import dryrun\n"
+            f"cells = {[list(c) for c in DRYRUN_CELLS]!r}\n"
+            "out = [dryrun.run_cell(a, s, m, save=False, **kw) for a, s, m, kw in cells]\n"
+            "print('DRYRUN ' + json.dumps(out, default=str))\n")
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
+        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              timeout=DRYRUN_TIMEOUT, cwd=tmp)
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("DRYRUN ")]
+    check(proc.returncode == 0 and lines, f"the dry run failed: {proc.stderr[-3000:]}")
+    return json.loads(lines[-1][len("DRYRUN "):])
+
+
+def phase_seq_parallel(torch) -> dict:
+    """Phase 22 (configuration 14): (a) row 2's lse output, (b) Zamba2-2.7B
+    decoding at long_500k on two data ranks sharing the card, against the
+    one-rank decode on the same seeded state, (c) the dry run."""
+    import gc
+
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import api
+    from repro_torch.parallel import spmd
+
+    lse = _lse_phase(torch)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"# phase 22 (b): the parent holds {torch.cuda.memory_allocated() / 2**20:.0f} MiB "
+        f"before the ranks")
+    route = "nccl" if SPMD_WORLD <= torch.cuda.device_count() else "shared"
+    t0 = time.perf_counter()
+    ranks = spmd.run_spmd(_sp_rank, SPMD_WORLD, device="cuda", timeout=SP_TIMEOUT)
+    world_s = time.perf_counter() - t0
+    check([r["backend"] for r in ranks] == ["gloo" if route == "shared" else "nccl"] * 2,
+          [r["backend"] for r in ranks])
+    cfg = _sp_config()
+    per_step = cfg.n_layers // cfg.ssm.shared_attn_every
+    n_steps = len(SP_STARTS) * SP_STEPS
+    for r in ranks:
+        check(r["local_ak"][2] == SP_SEQ // SPMD_WORLD, r["local_ak"])
+        check_routes(r["routes"], "decode_attention", f"phase 22 rank {r['rank']}",
+                     split=per_step * n_steps)
+        check(r["tokens"] == ranks[0]["tokens"], "the ranks' greedy tokens differ")
+
+    # the one-rank decode on the same seeded state, the ranks' tokens fed
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    params = api.init(cfg, torch.Generator(device=dev).manual_seed(SEED), tp=1, device=dev)
+    cache = _sp_cache(torch, cfg, 0, SP_SEQ, dev)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    one = _sp_decode(torch, make_decode_step(cfg, tp=1), params, cache, cfg.vocab,
+                     tokens=ranks[0]["tokens"])
+    one_routes = _routes()
+    one_peak = torch.cuda.max_memory_allocated() / 2**20
+    one_s = time.perf_counter() - t0
+    check_routes(one_routes, "decode_attention", "phase 22 one rank", split=per_step * n_steps)
+    # the yardstick: the same one-rank steps from the seeded state scaled by
+    # one float32 ulp (reported, not gated)
+    saved = _snapshot()
+    del cache
+    gc.collect()
+    cache = _sp_cache(torch, cfg, 0, SP_SEQ, dev)
+    cache["S"].mul_(1 + SP_ULP)
+    ulp = _sp_decode(torch, make_decode_step(cfg, tp=1), params, cache, cfg.vocab,
+                     tokens=ranks[0]["tokens"])
+    _restore(saved)
+    ulp_err = (np.abs(ulp["logits"] - one["logits"]).max(axis=1)
+               / np.abs(one["logits"]).max(axis=1))
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = []
+    for r in ranks:
+        scale = np.abs(one["logits"]).max(axis=1)
+        err = np.abs(r["logits"] - one["logits"]).max(axis=1) / scale
+        errs.append(err)
+        log(f"# phase 22 (b) rank {r['rank']}: each step's logits err against the one rank "
+            f"{[float(f'{e:.2e}') for e in err]}; argmax {r['argmax']}, one rank "
+            f"{one['argmax']}")
+    log(f"# phase 22 (b): the one rank from its state scaled by one float32 ulp, each step's "
+        f"logits err {[float(f'{e:.2e}') for e in ulp_err]}")
+    for r, err in zip(ranks, errs):
+        check(bool((err <= SP_TOL).all()), f"rank {r['rank']}: logits err {err.max():.3e}")
+        check(r["argmax"] == one["argmax"], f"rank {r['rank']}: greedy tokens differ: "
+              f"{r['argmax']} against {one['argmax']}")
+    busy = sum(r["profile"].get("busy_ms", 0.0) for r in ranks)
+    longest = max(r["profile"].get("wall_ms", 0.0) for r in ranks)
+    card_idle = 1 - busy / longest if longest and route == "shared" else None
+    for r in ranks:
+        share = _share(r["profile"], "coll_host_ms")
+        ms = r["step_ms"]
+        log(f"# phase 22 (b) rank {r['rank']}: {SP_ARCH} at {SP_SEQ} positions, batch 1, "
+            f"its k/v rows {r['local_ak']}; setup {r['setup_s']:.1f} s; step ms "
+            f"{[round(x, 1) for x in ms]}, p50 {np.median(ms):.1f} (range {min(ms):.1f}-"
+            f"{max(ms):.1f}); peak {r['peak_mib']:.0f} MiB; collectives' host share "
+            + (f"{share:.3f}" if share is not None else "not measured")
+            + f"; launches {r['launches']}; collectives {r['collectives']}; max logits err "
+            f"{errs[r['rank']].max():.2e} of the one rank's largest")
+    log(f"# phase 22 (b): {route} world {world_s:.1f} s; one rank {one_s:.1f} s, step p50 "
+        f"{np.median(one['step_ms']):.1f} ms (range {min(one['step_ms']):.1f}-"
+        f"{max(one['step_ms']):.1f}), peak {one_peak:.0f} MiB; greedy tokens equal "
+        f"{one['argmax']}; the card's idle share in the profiled steps "
+        + (f"{card_idle:.3f}" if card_idle is not None else "not measured"))
+
+    t0 = time.perf_counter()
+    cells = _dryrun_subprocess()
+    dry_s = time.perf_counter() - t0
+    for (arch, shape, mesh, _), c in zip(DRYRUN_CELLS, cells):
+        check(c["status"] != "error", f"dry run {arch} {shape} {mesh}: {c.get('error')}")
+        if c["status"] == "skipped":
+            log(f"# phase 22 (c): {arch} {shape} {mesh}: skipped: {c['reason']}")
+            continue
+        m = c["memory"]
+        log(f"# phase 22 (c): {arch} {shape} {mesh}: chips {c['chips']}, rank 0 "
+            f"{m['total'] / 2**20:.0f} MiB (params {m['params'] / 2**20:.0f}, cache "
+            f"{m.get('cache', 0) / 2**20:.0f}, activations {m['activation_peak'] / 2**20:.0f})"
+            f", fits {m['fits']}; collectives {c['collectives']['total_bytes'] / 1e6:.1f} MB; "
+            f"dominant {c['roofline']['terms']['dominant']}; wall {c['wall_s']:.1f} s")
+    status = {f"{a} {s} {m}": c["status"] for (a, s, m, _), c in zip(DRYRUN_CELLS, cells)}
+    check(list(status.values()) == ["ok", "skipped", "ok", "ok", "ok"], status)
+    check(cells[1]["reason"].startswith("full-attention arch"), cells[1]["reason"])
+    check(cells[0]["chips"] == 512 and cells[0]["memory"]["activation_peak"] > 0, cells[0])
+    predicted = cells[-1]["memory"]["total"] / 2**20
+    measured = max(r["peak_mib"] for r in ranks)
+    log(f"# phase 22 (c): the dry run's rank bytes for (b)'s cell {predicted:.0f} MiB against "
+        f"(b)'s measured peak {measured:.0f} MiB ({predicted / measured - 1:+.1%}); "
+        f"{dry_s:.1f} s")
+    return {"lse": lse, "ranks": ranks, "one": {"step_ms": one["step_ms"], "peak_mib": one_peak,
+                                                "routes": one_routes, "ulp_err": ulp_err},
+            "card_idle": card_idle, "dryrun": status, "predicted_mib": predicted,
+            "measured_mib": measured}
+
+
 def _sharded21_row(s21: dict, name: str) -> dict:
     """Row ``name``'s launches by route in phase 21, per rank and part."""
     out = {}
@@ -4813,6 +5232,7 @@ def main() -> int:
     families = run(phase_families)
     sharded = run(phase_sharded)
     sharded21 = run(phase_sharded_rest)
+    seqpar = run(phase_seq_parallel)
     err = run(phase_kernel)
     dense_err = run(phase_dense_kernels)
     ssd_err = run(phase_ssd_kernel)
@@ -4903,6 +5323,15 @@ def main() -> int:
                  "mixed forward": mixed["routes"]["flash_attention"]})
         if name == "decode_attention":
             hyb = hybrid_timing["decode_attention@hybrid"]
+            lse = seqpar["lse"]
+            kernels[-1]["lse"] = {k: lse[k] for k in (
+                "ms", "ms_no_lse", "lse_cost_ms", "runs_ms", "plain_ms", "library_ms",
+                "library", "bound_ms", "bound_by", "max_abs_err", "max_lse_rel_err", "shape")}
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], lse["max_abs_err"])
+            kernels[-1]["sequence_parallel"] = {
+                "configuration 14": {f"rank {r['rank']}": r["routes"][name]
+                                     for r in seqpar["ranks"]}
+                | {"one rank": seqpar["one"]["routes"][name]}}
             kernels[-1].update(
                 simt_ms=t["simt_ms"], cluster=t["cluster"], ms_by_cluster=t["ms_by_cluster"],
                 hybrid={k: hyb[k] for k in ("ms", "simt_ms", "ms_by_cluster", "plain_ms",

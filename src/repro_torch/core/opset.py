@@ -381,12 +381,13 @@ def _pad_to_widths(x, axis, target):
 
 
 def _torch_pad_to(params, x):
+    # x and its zero tail joined, so the result keeps x's placement where x
+    # is a DTensor split on another axis (a zero buffer written into would
+    # be replicated, and the copy would gather x)
     ax = params["axis"] % x.ndim
     shape = list(x.shape)
-    shape[ax] = params["target"]
-    out = x.new_zeros(shape)
-    out.narrow(ax, 0, x.shape[ax]).copy_(x)
-    return (out,)
+    shape[ax] = params["target"] - x.shape[ax]
+    return (torch.cat([x, x.new_zeros(shape)], dim=ax),)
 
 
 register(
@@ -568,8 +569,9 @@ def _np_embed(params, table, ids):
 
 
 def _torch_embed(params, table, ids):
-    rows = torch.index_select(table, 0, ids.reshape(-1))
-    return (rows.reshape(tuple(ids.shape) + (table.shape[-1],)),)
+    # one lookup over ids of any shape, no flatten: ids split over a mesh
+    # (a sharded unit) stay split, and the replicated table is read locally
+    return (torch.nn.functional.embedding(ids, table),)
 
 
 register(

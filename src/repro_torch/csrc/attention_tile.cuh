@@ -25,6 +25,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace attn {
 
@@ -103,7 +104,10 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // `zero_empty`, else acc / max(l, 1e-30) (the flash kernel's clamp; acc is
 // zero there too).  When `m_out` is given, row r's running max goes to
 // m_out[r] and its clamped denominator max(l, 1e-30) to l_out[r]: the
-// statistics the backward kernels recompute the probabilities from.
+// statistics the backward kernels recompute the probabilities from.  When
+// `lse_out` is given, row r's log-sum-exp of its scaled visible scores,
+// m + ln(l), goes to lse_out[r], and -inf for a row with nothing visible:
+// the statistic that folds this call with a call over other keys.
 template <typename TQ, typename TKV, typename TO>
 __device__ void attend_rows(const TQ* __restrict__ q, long long q_stride, int nrows,
                             const TKV* __restrict__ k, long long k_stride,
@@ -112,7 +116,8 @@ __device__ void attend_rows(const TQ* __restrict__ q, long long q_stride, int nr
                             long long o_stride, int d, int bq, int bk, float scale,
                             bool zero_empty, float* smem,
                             float* __restrict__ m_out = nullptr,
-                            float* __restrict__ l_out = nullptr) {
+                            float* __restrict__ l_out = nullptr,
+                            float* __restrict__ lse_out = nullptr) {
   const int ld = d + 1;
   float* sq = smem;
   float* acc = sq + bq * ld;
@@ -236,6 +241,11 @@ __device__ void attend_rows(const TQ* __restrict__ q, long long q_stride, int nr
     for (int r = tid; r < nrows; r += kThreads) {
       m_out[r] = sm[r];
       l_out[r] = fmaxf(sl[r], 1e-30f);
+    }
+  }
+  if (lse_out != nullptr) {
+    for (int r = tid; r < nrows; r += kThreads) {
+      lse_out[r] = sl[r] > 0.0f ? sm[r] + logf(sl[r]) : -CUDART_INF_F;
     }
   }
 }

@@ -46,6 +46,14 @@
 //  * "simt" (decode_attention_fwd), the CUDA-core body of attention_tile.cuh
 //    for every other shape: one block per (b, kv head, chunk of its group)
 //    walks the cache in one sequence with scalar loads.
+// Either body also writes, where the caller gives it an lse buffer (a null
+// pointer leaves it out), each row's
+// log-sum-exp of its scaled visible scores, m + ln(l) in natural-log units
+// (the bodies exponentiate with expf), and -inf for a row with nothing
+// visible: the statistic with which the calls over the slices of a cache
+// split across ranks fold into the call over the whole
+// (models/layers.py:decode_attend).  The simt body writes it from its
+// running (m, l), the split body from rank 0's folded (M, L).
 // Both keep the contract: a row's result depends only on its own q row, pos
 // and the keys they name, summed in a fixed order with no atomics, so row b
 // of a batched launch is bitwise equal to a solo launch of row b, and two
@@ -70,9 +78,10 @@ namespace {
 template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(attn::kThreads) decode_attention_kernel(
     const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __restrict__ v,
-    const int* __restrict__ pos, TQ* __restrict__ o, int Hq, int Hkv, int S, int d,
-    long long qsb, long long qsh, long long ksb, long long ksh, long long kss,
-    long long vsb, long long vsh, long long vss, float scale, int bq, int bk) {
+    const int* __restrict__ pos, TQ* __restrict__ o, float* __restrict__ lse, int Hq,
+    int Hkv, int S, int d, long long qsb, long long qsh, long long ksb, long long ksh,
+    long long kss, long long vsb, long long vsh, long long vss, float scale, int bq,
+    int bk) {
   extern __shared__ float smem[];
   const int group = Hq / Hkv;
   const int b = blockIdx.x / Hkv;
@@ -86,14 +95,15 @@ __global__ void __launch_bounds__(attn::kThreads) decode_attention_kernel(
       q + b * qsb + h0 * qsh, qsh, nrows, k + b * ksb + kvh * ksh, kss,
       v + b * vsb + kvh * vsh, vss, nkeys, /*limit0=*/p, /*limit_step=*/0,
       o + (static_cast<long long>(b) * Hq + h0) * d, d, d, bq, bk, scale,
-      /*zero_empty=*/true, smem);
+      /*zero_empty=*/true, smem, nullptr, nullptr,
+      lse != nullptr ? lse + static_cast<long long>(b) * Hq + h0 : nullptr);
 }
 
 template <typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, const void* pos, void* o, int B,
            int Hq, int Hkv, int S, int d, long long qsb, long long qsh, long long ksb,
            long long ksh, long long kss, long long vsb, long long vsh, long long vss,
-           float scale, cudaStream_t stream) {
+           float scale, float* lse, cudaStream_t stream) {
   const int group = Hq / Hkv;
   int bq = 0, bk = 0;
   if (!attn::pick_tile(d, group, &bq, &bk)) return static_cast<int>(cudaErrorInvalidValue);
@@ -103,8 +113,8 @@ int launch(const void* q, const void* k, const void* v, const void* pos, void* o
   const dim3 grid(B * Hkv, (group + bq - 1) / bq);
   decode_attention_kernel<TQ, TKV><<<grid, attn::kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
-      static_cast<const int*>(pos), static_cast<TQ*>(o), Hq, Hkv, S, d, qsb, qsh, ksb, ksh,
-      kss, vsb, vsh, vss, scale, bq, bk);
+      static_cast<const int*>(pos), static_cast<TQ*>(o), lse, Hq, Hkv, S, d, qsb, qsh, ksb,
+      ksh, kss, vsb, vsh, vss, scale, bq, bk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -212,6 +222,7 @@ struct Args {
   long long qsb, qsh, ksb, ksh, kss, vsb, vsh, vss;
   float scale;
   int nsplit, stages;
+  float* lse;    // (B,Hq) log-sum-exp of each row, or null: not written
 };
 
 // One block: rank `cluster_rank` of the cluster for unit blockIdx.x / nsplit
@@ -442,8 +453,11 @@ __global__ void __launch_bounds__(kThreads, 2) split_kernel(const Args a) {
       L = fmaf(w, rstat0[i * 2 * R + R + r], L);
       fma4(O, w, load4(racc0 + (i * R + r) * d + 4 * c));
     }
-    // nothing visible (pos < 0): exact zeros
+    // nothing visible (pos < 0): exact zeros, and a log-sum-exp of -inf
     const bool any = L > 0.0f;
+    if (a.lse != nullptr && c == 0) {
+      a.lse[static_cast<long long>(b) * Hq + h0 + r] = any ? M + logf(L) : -CUDART_INF_F;
+    }
     const float res[4] = {any ? O.x / L : 0.0f, any ? O.y / L : 0.0f, any ? O.z / L : 0.0f,
                           any ? O.w / L : 0.0f};
     const long long at = (static_cast<long long>(b) * Hq + h0 + r) * d + 4 * c;
@@ -528,14 +542,14 @@ template <typename TQ>
 int launch_kv(int kv_dtype, const void* q, const void* k, const void* v, const void* pos,
               void* o, int B, int Hq, int Hkv, int S, int d, long long qsb, long long qsh,
               long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
-              long long vss, float scale, cudaStream_t stream) {
+              long long vss, float scale, float* lse, cudaStream_t stream) {
   if (kv_dtype == attn::kF32) {
     return launch<TQ, float>(q, k, v, pos, o, B, Hq, Hkv, S, d, qsb, qsh, ksb, ksh, kss,
-                             vsb, vsh, vss, scale, stream);
+                             vsb, vsh, vss, scale, lse, stream);
   }
   if (kv_dtype == attn::kBF16) {
     return launch<TQ, __nv_bfloat16>(q, k, v, pos, o, B, Hq, Hkv, S, d, qsb, qsh, ksb,
-                                     ksh, kss, vsb, vsh, vss, scale, stream);
+                                     ksh, kss, vsb, vsh, vss, scale, lse, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -544,42 +558,46 @@ int launch_kv(int kv_dtype, const void* q, const void* k, const void* v, const v
 
 // q: (B,Hq,1,d) with element strides (qsb, qsh, -, 1); k, v: (B,Hkv,S,d)
 // with strides (ksb, ksh, kss, 1) and (vsb, vsh, vss, 1); pos: one int32 on
-// the device; o: contiguous (B,Hq,1,d) in q's type.  Types: 0 float32,
-// 1 bfloat16.  The wrapper checks shapes, types, devices and strides; this
-// returns a CUDA error code.  The "simt" body.
+// the device; o: contiguous (B,Hq,1,d) in q's type; lse: contiguous (B,Hq)
+// float32, each row's log-sum-exp of its scaled visible scores (m + ln l in
+// natural-log units, -inf for a row with nothing visible), or null: not
+// written.  Types: 0 float32, 1 bfloat16.  The wrapper checks shapes, types,
+// devices and strides; this returns a CUDA error code.  The "simt" body.
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* pos, void* o, int q_dtype, int kv_dtype,
                                     int B, int Hq, int Hkv, int S, int d, long long qsb,
                                     long long qsh, long long ksb, long long ksh,
                                     long long kss, long long vsb, long long vsh,
-                                    long long vss, float scale, void* stream) {
+                                    long long vss, float scale, void* lse, void* stream) {
   if (B == 0 || Hq == 0 || d == 0) return static_cast<int>(cudaSuccess);
   if (Hkv <= 0 || Hq % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (q_dtype == attn::kF32) {
     return launch_kv<float>(kv_dtype, q, k, v, pos, o, B, Hq, Hkv, S, d, qsb, qsh, ksb,
-                            ksh, kss, vsb, vsh, vss, scale, s);
+                            ksh, kss, vsb, vsh, vss, scale, l, s);
   }
   if (q_dtype == attn::kBF16) {
     return launch_kv<__nv_bfloat16>(kv_dtype, q, k, v, pos, o, B, Hq, Hkv, S, d, qsb, qsh,
-                                    ksb, ksh, kss, vsb, vsh, vss, scale, s);
+                                    ksb, ksh, kss, vsb, vsh, vss, scale, l, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The "split" body: the same arguments as decode_attention_fwd, plus
-// `nsplit`, the blocks of a cluster (1..16).  Besides the wrapper's checks it
-// needs d * sizeof(cache) a multiple of 16 and at most 512, Hq / Hkv <= 8
-// with R * ceil(d / 16) <= 16 (R: Hq / Hkv rounded up to 1, 2, 4 or 8), and
-// k, v at 16-byte aligned bases and strides; it returns
-// cudaErrorInvalidValue for a shape it does not take.
+// `nsplit`, the blocks of a cluster (1..16), before `lse`.  Besides the
+// wrapper's checks it needs d * sizeof(cache) a multiple of 16 and at most
+// 512, Hq / Hkv <= 8 with R * ceil(d / 16) <= 16 (R: Hq / Hkv rounded up to
+// 1, 2, 4 or 8), and k, v at 16-byte aligned bases and strides; it returns
+// cudaErrorInvalidValue for a shape it does not take.  Rank 0 of each
+// cluster writes the rows' log-sum-exp from its folded (M, L).
 extern "C" int decode_attention_fwd_split(const void* q, const void* k, const void* v,
                                           const void* pos, void* o, int q_dtype,
                                           int kv_dtype, int B, int Hq, int Hkv, int S, int d,
                                           long long qsb, long long qsh, long long ksb,
                                           long long ksh, long long kss, long long vsb,
                                           long long vsh, long long vss, float scale,
-                                          int nsplit, void* stream) {
+                                          int nsplit, void* lse, void* stream) {
   if (B == 0 || Hq == 0 || d == 0) return static_cast<int>(cudaSuccess);
   if (Hkv <= 0 || Hq % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int group = Hq / Hkv;
@@ -591,10 +609,9 @@ extern "C" int decode_attention_fwd_split(const void* q, const void* k, const vo
   }
   const split::Args a = {q,   k,   v,   static_cast<const int*>(pos), o, q_dtype == attn::kBF16,
                          B,   Hq,  Hkv, S,   d,   qsb, qsh, ksb, ksh, kss, vsb, vsh, vss,
-                         scale, nsplit, 0};
+                         scale, nsplit, 0, static_cast<float*>(lse)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_dtype == attn::kF32) return split::launch_rows<float>(a, s);
   if (kv_dtype == attn::kBF16) return split::launch_rows<__nv_bfloat16>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
-

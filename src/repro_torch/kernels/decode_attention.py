@@ -119,11 +119,15 @@ def paged_route(d: int, ps: int, *pools) -> str:
     return "split" if all(t.data_ptr() % 16 == 0 for t in pools) else "simt"
 
 
-def decode_attention_plain(q, k, v, pos):
+def decode_attention_plain(q, k, v, pos, *, return_lse: bool = False):
     """Plain PyTorch dense decode attention (any device, float32 math).
 
     q: (B, Hq, 1, d); k, v: (B, Hkv, S, d); pos: the last visible cache
-    position, an int or a one-element integer tensor on q's device.
+    position, an int or a one-element integer tensor on q's device.  With
+    ``return_lse`` also each row's log-sum-exp of its scaled visible
+    scores, ``m + ln(l)``, (B, Hq) float32, ``-inf`` for a row with nothing
+    visible: what two calls over the halves of a cache need to be folded
+    into the call over the whole.
     """
     B, Hq, _, d = q.shape
     Hkv, S = k.shape[1], k.shape[2]
@@ -138,11 +142,16 @@ def decode_attention_plain(q, k, v, pos):
     valid = torch.arange(S, device=q.device) <= pos                  # (S,)
     s = torch.matmul(q.to(f32), kf.transpose(-1, -2)) / math.sqrt(d)
     s = s.masked_fill(~valid, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).masked_fill(~valid, 0.0)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill(~valid, 0.0)
     l = p.sum(dim=-1, keepdim=True)
     empty = l <= 0.0
     out = torch.matmul(p, vf) / torch.where(empty, torch.ones_like(l), l)
-    return out.masked_fill(empty, 0.0).to(q.dtype)
+    out = out.masked_fill(empty, 0.0).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(empty, torch.full_like(l, -math.inf), m + torch.log(l))
+    return out, lse.reshape(B, Hq)
 
 
 def _dense_library() -> ctypes.CDLL:
@@ -151,15 +160,15 @@ def _dense_library() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                       ll, ll, ll, ll, ll, ll, ll, ll, ctypes.c_float, p]
+                       ll, ll, ll, ll, ll, ll, ll, ll, ctypes.c_float, p, p]
         fn.restype = ctypes.c_int
         split = lib.decode_attention_fwd_split
-        split.argtypes = fn.argtypes[:-1] + [i, p]
+        split.argtypes = fn.argtypes[:-2] + [i, p, p]
         split.restype = ctypes.c_int
     return lib
 
 
-def decode_attention_kernel(q, k, v, pos):
+def decode_attention_kernel(q, k, v, pos, *, return_lse: bool = False):
     """Launch the CUDA dense decode attention on ``q``'s device.
 
     q: (B, Hq, 1, d), float32 or bfloat16; k, v: (B, Hkv, S, d) with Hq a
@@ -168,8 +177,11 @@ def decode_attention_kernel(q, k, v, pos):
     strides are free: the model's (B, S, Hkv, d) cache is passed as a
     transposed view); pos: a one-element int32 tensor on the same CUDA
     device (read there by the kernel, no host sync).
-    Returns a contiguous (B, Hq, 1, d) tensor in q's dtype.  Launches on the
-    current stream and does not synchronise.  The body is
+    Returns a contiguous (B, Hq, 1, d) tensor in q's dtype, and with
+    ``return_lse`` also each row's log-sum-exp (B, Hq) float32 (see
+    :func:`decode_attention_plain`; the C entries write it where given a
+    buffer).  Launches on the current stream and
+    does not synchronise.  The body is
     :func:`decode_route`'s; ``decode_attention_kernel.launches`` counts
     launches and ``decode_attention_kernel.launches_by_route`` counts them
     per route.
@@ -201,16 +213,18 @@ def decode_attention_kernel(q, k, v, pos):
     args = [ptr(q), ptr(k), ptr(v), ptr(pos), ptr(out),
             DTYPE_CODES[q.dtype], DTYPE_CODES[k.dtype], B, Hq, Hkv, S, d,
             *qs[:2], *ks[:3], *vs[:3], ctypes.c_float(1.0 / math.sqrt(d))]
+    lse = torch.empty((B, Hq), dtype=torch.float32, device=device) if return_lse else None
     with torch.cuda.device(device):
         lib = _dense_library()
         if route == "split":
-            err = lib.decode_attention_fwd_split(*args, DECODE_SPLIT, stream(device))
+            err = lib.decode_attention_fwd_split(*args, DECODE_SPLIT, ptr(lse),
+                                                 stream(device))
         else:
-            err = lib.decode_attention_fwd(*args, stream(device))
+            err = lib.decode_attention_fwd(*args, ptr(lse), stream(device))
     raise_on_error(err, f"decode_attention ({route})")
     decode_attention_kernel.launches += 1
     decode_attention_kernel.launches_by_route[route] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention_kernel.launches = 0

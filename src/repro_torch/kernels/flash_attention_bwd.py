@@ -49,7 +49,7 @@ import math
 
 import torch
 
-from . import build
+from . import build, fake
 from .common import (
     DTYPE_CODES,
     check_strided,
@@ -62,6 +62,7 @@ from .common import (
     stream,
     stride_array,
 )
+from .fake import shape_only
 from .flash_attention import NEG_INF, ROUTES, flash_route
 
 _SOURCE = "flash_attention_bwd"
@@ -335,8 +336,11 @@ flash_attention_dkv_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 # ---------------------------------------------------------------------------
 
 def _routes(t):
-    """(fwd_stats, dq, dkv) for ``t``'s device: the plain versions for a CPU
-    tensor, the CUDA kernels otherwise (which launch or raise)."""
+    """(fwd_stats, dq, dkv) for ``t``: the shape-only stand-ins for a tensor
+    without data, the plain versions for a CPU tensor, the CUDA kernels
+    otherwise (which launch or raise)."""
+    if shape_only(t):
+        return fake.flash_attention_fwd_stats, fake.flash_attention_dq, fake.flash_attention_dkv
     if t.device.type == "cpu":
         return (flash_attention_fwd_stats_plain, flash_attention_dq_plain,
                 flash_attention_dkv_plain)

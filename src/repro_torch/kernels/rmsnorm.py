@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, fake
 from .common import (
     DTYPE_CODES,
     check_tensor,
@@ -39,6 +39,7 @@ from .common import (
     require_cuda,
     stream,
 )
+from .fake import shape_only
 from .ref import rmsnorm_ref
 
 _SOURCE = "rmsnorm"
@@ -117,7 +118,10 @@ class RMSNormFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, eps):
-        y = rmsnorm_plain(x, w, eps) if x.device.type == "cpu" else rmsnorm_kernel(x, w, eps)
+        if shape_only(x):
+            y = fake.rmsnorm(x, w, eps)
+        else:
+            y = rmsnorm_plain(x, w, eps) if x.device.type == "cpu" else rmsnorm_kernel(x, w, eps)
         ctx.save_for_backward(x, w)
         ctx.eps = eps
         return y

@@ -45,7 +45,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, fake
 from .common import (
     DTYPE_CODES,
     check_strided,
@@ -57,6 +57,7 @@ from .common import (
     require_cuda,
     stream,
 )
+from .fake import shape_only
 
 _SOURCE = "ssm_scan"
 
@@ -339,7 +340,10 @@ class SSDScanFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk):
-        scan = ssd_scan_plain if x.device.type == "cpu" else ssd_scan_kernel
+        if shape_only(x):
+            scan = fake.ssd_scan
+        else:
+            scan = ssd_scan_plain if x.device.type == "cpu" else ssd_scan_kernel
         y = scan(x, dt, A, B, C, chunk=chunk)
         ctx.save_for_backward(x, dt, A, B, C)
         ctx.chunk = chunk

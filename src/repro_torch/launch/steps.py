@@ -222,6 +222,14 @@ def _batch_axes(cfg: ModelConfig, mesh, batch: dict, kind: str, strategy: str):
     return shd.batch_pspecs(cfg, shape, mesh, strategy=strategy)[key][0]
 
 
+def _seq_axes(mesh, batch: dict, kind: str, strategy: str):
+    """The data axes a decode step's caches split their sequence over
+    (``cache_pspecs`` at a global batch of 1 under ``"tp"``), or None."""
+    if kind != "decode" or strategy != "tp" or mesh.size(shd.dp_axes(mesh)) == 1:
+        return None
+    return shd.dp_axes(mesh) if int(np.shape(next(iter(batch.values())))[0]) == 1 else None
+
+
 def _step_ctx(cfg, mesh, moe_ep, moe_seq_axis=None, *, strategy="tp", specs=None,
               tp=1, kind="train", batch=None):
     """The context a sharded step runs in: the mesh, its layout
@@ -237,20 +245,26 @@ def _step_ctx(cfg, mesh, moe_ep, moe_seq_axis=None, *, strategy="tp", specs=None
     stack.enter_context(mesh)
     stack.enter_context(shd.activation_sharding(
         mesh, strategy=strategy, layer_pspecs=layers, skip=skip,
-        batch_axes=_batch_axes(cfg, mesh, batch, kind, strategy)))
+        batch_axes=_batch_axes(cfg, mesh, batch, kind, strategy),
+        seq_axes=_seq_axes(mesh, batch, kind, strategy)))
     if moe_ep:
         stack.enter_context(shd.moe_ep_context(mesh, moe_seq_axis))
     return stack
 
 
 def local_batch(cfg: ModelConfig, mesh, batch: dict, kind: str, *, strategy: str = "tp") -> dict:
-    """This rank's slice of a global batch, by ``batch_pspecs``."""
+    """This rank's slice of a global batch, by ``batch_pspecs``.
+
+    A decode batch of 1 on more than one data rank is replicated over them:
+    the cache's sequence is split there instead (``cache_pspecs``), and the
+    attention folds the ranks' slices (:func:`models.layers.decode_attend`).
+    A train or prefill batch of 1 cannot split over the data ranks (nor can
+    the reference's ``NamedSharding``): :class:`ValueError`."""
     first = next(iter(batch.values()))
     shape = ShapeConfig(kind, kind, int(np.shape(first)[1]), int(np.shape(first)[0]))
-    if shape.global_batch == 1 and mesh.size(shd.dp_axes(mesh)) > 1:
-        raise NotImplementedError(
-            "a global batch of 1 shards the caches' sequence over the data axes "
-            "(cache_pspecs); the port does not run sequence-parallel attention")
+    if shape.global_batch == 1 and kind != "decode" and mesh.size(shd.dp_axes(mesh)) > 1:
+        raise ValueError(f"a {kind} batch of 1 does not split over the data axes "
+                         f"{shd.dp_axes(mesh)} of {dict(mesh.shape)}")
     tensors = {k: v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
                for k, v in batch.items()}
     return shd.shard_tree(mesh, tensors, shd.batch_pspecs(cfg, shape, mesh, strategy=strategy))
@@ -395,6 +409,18 @@ def make_decode_step(cfg: ModelConfig, *, tp: int, mesh=None, moe_ep: bool = Fal
             return api.decode(cfg, _gather_top(params, specs), cache, batch, tp=tp)
 
     return decode_step
+
+
+def step_for_shape(cfg: ModelConfig, shape: ShapeConfig, *, tp: int, **options
+                   ) -> tuple[str, Callable]:
+    """(kind, step) — the step a shape cell runs: :func:`make_train_step`,
+    :func:`make_prefill_step` or :func:`make_decode_step` by ``shape.kind``,
+    with ``options`` (``mesh``, ``strategy``, ...) passed on."""
+    if shape.kind == "train":
+        return "train", make_train_step(cfg, tp=tp, **options)
+    if shape.kind == "prefill":
+        return "prefill", make_prefill_step(cfg, tp=tp, **options)
+    return "decode", make_decode_step(cfg, tp=tp, **options)
 
 
 def cache_layout(cfg: ModelConfig, shape: ShapeConfig, mesh, cache, *,

@@ -11,6 +11,8 @@ The reference's surface (``models/api.py`` there) for its six families:
 * ``init_cache(cfg, batch, max_len, tp)``      — serving cache dict
 * ``prefill(cfg, params, batch, cache, tp)``   — prompt ingestion
 * ``decode(cfg, params, cache, batch, tp)``    — one-token serve step
+* ``input_shapes(cfg, shape)``, ``input_specs(cfg, shape)`` — the inputs'
+  shapes and dtypes, and data-less (meta) stand-ins for them
 * ``make_batch(cfg, shape, seed)``             — random numpy inputs
 * ``load_reference_params(cfg, tree, tp=, device=)`` — carry the reference
   package's weights across
@@ -116,6 +118,15 @@ def input_shapes(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, tuple]:
     if cfg.family == "vlm" and shape.kind != "decode":
         out["patches"] = ((B, cfg.n_patches, vlm.D_PATCH), np.float32)
     return out
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Stand-ins for every model input of a shape cell: meta tensors of
+    :func:`input_shapes`'s shapes and dtypes, holding no data, as the
+    reference's ``ShapeDtypeStruct`` specs are; nothing is allocated.  The
+    launch dry run feeds them to a step."""
+    return {k: torch.empty(s, dtype=getattr(torch, np.dtype(dtype).name), device="meta")
+            for k, (s, dtype) in input_shapes(cfg, shape).items()}
 
 
 def make_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0) -> dict[str, np.ndarray]:

@@ -38,7 +38,6 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from ..kernels import ops
 from ..parallel import sharding as shd
 from . import layers as L
 from .dense import layer_params, stack_layers, unstack_layers
@@ -220,8 +219,9 @@ def decode_step(cfg: ModelConfig, params, cache, token, *, tp: int = L.DEFAULT_T
         # visible, so the flash-decode kernel at pos = S_enc - 1
         hq = L._tp_in(L.apply_norm(lp["lnx"], h, cfg.norm))
         q = torch.einsum("btd,dhk->bthk", hq, lp["xattn"]["wq"].to(h.dtype))
-        o = ops.decode_attention(q.transpose(1, 2), cache["xk"][i].transpose(1, 2),
-                                 cache["xv"][i].transpose(1, 2), last)
+        o = L.decode_attend(q.transpose(1, 2), cache["xk"][i].transpose(1, 2),
+                            cache["xv"][i].transpose(1, 2), last,
+                            L._seq_slice(cache["xk"][i], last))
         h = h + L._tp_out(torch.einsum("bthk,hkd->btd", o.transpose(1, 2),
                                        lp["xattn"]["wo"].to(h.dtype)))
         m = L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], h, cfg.norm), cfg.act, gated=False)

@@ -232,6 +232,69 @@ def dequantize_kv(q, scale, dtype):
     return (q.to(torch.float32) * scale).to(dtype)
 
 
+def _seq_slice(cache, pos):
+    """Under a split sequence (:func:`~repro_torch.parallel.sharding.cache_seq_axes`):
+    this rank's slice of a (B,S,...) cache holds positions [lo, lo + S_loc);
+    returns (axes, the local index of ``pos`` clamped into the slice, whether
+    the slice holds it, ``pos`` as the slice's last visible row clamped to
+    [-1, S_loc - 1]), all on the device; None without a split."""
+    axes = shd.cache_seq_axes()
+    if axes is None:
+        return None
+    S_loc = cache.shape[1]
+    local = pos.reshape(1).to(torch.long) - spmd.axis_index(axes) * S_loc
+    mine = (local >= 0) & (local < S_loc)
+    return (axes, local.clamp(0, S_loc - 1), mine,
+            local.clamp(-1, S_loc - 1).to(torch.int32))
+
+
+def _write_row(cache, row, pos, where):
+    """Write the new (B,1,...) ``row`` into ``cache`` at ``pos``, in place.
+    Under a split sequence (``where`` from :func:`_seq_slice`) only the rank
+    whose slice holds ``pos`` changes its cache: every rank writes, at the
+    clamped local index, either the new row or the row already there, so no
+    rank reads ``pos`` on the host."""
+    if where is None:
+        cache.index_copy_(1, pos.reshape(1).to(torch.long), row.to(cache.dtype))
+        return
+    _, at, mine, _ = where
+    old = cache.index_select(1, at)
+    cache.index_copy_(1, at, torch.where(mine, row.to(cache.dtype), old))
+
+
+def fold_partials(o, lse, axes):
+    """The attention over a cache split across the ranks of ``axes`` from
+    each rank's attention over its slice: o (B,H,1,d), lse (B,H) float32
+    (``-inf`` for a slice with nothing visible).  M = pmax(lse); each
+    partial weighs exp(lse - M); o = psum(w o) / psum(w), one all-reduce of
+    the packed sums; exact zeros where nothing is visible anywhere.  This is
+    the fold the flash-decode kernel's split body does across a cluster's
+    blocks."""
+    M = spmd.pmax(lse, axes)
+    w = torch.exp(lse - torch.where(torch.isfinite(M), M, torch.zeros_like(M)))
+    packed = torch.cat([o.to(torch.float32).reshape(*lse.shape, -1) * w[..., None],
+                        w[..., None]], dim=-1)
+    packed = spmd.psum(packed, axes)
+    num, den = packed[..., :-1], packed[..., -1:]
+    out = torch.where(den > 0, num / torch.where(den > 0, den, torch.ones_like(den)),
+                      torch.zeros_like(num))
+    return out.reshape(o.shape).to(o.dtype)
+
+
+def decode_attend(qh, kh, vh, pos, where=None):
+    """The flash-decode core: q (B,Hq,1,hd) against cache views k, v
+    (B,Hkv,S,hd), keys at positions <= ``pos`` visible.  Under a split
+    sequence (``where`` from :func:`_seq_slice`, the cache's slices on the
+    ranks of its axes) each rank runs the kernel over its slice at its local
+    ``pos``, with q in float32 so that its partial o is rounded once, after
+    :func:`fold_partials`."""
+    if where is None:
+        return ops.decode_attention(qh, kh, vh, pos)
+    axes, _, _, lpos = where
+    o, lse = ops.decode_attention(qh.to(torch.float32), kh, vh, lpos, return_lse=True)
+    return fold_partials(o, lse, axes).to(qh.dtype)
+
+
 def attention_decode(p, dims: AttnDims, x1, cache_k, cache_v, pos,
                      cache_k_scale=None, cache_v_scale=None):
     """Single-token decode against a KV cache.
@@ -243,6 +306,12 @@ def attention_decode(p, dims: AttnDims, x1, cache_k, cache_v, pos,
     is the flash-decode kernel, reading the cache through a (B,Hkv,S,hd)
     view; it reads ``pos`` on the device, so a step needs no host sync.
 
+    Under a split sequence (a decode step at a global batch of 1 on several
+    data ranks, ``sharding.cache_seq_axes``) each rank's caches hold a
+    contiguous slice of the positions: only the slice holding ``pos`` takes
+    the new row (:func:`_write_row`), each rank attends over its slice and
+    the ranks fold their partials (:func:`decode_attend`).
+
     With ``cache_*_scale`` (B,S,Hkv,1) the cache is int8 (per token and head
     scales, :func:`quantize_kv`): the new row is quantized and written with
     its scales, in place, and the cache is dequantized on the fly in plain
@@ -251,18 +320,18 @@ def attention_decode(p, dims: AttnDims, x1, cache_k, cache_v, pos,
     cache_v_scale).
     """
     q, k1, v1 = _qkv(p, dims, _tp_in(x1), pos.reshape(1))
-    at = pos.reshape(1).to(torch.long)
+    where = _seq_slice(cache_k, pos)
     if cache_k_scale is None:
-        cache_k.index_copy_(1, at, k1.to(cache_k.dtype))
-        cache_v.index_copy_(1, at, v1.to(cache_v.dtype))
-        o = ops.decode_attention(q.transpose(1, 2), cache_k.transpose(1, 2),
-                                 cache_v.transpose(1, 2), pos)      # (B,Hq,1,hd)
+        _write_row(cache_k, k1, pos, where)
+        _write_row(cache_v, v1, pos, where)
+        o = decode_attend(q.transpose(1, 2), cache_k.transpose(1, 2),
+                          cache_v.transpose(1, 2), pos, where)      # (B,Hq,1,hd)
         out = torch.einsum("bthk,hkd->btd", o.transpose(1, 2), p["wo"].to(x1.dtype))
         return _tp_out(out), cache_k, cache_v
     for cache, scales, row in ((cache_k, cache_k_scale, k1), (cache_v, cache_v_scale, v1)):
         vals, s = quantize_kv(row)
-        cache.index_copy_(1, at, vals)
-        scales.index_copy_(1, at, s)
+        _write_row(cache, vals, pos, where)
+        _write_row(scales, s, pos, where)
     B, S, n_kv = x1.shape[0], cache_k.shape[1], cache_k.shape[2]
     hd = dims.head_dim
     f32 = torch.float32
@@ -270,9 +339,17 @@ def attention_decode(p, dims: AttnDims, x1, cache_k, cache_v, pos,
     k_eff = dequantize_kv(cache_k, cache_k_scale, f32)
     v_eff = dequantize_kv(cache_v, cache_v_scale, f32)
     s = torch.einsum("bhgd,bshd->bhgs", qh.to(f32), k_eff)
-    valid = torch.arange(S, device=x1.device) <= pos
-    w = torch.softmax(torch.where(valid, s, -1e30), dim=-1)
-    o = torch.einsum("bhgs,bshd->bhgd", w, v_eff).to(x1.dtype)
+    last = pos if where is None else where[3]
+    valid = torch.arange(S, device=x1.device) <= last
+    if where is None:
+        w = torch.softmax(torch.where(valid, s, -1e30), dim=-1)
+        o = torch.einsum("bhgs,bshd->bhgd", w, v_eff).to(x1.dtype)
+    else:
+        s = torch.where(valid, s, -math.inf)
+        lse = torch.logsumexp(s, dim=-1)                      # -inf: an empty slice
+        w = torch.exp(s - torch.where(torch.isfinite(lse), lse, 0.0)[..., None])
+        o = torch.einsum("bhgs,bshd->bhgd", w, v_eff)
+        o = fold_partials(o.reshape(B, -1, 1, hd), lse.reshape(B, -1), where[0]).to(x1.dtype)
     o = o.reshape(B, 1, q.shape[2], hd)
     out = torch.einsum("bthk,hkd->btd", o, p["wo"].to(x1.dtype))
     return _tp_out(out), cache_k, cache_v, cache_k_scale, cache_v_scale

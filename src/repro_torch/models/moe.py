@@ -100,7 +100,10 @@ def route(cfg: ModelConfig, lp, xf):
     order = torch.argsort(flat_e, stable=True)
     rank = torch.empty_like(order)
     rank[order] = torch.arange(order.numel(), device=xf.device)
-    counts = torch.bincount(flat_e, minlength=E)
+    # bincount's size depends on the data; a scatter into E zeros does not
+    # (a step on tensors without data, the launch dry run, runs this too)
+    counts = torch.zeros(E, dtype=flat_e.dtype, device=flat_e.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     first = torch.cumsum(counts, dim=0) - counts
     slot = (rank - first[flat_e]).reshape(top_i.shape)
     return top_v, top_i, slot, slot < _capacity(cfg, xf.shape[0])

@@ -21,11 +21,15 @@ the rows of ``wo``; its C state on ``dv``): ``wq``, ``wk``, ``wi``, ``wf``
 and ``fb`` stay replicated, because the normaliser needs all of ``dk``, and
 enter the block with the normed input (``spmd.enter``: their cotangents,
 partial over ``dv``, are psummed); ``wo``'s partial product is psummed.
-The sLSTM splits ``wx``'s output D and its (B, D) states; its recurrent
-term stays local because a rank's D shard holds whole heads, so the rank
-takes its heads' blocks of the replicated ``rh`` and its slice of ``fb``
-(``spmd.take``).  A ``model`` axis that does not divide the heads would
-need h gathered every step: :func:`check_tensor_parallel` refuses it.
+The sLSTM splits ``wx``'s output D and its (B, D) states.  Where the
+``model`` axis divides the heads, a rank's D shard holds whole heads and its
+recurrent term stays local: the rank takes its heads' blocks of the
+replicated ``rh`` and its slice of ``fb`` (``spmd.take``).  Where the heads
+divide the axis instead (xLSTM-350M's 4 heads over the production mesh's 16
+ranks), a rank's shard is a slice of one head: every step gathers h over
+``model`` (``spmd.all_gather``, whose backward is a reduce-scatter) and the
+rank multiplies its head's h by its columns of that head's block.
+:func:`check_tensor_parallel` refuses any other axis.
 
 Parameter names and shapes equal the reference's; ``params["layers"]`` is a
 list of per-layer dicts, as there (the two kinds have different leaves).
@@ -64,13 +68,16 @@ def is_slstm_layer(cfg: ModelConfig, i: int) -> bool:
 
 def check_tensor_parallel(cfg: ModelConfig, model: int) -> None:
     """Raise :class:`ValueError` unless ``model`` ranks can split xLSTM:
-    the mLSTM's ``dv`` and the sLSTM's heads (so that each rank's D shard
-    holds whole heads and the recurrence needs no gather)."""
+    the mLSTM's ``dv``, and the sLSTM's heads (each rank's D shard holds
+    whole heads) or its heads' widths (the heads divide ``model`` and each
+    rank's shard lies in one head, whose h it gathers every step)."""
     H, _, dv = _dims(cfg)
-    if cfg.n_heads % model or dv % model:
+    heads = H % model == 0 or (model % H == 0 and cfg.d_model % model == 0)
+    if not heads or dv % model:
         raise ValueError(f"{cfg.name}: a 'model' axis of {model} ranks must divide the "
-                         f"{cfg.n_heads} heads and the mLSTM's dv {dv}: the sLSTM's "
-                         f"recurrence would need h gathered every step")
+                         f"mLSTM's dv {dv}, and give each rank whole sLSTM heads or a "
+                         f"slice of one head of D = {cfg.d_model} (whose h is then "
+                         f"gathered every step)")
 
 
 def _local(x, dim: int):
@@ -249,16 +256,39 @@ def init_slstm_layer(cfg: ModelConfig, gen, *, device):
     }
 
 
-def _slstm_cell(rh, fb, gx, h, c, n, m):
+def _slstm_recurrence(cfg: ModelConfig, rh):
+    """The recurrent term of this rank's gates, ``h -> (B, 4, D_loc)``,
+    from the replicated blocks ``rh`` (4, H, dh, dh) and the rank's h
+    (B, D_loc) in the gates' dtype: its heads' blocks where its D shard
+    holds whole heads (or without tensor parallelism), else h gathered over
+    ``model`` and its columns of its head's block."""
+    H, dh = rh.shape[1], rh.shape[2]
+    model = spmd.axis_size("model") if shd.tensor_parallel() else 1
+    if H % model == 0:
+        rh_l = _local(rh, 1)
+
+        def rec(h, dt):
+            hh = h.reshape(h.shape[0], rh_l.shape[1], dh).to(dt)
+            return torch.einsum("bhk,ghke->bghe", hh, rh_l.to(dt)).reshape(h.shape[0], 4, -1)
+        return rec
+    D_loc = H * dh // model
+    start = spmd.axis_index("model") * D_loc
+    head, e0 = start // dh, start % dh
+    rh_l = spmd.enter(rh, "model")[:, head, :, e0:e0 + D_loc]          # (4, dh, D_loc)
+
+    def rec(h, dt):
+        hh = spmd.all_gather(h, "model", dim=1).reshape(h.shape[0], H, dh)[:, head]
+        return torch.einsum("bk,gke->bge", hh.to(dt), rh_l.to(dt))
+    return rec
+
+
+def _slstm_cell(rec, fb, gx, h, c, n, m):
     """One sLSTM step: gx (B,4,D) input gates, h (B,D) in the compute dtype,
-    c, n, m (B,D) float32, with the recurrent blocks ``rh`` (4,H,dh,dh) and
-    the forget bias ``fb`` (D,) of the heads held (this rank's, under
-    tensor parallelism) -> (h2, c2, n2, m2)."""
-    B, _, D = gx.shape
-    H = rh.shape[1]
-    hh = h.reshape(B, H, D // H).to(gx.dtype)
-    gr = torch.einsum("bhk,ghke->bghe", hh, rh.to(gx.dtype)).reshape(B, 4, D)
-    g = (gx + gr).to(F32)
+    c, n, m (B,D) float32, with ``rec`` the recurrent term
+    (:func:`_slstm_recurrence`) and the forget bias ``fb`` (D,) of the
+    columns held (this rank's, under tensor parallelism) -> (h2, c2, n2,
+    m2)."""
+    g = (gx + rec(h, gx.dtype)).to(F32)
     i_pre, f_pre, z_pre, o_pre = g[:, 0], g[:, 1] + fb, g[:, 2], g[:, 3]
     logf = F.logsigmoid(f_pre)
     m2 = torch.maximum(logf + m, i_pre)
@@ -275,14 +305,14 @@ def slstm_block(cfg: ModelConfig, lp, x, *, return_state: bool = False):
     hx = L._tp_in(L.apply_norm(lp["ln"], x, "rmsnorm"))
     gates_x = torch.einsum("btd,dge->btge", hx, lp["wx"].to(x.dtype))  # (B,T,4,D)
     D = gates_x.shape[-1]
-    rh, fb = _local(lp["rh"], 1), _local(lp["fb"], 0)
+    rec, fb = _slstm_recurrence(cfg, lp["rh"]), _local(lp["fb"], 0)
     h = torch.zeros((B, D), dtype=x.dtype, device=x.device)
     c = torch.zeros((B, D), dtype=F32, device=x.device)
     n = torch.zeros((B, D), dtype=F32, device=x.device)
     m = torch.full((B, D), NEG_INIT, dtype=F32, device=x.device)
     ys = []
     for t in range(T):
-        h, c, n, m = _slstm_cell(rh, fb, gates_x[:, t], h, c, n, m)
+        h, c, n, m = _slstm_cell(rec, fb, gates_x[:, t], h, c, n, m)
         ys.append(h)
     out = x + L._tp_out(torch.stack(ys, dim=1) @ lp["wo"].to(x.dtype))
     return (out, {"h": h, "c": c, "n": n, "m": m}) if return_state else out
@@ -291,7 +321,7 @@ def slstm_block(cfg: ModelConfig, lp, x, *, return_state: bool = False):
 def slstm_decode(cfg: ModelConfig, lp, state, x1):
     hx = L._tp_in(L.apply_norm(lp["ln"], x1, "rmsnorm")[:, 0])
     gx = torch.einsum("bd,dge->bge", hx, lp["wx"].to(x1.dtype))
-    h2, c2, n2, m2 = _slstm_cell(_local(lp["rh"], 1), _local(lp["fb"], 0), gx,
+    h2, c2, n2, m2 = _slstm_cell(_slstm_recurrence(cfg, lp["rh"]), _local(lp["fb"], 0), gx,
                                  state["h"], state["c"], state["n"], state["m"])
     out = x1 + L._tp_out(h2 @ lp["wo"].to(x1.dtype))[:, None, :]
     return out, {"h": h2, "c": c2, "n": n2, "m": m2}

@@ -431,17 +431,20 @@ class activation_sharding:
     ``layer_pspecs``, the per-layer specs :func:`constrain_layer_params`
     gathers a layer's leaves by (a dict from the params' layer key,
     ``"layers"``, ``"enc_layers"``, ``"dec_layers"`` or ``"shared"``, to a
-    spec tree of one layer, or for xLSTM's list of layers a list of them).
-    The reference's context steers XLA's propagation with the same specs;
-    here they say what each rank gathers."""
+    spec tree of one layer, or for xLSTM's list of layers a list of them),
+    and ``seq_axes``, the axes a decode step's caches split their sequence
+    over (a global batch of 1; :func:`cache_seq_axes`).  The reference's
+    context steers XLA's propagation with the same specs; here they say
+    what each rank gathers."""
 
     def __init__(self, mesh, *, strategy: str = "tp", layer_pspecs=None,
-                 batch_axes=None, skip=()):
+                 batch_axes=None, skip=(), seq_axes=None):
         self.mesh = mesh
         self.strategy = strategy
         self.layer_pspecs = layer_pspecs
         self.batch_axes = batch_axes
         self.skip = tuple(skip)
+        self.seq_axes = tuple(seq_axes) if seq_axes else None
 
     def __enter__(self):
         _ACT_CTX.append(self)
@@ -457,6 +460,13 @@ def tensor_parallel() -> bool:
     of more than one rank."""
     return (bool(_ACT_CTX) and _ACT_CTX[-1].strategy == "tp"
             and _ACT_CTX[-1].mesh.shape.get("model", 1) > 1)
+
+
+def cache_seq_axes():
+    """The axes the active decode step's caches split their sequence over
+    (each rank holds a contiguous slice, in the axes' joint order), or None
+    where each rank holds whole sequences."""
+    return _ACT_CTX[-1].seq_axes if _ACT_CTX else None
 
 
 def tokens_split_over(axis: str) -> bool:

@@ -34,6 +34,15 @@ splits on CUDA tensors; it refuses the list form ``all_to_all``, which is
 not used), so each goes straight to the backend, counted by backend and
 operation in ``collectives_by_route``.  Both counters belong to the process
 that runs them.
+
+**Collective bytes.**  :data:`collective_stats` holds, per backend, a
+:class:`CollectiveStats`: the calls and the operand bytes of every
+collective by kind (``all_reduce``, ``all_gather``, ``all_to_all``,
+``ppermute``; the tensor each rank hands the backend, as the reference's
+``launch/hlo_analysis.py`` sums the operand sizes of the compiled HLO's
+collectives) and the operand bytes by mesh axis, which the roofline's link
+term reads (:mod:`repro_torch.launch.rooflines`).  The sharded units'
+DTensor redistributions count here too (:mod:`.units`).
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ import pickle
 import queue
 import tempfile
 import traceback
+import weakref
 from collections import Counter
 from typing import Callable, Sequence
 
@@ -53,8 +63,63 @@ BACKENDS = {"nccl": "nccl", "shared": "gloo", "cpu": "gloo"}
 
 ranks_by_route: Counter = Counter()
 collectives_by_route: dict[str, Counter] = {}
+KINDS = ("all_reduce", "all_gather", "all_to_all", "ppermute")
+
+
+class CollectiveStats:
+    """Calls and operand bytes of one backend's collectives.
+
+    ``count_by_kind`` and ``bytes_by_kind`` are keyed by the collective's
+    kind (:data:`KINDS`), ``bytes_by_axis`` by the mesh axis it ran over
+    (``"<group>"`` where only the process group is known).  The port runs
+    eagerly, so a collective inside a loop (the layers, the microbatches,
+    a recurrence's steps) is counted once per trip as it runs: the counts
+    need no loop multiplier, where the reference multiplies the ops of an
+    HLO while-body by its trip count.
+    """
+
+    def __init__(self):
+        self.count_by_kind: Counter = Counter()
+        self.bytes_by_kind: Counter = Counter()
+        self.bytes_by_axis: Counter = Counter()
+
+    def add(self, kind: str, nbytes: int, axis: str) -> None:
+        if kind not in KINDS:
+            raise ValueError(f"collective kind {kind!r}: one of {KINDS}")
+        self.count_by_kind[kind] += 1
+        self.bytes_by_kind[kind] += int(nbytes)
+        self.bytes_by_axis[axis] += int(nbytes)
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(self.bytes_by_kind.values())
+
+    def as_dict(self) -> dict:
+        return {"bytes_by_kind": dict(self.bytes_by_kind),
+                "count_by_kind": dict(self.count_by_kind),
+                "bytes_by_axis": dict(self.bytes_by_axis),
+                "total_bytes": self.total_bytes}
+
+
+collective_stats: dict[str, CollectiveStats] = {}
+
+
+def count_collective(backend: str, op: str, kind: str, x, axis: str) -> None:
+    """Count one collective call: ``op`` (the backend operation) in
+    ``collectives_by_route``, and its kind and operand ``x``'s bytes in
+    ``collective_stats``."""
+    collectives_by_route.setdefault(backend, Counter())[op] += 1
+    collective_stats.setdefault(backend, CollectiveStats()).add(
+        kind, x.numel() * x.element_size(), axis)
+
+
+def reset_collectives() -> None:
+    """Set this process's collective counts and bytes to 0."""
+    collectives_by_route.clear()
+    collective_stats.clear()
 
 _MESHES: list = []
+_BUILT: "weakref.WeakSet" = weakref.WeakSet()   # every Mesh of this process, for axis_of
 _RANK: dict = {}        # this process's rank device, set by run_spmd's worker
 
 
@@ -99,6 +164,7 @@ class Mesh:
                                             mesh_dim_names=axis_names)
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, shape))
+        _BUILT.add(self)
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, backend={self.backend!r}, device={self.device})"
@@ -132,6 +198,16 @@ class Mesh:
 
     def __exit__(self, *exc):
         _MESHES.pop()
+
+
+def axis_of(group) -> str:
+    """The mesh axis whose process group is ``group`` (on any mesh this
+    process built), or ``"<group>"``."""
+    for mesh in list(_BUILT):
+        for a in mesh.axis_names:
+            if mesh.group(a) is group:
+                return a
+    return "<group>"
 
 
 def current_mesh() -> Mesh:
@@ -218,8 +294,8 @@ def run_spmd(fn: Callable, world: int, *, device, args: tuple = (),
 # collectives
 # ---------------------------------------------------------------------------
 
-def _count(mesh: Mesh, op: str) -> None:
-    collectives_by_route.setdefault(mesh.backend, Counter())[op] += 1
+def _count(mesh: Mesh, op: str, x, axis: str, kind: str | None = None) -> None:
+    count_collective(mesh.backend, op, kind or op, x, axis)
 
 
 def _all_reduce(mesh, x, axis, op=dist.ReduceOp.SUM):
@@ -227,7 +303,7 @@ def _all_reduce(mesh, x, axis, op=dist.ReduceOp.SUM):
     out = x.contiguous().clone()
     for a in mesh.axes(axis):
         if mesh.shape[a] > 1:
-            _count(mesh, "all_reduce")
+            _count(mesh, "all_reduce", out, a)
             dist.all_reduce(out, op=op, group=mesh.group(a))
     return out
 
@@ -239,7 +315,7 @@ def _gather_one(mesh, x, a: str, dim: int):
     xt = x.movedim(dim, 0).contiguous()
     out = torch.empty((n * xt.shape[0],) + tuple(xt.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    _count(mesh, "all_gather")
+    _count(mesh, "all_gather", xt, a)
     dist.all_gather_into_tensor(out, xt, group=mesh.group(a))
     return out.movedim(0, dim)
 
@@ -272,7 +348,7 @@ def _all_to_all(mesh, x, axis: str, split: int, concat: int):
     xs = x.reshape(x.shape[:split] + (n, x.shape[split] // n) + x.shape[split + 1:])
     xs = xs.movedim(split, 0).contiguous()
     out = torch.empty_like(xs)
-    _count(mesh, "all_to_all")
+    _count(mesh, "all_to_all", xs, axis)
     dist.all_to_all_single(out, xs, group=mesh.group(axis))
     return torch.cat(out.unbind(0), dim=concat)
 
@@ -291,7 +367,7 @@ def _ppermute(mesh, x, axis: str, perm):
     recv = [size if i in src else 0 for i in range(n)]
     flat_out = out.reshape(-1) if src else torch.empty(0, dtype=x.dtype, device=x.device)
     flat_in = xc.reshape(-1) if dst else torch.empty(0, dtype=x.dtype, device=x.device)
-    _count(mesh, "all_to_all")
+    _count(mesh, "all_to_all", flat_in, axis, kind="ppermute")
     dist.all_to_all_single(flat_out, flat_in, output_split_sizes=recv, input_split_sizes=send,
                            group=mesh.group(axis))
     return out

@@ -129,10 +129,31 @@ def _all_reduce(x, op: str, group):
     return out
 
 
+# each functional collective's kind in spmd's collective_stats (a
+# reduce-scatter is carried out as an all-reduce)
+_KINDS = {"all_gather_into_tensor": "all_gather", "all_reduce": "all_reduce",
+          "reduce_scatter_tensor": "all_reduce", "all_to_all_single": "all_to_all"}
+
+
+def _count_bytes(name: str, x, group) -> None:
+    """Count the collective in :mod:`.spmd`'s counters, under the mesh axis
+    of its group."""
+    import torch.distributed as dist
+
+    from . import spmd
+
+    spmd.count_collective(dist.get_backend(group), _KINDS[name], _KINDS[name], x,
+                          spmd.axis_of(group))
+
+
 def _collective(name: str, args):
     """One functional collective, carried out with ``torch.distributed``'s
-    plain calls (the ones :mod:`.spmd` uses on every route)."""
+    plain calls (the ones :mod:`.spmd` uses on every route), its operand
+    bytes counted in ``spmd.collective_stats``."""
     import torch.distributed as dist
+
+    if name in _KINDS:
+        _count_bytes(name, args[0], _group(args[-1]))
 
     if name == "all_gather_into_tensor":
         x, n, group = args
@@ -212,41 +233,63 @@ def _replicated_where(x, lost):
 
 
 def _prepare(kind: str, params, ins):
-    """The inputs of a view that would merge a sharded dim with another,
-    redistributed to replicated over the mesh dims that shard it (DTensor
-    refuses such a view in some versions and gathers in others): a
-    ``reshape`` that does not keep the dim whole, and ``embed``'s ids, which
-    it flattens, split on any dim but the first."""
+    """The input of a ``reshape`` that would merge a sharded dim with
+    another (one that does not keep the dim whole), redistributed to
+    replicated over the mesh dims that shard it: DTensor refuses such a view
+    in some versions and gathers in others.  ``embed`` needs no such step:
+    its lookup keeps the ids' shape (``core/opset.py:_torch_embed``), so
+    split ids stay split over the replicated table."""
     from torch.distributed.tensor import Shard
 
-    if kind not in ("reshape", "embed"):
+    if kind != "reshape" or not isinstance(ins[0], _dtensor()):
         return ins
-    i = 0 if kind == "reshape" else 1
-    x = ins[i]
-    if not isinstance(x, _dtensor()):
-        return ins
+    x = ins[0]
     shape = tuple(x.shape)
-    if kind == "reshape":
-        target = list(params["shape"])
-        if -1 in target:
-            target[target.index(-1)] = math.prod(shape) // -math.prod(target)
-        keep = lambda d: _kept(shape, target, d)           # noqa: E731
-    else:
-        keep = lambda d: d == 0                            # noqa: E731
-    lost = {m for m, p in enumerate(x.placements) if isinstance(p, Shard) and not keep(p.dim)}
+    target = list(params["shape"])
+    if -1 in target:
+        target[target.index(-1)] = math.prod(shape) // -math.prod(target)
+    lost = {m for m, p in enumerate(x.placements)
+            if isinstance(p, Shard) and not _kept(shape, target, p.dim)}
     if not lost:
         return ins
-    ins = list(ins)
-    ins[i] = _replicated_where(x, lost)
-    return ins
+    return [_replicated_where(x, lost)] + list(ins[1:])
+
+
+def _local_matmul(fn, params, a, b):
+    """``matmul`` of ``a`` split on its leading dims by a replicated matrix
+    ``b``, on each rank's rows, as a DTensor placed as ``a``; None where the
+    layout is another.  The product is local there, but ``torch.matmul``
+    flattens the leading dims into one, which DTensor 2.11 refuses where a
+    dim other than the first is split (2.13 tracks the split through the
+    flatten)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    DTensor = _dtensor()
+    if not isinstance(a, DTensor) or b.dim() != 2 or a.dim() < 2:
+        return None
+    if isinstance(b, DTensor) and not all(isinstance(p, Replicate) for p in b.placements):
+        return None
+    if not all(isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim < a.dim() - 1)
+               for p in a.placements):
+        return None
+    local = fn(params, a.to_local(), b.to_local() if isinstance(b, DTensor) else b)[0]
+    shape = torch.Size(tuple(a.shape[:-1]) + (local.shape[-1],))
+    stride = torch.empty(shape, device="meta").stride()
+    return (DTensor.from_local(local, a.device_mesh, a.placements, run_check=False,
+                               shape=shape, stride=stride),)
 
 
 def run_op(kind: str, fn, params, ins) -> tuple:
     """``fn(params, *ins)``, one op of a sharded unit, its redistributions
-    counted under ``kind``."""
+    counted under ``kind``; a ``matmul`` of rows split on leading dims by a
+    replicated matrix runs on each rank's rows (:func:`_local_matmul`)."""
     mode = _modes()[-1]
     mode.kind = kind
     try:
+        if kind == "matmul":
+            out = _local_matmul(fn, params, *ins)
+            if out is not None:
+                return out
         return fn(params, *_prepare(kind, params, ins))
     finally:
         mode.kind = None

@@ -564,6 +564,47 @@ def test_decode_split_edges_on_card(case):
     torch.testing.assert_close(got, decode_attention_plain(q, kt, kt, p), rtol=2e-5, atol=2e-5)
 
 
+def _assert_lse_close(got, want, tol):
+    """Log-sum-exps equal within ``tol`` of max(1, |want|), and ``-inf``
+    (nothing visible) on the same rows."""
+    empty = torch.isneginf(want)
+    assert torch.equal(torch.isneginf(got), empty)
+    err = (got[~empty] - want[~empty]).abs() / want[~empty].abs().clamp_min(1.0)
+    assert err.numel() == 0 or err.max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(2, 15, 5, 545, 64, "bfloat16", "float32", "split"),
+                                  (1, 32, 32, 4096, 80, "float32", "bfloat16", "split"),
+                                  (2, 4, 2, 100, 18, "float32", "float32", "simt")],
+                         ids=["dense", "sequence-parallel", "d18"])
+def test_decode_lse_matches_plain_on_card(case):
+    """Row 2's optional log-sum-exp (``return_lse``) on both bodies against
+    the plain version: o unchanged by asking for it, the lse within the
+    float32 tolerance relative to its magnitude, ``-inf`` where nothing is
+    visible; at the split body's key-run edges and past the cache."""
+    dev = _cuda()
+    B, Hq, Hkv, S, d, qd, kd, route = case
+    q = _dev((B, Hq, 1, d), qd, 11, dev)
+    kt = _dev((B, S, Hkv, d), kd, 12, dev).transpose(1, 2)
+    vt = _dev((B, S, Hkv, d), kd, 13, dev).transpose(1, 2)
+    assert decode_route(kt.dtype, d, Hq // Hkv, kt, vt) == route
+    tol = 2e-2 if "bfloat16" == qd else 2e-5
+    for pos in sorted({-1, *_split_positions(S)}):
+        p = torch.tensor([pos], dtype=torch.int32, device=dev)
+        before = dict(decode_attention_kernel.launches_by_route)
+        got, lse = decode_attention_kernel(q, kt, vt, p, return_lse=True)
+        assert decode_attention_kernel.launches_by_route == {**before,
+                                                             route: before[route] + 1}
+        want, want_lse = decode_attention_plain(q, kt, vt, p, return_lse=True)
+        torch.cuda.synchronize()
+        assert lse.shape == (B, Hq) and lse.dtype == torch.float32
+        assert torch.equal(decode_attention_kernel(q, kt, vt, p), got)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        _assert_lse_close(lse, want_lse, 2e-5)
+        assert pos >= 0 or bool(torch.isneginf(lse).all())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_rmsnorm_kernel_matches_plain_on_card(dtype):

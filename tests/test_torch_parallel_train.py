@@ -254,7 +254,18 @@ FAMILIES = ["zamba2-2.7b", "xlstm-350m", "seamless-m4t-large-v2", "phi-3-vision-
 # (arch, strategy, fsdp): the fully sharded strategy and ZeRO on tensor
 # parallelism, three train steps each
 FSDP_RUNS = [("smollm-360m", "fsdp", False), ("granite-moe-1b-a400m", "fsdp", False),
-             ("smollm-360m", "tp", True), ("granite-moe-1b-a400m", "tp", True)]
+             ("smollm-360m", "tp", True), ("granite-moe-1b-a400m", "tp", True),
+             ("zamba2-2.7b", "tp", True)]
+# The runs whose parameters are held by the AdamW-propagated rule
+# (_adamw_bounds) instead of the near-eps one.  Clipping Zamba2's large
+# first gradient scales every gradient far down and leaves many embedding
+# elements within a few eps of zero; AdamW divides each step by
+# sqrt(v_hat) + eps, so there it turns a rounding difference of the
+# gradient into a difference of the step.  One rank alone shows it: the
+# same steps with the batch in two microbatches (a reduction order changed,
+# nothing sharded) need the same rule
+# (test_adamw_rule_covers_a_reduction_order_change_on_one_rank).
+ADAMW_RULE_RUNS = {("zamba2-2.7b", "tp", True)}
 # gradients under both layouts: the other families, and with a batch of 2
 # (split over data alone, so the model ranks gather equal gradients)
 FSDP_GRADS = [(arch, strategy, strategy == "tp", BATCH) for arch in FAMILIES
@@ -427,6 +438,54 @@ def test_xlstm_refuses_a_model_axis_that_splits_heads():
                                                    axis_names=("data", "model")))
 
 
+def _adamw_bounds(params, states, opt, lr_scales):
+    """Per element, 1e-4 of each leaf's largest magnitude plus the gradient
+    tolerance of these tests carried through each AdamW step: a gradient
+    held within D_t = 1e-4 of its leaf's largest clipped gradient so far
+    changes an element's step lr_t * m_hat / (sqrt(v_hat) + eps) by at most
+    lr_t * D_t / (sqrt(v_hat) + eps) through m_hat (its weights sum to 1)
+    and as much again through v_hat, to first order.  ``states`` are the
+    one-rank AdamW states before the first step and after each; the
+    gradients come from the moments, g_t = (m_t - b1 m_{t-1}) / (1 - b1)."""
+    out = {name: 1e-4 * float(np.abs(p).max()) + np.zeros_like(p)
+           for name, p in _flat(params).items()}
+    gmax = {}
+    for t in range(1, len(states)):
+        m0, m1, v1 = (_flat(states[t - 1]["m"]), _flat(states[t]["m"]),
+                      _flat(states[t]["v"]))
+        for name in out:
+            g = (m1[name] - opt.b1 * m0[name]) / (1 - opt.b1)
+            gmax[name] = max(gmax.get(name, 0.0), float(np.abs(g).max()))
+            vhat = v1[name] / (1.0 - opt.b2 ** t)
+            out[name] = out[name] + 2 * LR * lr_scales[t - 1] * 1e-4 * gmax[name] / (
+                np.sqrt(vhat) + opt.eps)
+    return out
+
+
+def test_adamw_rule_covers_a_reduction_order_change_on_one_rank():
+    """The premise of ``_adamw_bounds``: Zamba2's three steps on one rank
+    with the batch in two microbatches (only the order of the gradients'
+    sums changes) stay within the rule of the same steps in one."""
+    cfg = _cfg("zamba2-2.7b")
+    first = api.init(cfg, torch.Generator().manual_seed(0), tp=TP, device="cpu")
+
+    def steps(microbatch):
+        step = make_train_step(cfg, tp=TP, opt=AdamWConfig(lr=LR), microbatch=microbatch,
+                               **STEP_KW)
+        params, states, lr_scales = first, [adamw_init(first)], []
+        for b in _batches(cfg):
+            params, opt_state, m = step(params, states[-1], b)
+            states.append(opt_state)
+            lr_scales.append(float(m["lr_scale"]))
+        return _flat(params), states, lr_scales
+
+    want, states, lr_scales = steps(1)
+    got, _, _ = steps(2)
+    bounds = _adamw_bounds(first, states, AdamWConfig(), lr_scales)
+    for name in want:
+        assert np.all(np.abs(got[name] - want[name]) <= bounds[name]), name
+
+
 @pytest.mark.parametrize("run", FSDP_RUNS, ids=lambda r: f"{r[0]}-{r[1]}{'-zero' if r[2] else ''}")
 def test_fsdp_steps_equal_one_rank(other_families, run):
     """Three steps held by ``strategy="fsdp"`` (every leaf split over as
@@ -434,17 +493,23 @@ def test_fsdp_steps_equal_one_rank(other_families, run):
     experts expert-parallel and split over data) or by ZeRO on tensor
     parallelism (``fsdp=True``) against the port's one-rank steps, at the
     tolerances of the tensor-parallel steps above; and in one more loss,
-    each layer gathers its split leaves once, inside the layer."""
+    each layer gathers its split leaves once, inside the layer.  The runs
+    of ``ADAMW_RULE_RUNS`` hold their parameters by :func:`_adamw_bounds`
+    (see there)."""
     arch, strategy, fsdp = run
     _, _, ranks = other_families
     cfg = _cfg(arch)
     params = api.init(cfg, torch.Generator().manual_seed(0), tp=TP, device="cpu")
+    first = params
     step = make_train_step(cfg, tp=TP, opt=AdamWConfig(lr=LR), **STEP_KW)
     opt_state, metrics, near_eps = adamw_init(params), [], {}
+    states, lr_scales = [opt_state], []
     opt = AdamWConfig()
     for b in _batches(cfg):
         params, opt_state, m = step(params, opt_state, b)
         metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        states.append(opt_state)
+        lr_scales.append(float(m["lr_scale"]))
         n = int(opt_state["step"])
         for name, v in _flat(opt_state["v"]).items():
             near = np.sqrt(v / (1.0 - opt.b2 ** n)) < 100 * opt.eps
@@ -456,7 +521,14 @@ def test_fsdp_steps_equal_one_rank(other_families, run):
     for r in ranks:
         got = r[run]
         np.testing.assert_allclose(np.array(got["metrics"]), np.array(metrics), rtol=1e-5)
-        _assert_leaves_close(got["params"], _flat(params), 1e-4, near_eps)
+        if run in ADAMW_RULE_RUNS:
+            bounds, want = _adamw_bounds(first, states, opt, lr_scales), _flat(params)
+            assert sorted(got["params"]) == sorted(want)
+            for name in want:
+                err = np.abs(got["params"][name] - want[name])
+                assert np.all(err <= bounds[name]), (name, float(err.max()))
+        else:
+            _assert_leaves_close(got["params"], _flat(params), 1e-4, near_eps)
         np.testing.assert_allclose(got["prefill"], prefill.numpy(), rtol=1e-4, atol=1e-4)
         specs = got["specs"]
         assert any("data" in shd.spec_axes(s) for s in specs.values())

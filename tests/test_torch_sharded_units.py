@@ -287,19 +287,21 @@ def test_sharded_counters_equal_the_unsharded_plan(runs, case):
 
 # the collectives each op's redistributions issued over the case's two
 # calls, where the entry unit's argument is placed by its spec
-GATHERS = {("dense", "batch"): {}, ("dense", "seq"): {"embed": 2},
-           ("attn", "batch"): {"pad_to": 6}, ("attn", "seq"): {"embed": 2, "eq": 2}}
+GATHERS = {("dense", "batch"): {}, ("dense", "seq"): {"sdpa": 12},
+           ("attn", "batch"): {}, ("attn", "seq"): {"sdpa": 6, "eq": 2, "pad_to": 6}}
 
 
 def test_where_the_partitioner_gathers(runs):
-    """The batch split runs every op of the dense forward on the rank's rows
-    (the flash-attention rule is local over the batch); the attention LM's
-    ``pad_to`` pads into a replicated zero buffer, so its three pads gather.
-    The sequence split gathers the token ids where ``embed`` flattens them
-    (and the attention LM's ``eq`` the lengths it summed over the split
-    sequence), after which every op runs replicated.  A plan whose entry
-    stays on the guest (``tech-gfp`` with the host check) places nothing by
-    its specs, so no op gathers."""
+    """The batch split runs every op of both programs on the rank's rows
+    (the flash-attention rule is local over the batch, and the attention
+    LM's ``pad_to`` joins its zero tail to the rank's rows).  The sequence
+    split keeps the token ids split through ``embed`` (a lookup in the
+    replicated table) and the ops after it on the rank's positions, up to
+    the attention, which needs every key: ``sdpa`` gathers q, k and v; in
+    the attention LM also ``pad_to``, which pads the split axis, and ``eq``
+    the lengths it summed over the split sequence.  A plan whose entry stays
+    on the guest (``tech-gfp`` with the host check) places nothing by its
+    specs, so no op gathers."""
     _, ranks, _, _, _ = runs
     for r in ranks:
         for (prog, scheme, check, spec), counts in r["redistributions"].items():
