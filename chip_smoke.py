@@ -234,9 +234,11 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    capacity 1.25, and profiler windows of a prefill and a step (MoE's
    routing, dispatch, expert products, combine and attention as ranges).
    Then the flash forward at Phi-3's prefill (d = 96), SeamlessM4T's
-   cross-attention and DBRX's prefill, flash-decode at Phi-3's step and
-   RMSNorm at Phi-3's and DBRX's prefill rows, each against its bound, its
-   plain version and one PyTorch call.
+   cross-attention and DBRX's prefill, flash-decode at Phi-3's step and at
+   DBRX's (q (8,48,1,128) bf16 against the (8,521,8,128) float32 cache, a
+   group of 6 at d = 128 on ``"simt"``, against ``sdpa`` with
+   ``enable_gqa``) and RMSNorm at Phi-3's and DBRX's prefill rows, each
+   against its bound, its plain version and one PyTorch call.
 19. The other families train at full width (run right after phase 1, while
    the card's memory is empty; ``make_train_step``, 3 steps of
    8 sequences at seed 0, bf16 compute, float32 masters, remat, tp=1, AdamW
@@ -328,6 +330,21 @@ Phases (any failure exits non-zero; the result lines print only at the end):
    MoE ``train_4k`` under ``strategy="fsdp"``, and (b)'s own cell on a
    (data 2, model 1) world, whose predicted rank bytes are printed beside
    (b)'s measured peak.
+23. The repo's own entry points on the card (configuration 15; run last):
+   the five smoke gates of ``repro_torch.bench`` through ``main([])`` at
+   their own sizes (``smoke``, ``smoke_serve``, ``smoke_decode`` with its
+   card section, ``smoke_cluster`` and ``smoke_trace``, whose workers are
+   spawned on the card), each exiting 0 with its rows, wall and launches by
+   route (its spawned workers' included) printed; then the five examples of
+   ``repro_torch.examples`` at their defaults: ``quickstart``,
+   ``serve_mixed`` (rows 3 and 7), ``decode_stream``, ``offload_library``
+   (bench scale) and ``train_lm`` at SmolLM-360M uncut, 8 x 256,
+   :data:`TRAIN_LM_STEPS` of its 200 steps with asynchronous checkpoints
+   (rows 4-7, the loss falling).  Gates: the gates' exit statuses (each
+   fails on its own if a kernel of its path was not launched),
+   ``smoke_decode``'s card section giving the CPU's tokens with row 1 once
+   per kernel step, all on ``"split"``, the examples' counts equal to the
+   reference's printed ones, and each example's kernels on their routes.
 
 The last lines are a ``kernels`` JSON line (every row with its
 ``launches_by_route``; rows 1 and 2 with the old body's ``simt_ms``, their
@@ -345,7 +362,9 @@ times at its shapes, row 8 with the SSD VJP's calls and time; rows 4-7
 with phase 20's launches by route per rank under ``sharded``; every row
 with phase 21's launches by route per rank and part under ``sharded``,
 ``configuration 13``; row 2 with phase 22's ``lse`` readings and its
-sequence-parallel launches by route under ``sequence_parallel``), the card's name and power limit, and ``{"ok": true, "device": {...}}``.  The script needs the repo's
+sequence-parallel launches by route under ``sequence_parallel``; every
+row with phase 23's launches by route per entry point that launched it
+under ``entry_points``), the card's name and power limit, and ``{"ok": true, "device": {...}}``.  The script needs the repo's
 ``src/`` beside it and a CUDA device; without either it exits non-zero and
 prints no result.
 """
@@ -3458,12 +3477,57 @@ def phase_zoo(torch) -> dict:
     return {run: _zoo_run(torch, run, *spec) for run, spec in ZOO_RUNS.items()}
 
 
+def dbrx_decode_timing(torch, flush) -> dict:
+    """Row 2 at DBRX's decode step (configuration 10): q (8,48,1,128) bf16
+    against the (8,521,8,128) float32 cache at pos 516, a GQA group of 6 at
+    d = 128, which ``decode_route`` sends to the CUDA-core body
+    (``"simt"``: the split body's q registers hold no group of 6 at d =
+    128).  The wrapper's time (the simt body), its plain version, and
+    ``scaled_dot_product_attention`` with ``enable_gqa`` and a ``kpos <=
+    pos`` mask (q cast to float32, the cache's type), beside the bound:
+    q read and o written once in bf16, the visible k and v rows read once
+    in float32, over 3.35 TB/s; 4 d flops a visible (query, key) pair at
+    the float32 rate."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_kernel, decode_attention_plain, decode_route)
+
+    dev = torch.device("cuda")
+    (B, Hq, Hkv, S, d, pos), want = ZOO_DECODE_CASES[1]
+    q = _randn(torch, (B, Hq, 1, d), torch.bfloat16, 48, dev)
+    ck = _randn(torch, (B, S, Hkv, d), torch.float32, 49, dev)
+    cv = _randn(torch, (B, S, Hkv, d), torch.float32, 50, dev)
+    kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+    pt = torch.tensor([pos], dtype=torch.int32, device=dev)
+    route = decode_route(kt.dtype, d, Hq // Hkv, kt, vt)
+    check(route == want == "simt", f"DBRX's decode shape routes to {route!r}")
+    err = (decode_attention_kernel(q, kt, vt, pt).float()
+           - decode_attention_plain(q, kt, vt, pt).float()).abs().max().item()
+    visible = pos + 1
+    nbytes = 2 * 2 * q.numel() + 2 * B * Hkv * visible * d * 4 + 4
+    flops = 4 * B * Hq * visible * d
+    bound, by = _bound(nbytes, flops, H100_FP32_FLOPS)
+    mask = (torch.arange(S, device=dev) <= pos)[None, None, None, :]
+    qf = q.float()
+    return dict(
+        ms=time_ms(torch, lambda: decode_attention_kernel(q, kt, vt, pt), 100, flush),
+        plain_ms=time_ms(torch, lambda: decode_attention_plain(q, kt, vt, pt), 25, flush),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qf, kt, vt, attn_mask=mask, enable_gqa=True), 100, flush),
+        library="sdpa (enable_gqa) with a kpos <= pos mask", route=route,
+        bound_ms=bound, bound_by=by, max_abs_err=err,
+        shape=f"q {tuple(q.shape)} bf16, cache {tuple(ck.shape)} f32, pos {pos}",
+        work=f"{nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP")
+
+
 def phase_zoo_timing(torch) -> dict:
     """Rows 3 and 2 at the zoo's new shapes: the flash forward at phi-3's
     prefill (d = 96), seamless's cross-attention (T 512 against S 128,
     unmasked) and DBRX's prefill (d = 128, group 6), bf16; flash-decode at
     phi-3's step (q (8,32,1,96) bf16 against the (8,1121,32,96) float32
-    cache); row 7 at phi-3's and DBRX's prefill rows."""
+    cache) and at DBRX's (:func:`dbrx_decode_timing`); row 7 at phi-3's and
+    DBRX's prefill rows."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain, rmsnorm_route
@@ -3502,6 +3566,7 @@ def phase_zoo_timing(torch) -> dict:
         f"{nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP",
         f"q {tuple(q1.shape)} bf16, cache {tuple(ck.shape)} f32, pos {pos}",
         lambda: F.scaled_dot_product_attention(q1f, kt, vt, attn_mask=mask))
+    out["decode_attention@dbrx"] = dbrx_decode_timing(torch, flush)
     # RMSNorm at the widest new rows: phi-3's prefill (8 x 1088, 3072) and
     # DBRX's (8 x 512, 6144), bf16
     for key, (rows, D) in {"rmsnorm@phi3": (ZOO_B * T3, 3072),
@@ -5147,6 +5212,161 @@ def phase_seq_parallel(torch) -> dict:
             "measured_mib": measured}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the repo's own entry points on the card (configuration 15)
+# ---------------------------------------------------------------------------
+
+ENTRY_GATES = ("smoke", "smoke_serve", "smoke_decode", "smoke_cluster", "smoke_trace")
+# the kernels each entry point must launch on the card (PERF.md section 6's
+# rows): the gates fail on their own when one of theirs is missing; the
+# examples are held here
+ENTRY_KERNELS = {"serve_mixed": {"rmsnorm": "vec", "flash_attention": "tf32x3"},
+                 "train_lm": {"flash_attention_fwd_stats": "wgmma", "flash_attention_dq": "wgmma",
+                              "flash_attention_dkv": "wgmma", "rmsnorm": "vec"}}
+# train_lm at its default, SmolLM-360M uncut, 8 x 256: 24 of the example's
+# 200 steps (phase 23's budget), a checkpoint every 12 (the example's every
+# 50; each holds 1.45 GB of float32 masters and twice that of moments)
+TRAIN_LM_STEPS, TRAIN_LM_CKPT_EVERY = 24, 12
+# train_lm's launches a step (phase 14's, which are seq-free): 32 forwards
+# with statistics plus 32 under remat, 32 dQ, 32 dK/dV, 129 RMSNorm
+TRAIN_LM_PER_STEP = {"flash_attention_fwd_stats": 64, "flash_attention_dq": 32,
+                     "flash_attention_dkv": 32, "rmsnorm": 129}
+# what the reference's examples print (examples/quickstart.py, decode_stream.py)
+QUICKSTART_G2H = {"qemu": 0, "tech": 100, "tech-g": 100, "tech-gf": 50, "tech-gfp": 2}
+DECODE_STREAM_TPC = (0.5, 2.6)               # solo, continuous tokens per crossing
+OFFLOAD_UNITS = {
+    "zlibflate": {"zlib only": ["zlib.deflate_block", "zlib.window_step"],
+                  "libpng only": [],
+                  "zlib+libpng": ["zlib.deflate_block", "zlib.window_step"]},
+    "imagemagick": {"zlib only": ["zlib.deflate_block", "zlib.window_step"],
+                    "libpng only": ["libpng.filter_rows", "libpng.quantize",
+                                    "libpng.scanline_step"],
+                    "zlib+libpng": ["libpng.filter_rows", "libpng.quantize",
+                                    "libpng.scanline_step", "zlib.deflate_block",
+                                    "zlib.window_step"]}}
+
+
+def _entry_gate(torch, name: str) -> dict:
+    """One smoke gate as its program runs, on the card: exit status 0, its
+    rows, its wall and its launches by route."""
+    import contextlib
+    import importlib
+    import io
+
+    from repro_torch.bench.common import launches_from_rows
+
+    module = importlib.import_module(f"repro_torch.bench.{name}")
+    _reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main([])
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"# phase 23 {name}: {line}")
+    check(rc == 0, f"{name} exited {rc} on the card")
+    launches = launches_from_rows(lines, name)
+    log(f"# phase 23 {name}: exit 0 in {wall:.2f} s; launches by route (this process "
+        f"and its workers) {launches}")
+    return {"wall_s": wall, "rows": lines, "launches_by_route": launches}
+
+
+def _entry_example(torch, name: str, fn) -> dict:
+    """One example's ``run`` on the card: its wall and its launches by
+    route in this process (its printed lines go to standard output)."""
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    routes = {k: v for k, v in _routes().items() if sum(v.values())}
+    for kernel, route in ENTRY_KERNELS.get(name, {}).items():
+        n = routes.get(kernel, {})
+        check(n.get(route, 0) > 0 and sum(n.values()) == n[route],
+              f"{name}: {kernel} launched {n}, expected all on {route!r}")
+    log(f"# phase 23 {name}: {wall:.2f} s; launches by route {routes}")
+    return {"wall_s": wall, "launches_by_route": routes, "out": out}
+
+
+def phase_entry_points(torch) -> dict:
+    """The five smoke gates and the five examples of ``repro_torch`` on the
+    card (configuration 15): each gate through ``main([])`` at its own
+    sizes (exit status 0; ``smoke_decode``'s card section gives the CPU's
+    tokens with the paged kernel launched once per kernel step, all on
+    ``split``), each example's ``run`` at its defaults (``train_lm`` at
+    SmolLM-360M uncut, 8 x 256, :data:`TRAIN_LM_STEPS` steps), with its
+    wall and launches by route, and each held to what the reference's
+    example prints."""
+    import tempfile as tf
+
+    from repro_torch.examples import (
+        decode_stream, offload_library, quickstart, serve_mixed, train_lm)
+
+    out = {name: _entry_gate(torch, name) for name in ENTRY_GATES}
+    card = [r for r in out["smoke_decode"]["rows"]
+            if r.startswith("smoke_decode/card_paged_kernel,")]
+    check(len(card) == 1 and card[0].endswith(";ok") and "tokens=8" in card[0],
+          f"smoke_decode's card section: {card}")
+
+    q = _entry_example(torch, "quickstart", lambda: quickstart.run(None))
+    got = {s: r["guest_to_host"] for s, r in q["out"]["schemes"].items()}
+    check(got == QUICKSTART_G2H and (q["out"]["plans"], q["out"]["cache_hits"]) == (2, 3),
+          f"quickstart: crossings {got}, plans {q['out']['plans']}, "
+          f"cache hits {q['out']['cache_hits']}")
+    out["quickstart"] = q
+
+    sm = _entry_example(torch, "serve_mixed", lambda: serve_mixed.run(None))
+    check(sm["out"]["bitident"] and sm["out"]["crossings_per_request"]
+          < sm["out"]["unbatched_crossings_per_request"],
+          f"serve_mixed: {sm['out']['crossings_per_request']} crossings a request "
+          f"batched, {sm['out']['unbatched_crossings_per_request']} unbatched")
+    out["serve_mixed"] = sm
+
+    ds = _entry_example(torch, "decode_stream", lambda: decode_stream.run(None))
+    tpc = (round(ds["out"]["solo_tokens_per_crossing"], 2),
+           round(ds["out"]["tokens_per_crossing"], 2))
+    check(tpc == DECODE_STREAM_TPC, f"decode_stream tokens per crossing {tpc}")
+    out["decode_stream"] = ds
+
+    ol = _entry_example(torch, "offload_library", lambda: offload_library.run(None))
+    units = {app: {label: u for label, (_, u) in res.items() if label != "pure emulation"}
+             for app, res in ol["out"].items()}
+    check(units == OFFLOAD_UNITS, f"offload_library units {units}")
+    out["offload_library"] = ol
+
+    with tf.TemporaryDirectory(prefix="chip-smoke-train-lm-") as ckpt:
+        tl = _entry_example(torch, "train_lm", lambda: train_lm.run(
+            steps=TRAIN_LM_STEPS, device=None, ckpt_dir=ckpt,
+            ckpt_every=TRAIN_LM_CKPT_EVERY))
+    losses = tl["out"]["losses"]
+    check(losses[-1] < losses[0], f"train_lm: the loss did not fall: {losses}")
+    for kernel, per_step in TRAIN_LM_PER_STEP.items():
+        n = sum(tl["launches_by_route"][kernel].values())
+        check(n == per_step * TRAIN_LM_STEPS,
+              f"train_lm: {kernel} launched {n} times in {TRAIN_LM_STEPS} steps, "
+              f"expected {per_step} a step")
+    ms = [m["ms"] for m in tl["out"]["metrics"]]
+    tl["step_ms"] = ms
+    log(f"# phase 23 train_lm ({card_line()}): {TRAIN_LM_STEPS} of the example's 200 steps "
+        f"of 8 x 256 tokens, SmolLM-360M uncut; step p50 {np.median(ms):.1f} ms (first "
+        f"{ms[0]:.1f}, range {min(ms[1:]):.1f}-{max(ms[1:]):.1f}), "
+        f"{8 * 256 / (np.median(ms) / 1e3):.0f} tokens/s; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; checkpoints at steps {TRAIN_LM_CKPT_EVERY}, {TRAIN_LM_STEPS}")
+    tl["out"] = {"losses": losses}
+    out["train_lm"] = tl
+    for v in out.values():
+        v.pop("out", None)
+    log("# phase 23 walls (s): " + ", ".join(f"{k} {v['wall_s']:.2f}" for k, v in out.items()))
+    return out
+
+
+def _entry_row(entry: dict, name: str) -> dict:
+    """Row ``name``'s launches by route in each entry point of phase 23
+    that launched it."""
+    return {ep: r["launches_by_route"][name] for ep, r in entry.items()
+            if sum(r["launches_by_route"].get(name, {}).values())}
+
+
 def _sharded21_row(s21: dict, name: str) -> dict:
     """Row ``name``'s launches by route in phase 21, per rank and part."""
     out = {}
@@ -5255,6 +5475,7 @@ def main() -> int:
     zoo = run(phase_zoo)
     zoo_timing = run(phase_zoo_timing)
     families_timing = run(phase_families_timing)
+    entry = run(phase_entry_points)
     log(f"# phase wall times (s): {walls}")
     log(f"# all phases passed in {time.perf_counter() - t_all:.1f} s")
 
@@ -5276,6 +5497,7 @@ def main() -> int:
         "cluster": timing["cluster"],
         "ms_by_cluster": timing["ms_by_cluster"],
         "sharded": {"configuration 13": _sharded21_row(sharded21, "paged_decode_attention")},
+        "entry_points": _entry_row(entry, "paged_decode_attention"),
     }]
     for name, replaces in (("decode_attention", "src/repro/kernels/decode_attention.py:34"),
                            ("flash_attention", "src/repro/kernels/flash_attention.py:25"),
@@ -5305,6 +5527,7 @@ def main() -> int:
             kernels[-1]["launches_by_route"] = dense["routes"][name]
         kernels[-1]["zoo"] = _runs_row(zoo, ZOO_RUNS, zoo_timing, name)
         kernels[-1]["sharded"] = {"configuration 13": _sharded21_row(sharded21, name)}
+        kernels[-1]["entry_points"] = _entry_row(entry, name)
         if name in ("flash_attention", "rmsnorm"):
             kernels[-1]["fig7"] = _fig7_row(paper_timing, f"{name}@fig7",
                                             paper["fig7_routes"], name)
@@ -5368,6 +5591,7 @@ def main() -> int:
                           for run, r in families.items()},
             "vjp": families_timing["ssd_scan_vjp@zamba2"]},
         "sharded": {"configuration 13": _sharded21_row(sharded21, "ssd_scan")},
+        "entry_points": _entry_row(entry, "ssd_scan"),
     })
     for name, line in (("flash_attention_fwd_stats", 27), ("flash_attention_dq", 65),
                        ("flash_attention_dkv", 96)):
@@ -5394,6 +5618,7 @@ def main() -> int:
         kernels[-1]["families"] = _runs_row(families, FAM_RUNS, families_timing, name)
         kernels[-1]["sharded"] = _sharded_row(sharded, name) | {
             "configuration 13": _sharded21_row(sharded21, name)}
+        kernels[-1]["entry_points"] = _entry_row(entry, name)
         if stats:
             kernels[-1]["tf32x3"] = _tf32x3_rows(dense_timing, name, {})
     print(json.dumps({"kernels": kernels}))

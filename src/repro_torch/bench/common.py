@@ -9,8 +9,10 @@ device's work — for ``native`` (one unit) as for every other scheme.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
+import sys
 import time
 from pathlib import Path
 
@@ -20,6 +22,7 @@ import torch
 from .. import mixed
 from ..core import CompiledHybrid, NativeInfeasibleError
 from ..core.api import resolve_device
+from ..kernels import ops
 from ..workloads import WORKLOADS
 
 SCHEMES = ["native", "qemu", "tech", "tech-g", "tech-gf", "tech-gfp"]
@@ -30,6 +33,19 @@ COUNTERS = ("guest_to_host", "host_to_guest", "conversion_builds", "compiles",
 RTOL, ATOL = 2e-3, 2e-4
 # the JAX package's records at bench scale (see tests/test_torch_workloads.py)
 REFERENCE_COUNTERS = Path(__file__).resolve().parents[1] / "workloads" / "reference_counters.json"
+
+
+class GateFailure(Exception):
+    """A smoke-gate check failed; carries the diagnostics to print."""
+
+
+def check(cond, msg: str, *details) -> None:
+    """Explicit smoke-gate assertion: on failure, attach every detail
+    (typically a report table) so the failure log shows the numbers, not a
+    one-line AssertionError."""
+    if cond:
+        return
+    raise GateFailure("\n".join([msg, *[str(d) for d in details]]))
 
 
 def counters(report) -> dict:
@@ -168,3 +184,93 @@ def device_label(device) -> str:
     if dev.type == "cuda":
         return torch.cuda.get_device_name(dev)
     return dev.type
+
+
+# ---------------------------------------------------------------------------
+# the smoke gates' shared runner
+# ---------------------------------------------------------------------------
+
+
+def sum_launches(*counts: dict) -> dict:
+    """Kernel launches per route, ``{kernel: {route: n}}``, summed."""
+    out: dict[str, dict[str, int]] = {}
+    for c in counts:
+        for name, routes in c.items():
+            mine = out.setdefault(name, {})
+            for route, n in routes.items():
+                mine[route] = mine.get(route, 0) + n
+    return out
+
+
+def launch_row(gate: str, launches: dict) -> str:
+    """``<gate>/launches``: every kernel launched, by route (``none`` if no
+    kernel ran, as on the CPU, where the wrappers run their plain versions
+    and count nothing)."""
+    parts = [f"{name}:{route}={n}" for name, routes in sorted(launches.items())
+             for route, n in sorted(routes.items()) if n]
+    return csv_row(f"{gate}/launches", float("nan"), ";".join(parts) or "none")
+
+
+def launches_from_rows(rows, gate: str) -> dict:
+    """``{kernel: {route: n}}`` back from a gate's :func:`launch_row`."""
+    row = next(r for r in rows if r.startswith(f"{gate}/launches,"))
+    derived = row.split(",", 2)[2]
+    out: dict[str, dict[str, int]] = {}
+    for part in ([] if derived == "none" else derived.split(";")):
+        key, n = part.split("=")
+        name, route = key.split(":")
+        out.setdefault(name, {})[route] = int(n)
+    return out
+
+
+def require_launches(launches: dict, kernels, device, gate: str) -> None:
+    """On the card, fail unless every kernel of ``kernels`` (this gate's
+    path) was launched at least once."""
+    if resolve_device(device).type != "cuda":
+        return
+    missing = [k for k in kernels if not sum(launches.get(k, {}).values())]
+    check(not missing, f"{gate}: kernels of this path never launched on the card: "
+          f"{missing}", launches)
+
+
+def finish_gate(rows: list, gate: str, device, kernels, *worker_launches) -> None:
+    """Append the gate's launch row (this process's counts since
+    :func:`gate_main` reset them, plus any spawned workers') and hold the
+    path's kernels to having run on the card."""
+    launches = sum_launches(ops.launches_by_route(), *worker_launches)
+    rows.append(launch_row(gate, launches))
+    require_launches(launches, kernels, device, gate)
+
+
+def gate_main(title: str, gate: str, run, budget_s: float, argv=None) -> int:
+    """Run one smoke gate as a program: ``--device`` (omit for the CUDA
+    card, ``cpu`` for the CPU; without a card and without ``--device cpu``
+    it raises), the CSV rows on standard output, the verdict as the exit
+    status.  ``run(device, rows=rows)`` appends the rows named ``<gate>/...``.
+    A failed check prints the rows so far, this process's launches and the
+    check's numbers before the run exits 1."""
+    ap = argparse.ArgumentParser(description=title)
+    ap.add_argument("--device", default=None,
+                    help="unit device: omit for the CUDA card, 'cpu' for the CPU")
+    args = ap.parse_args(argv)
+    label = device_label(args.device)
+    ops.reset_launches()
+    rows: list[str] = []
+    t0 = time.time()
+    try:
+        run(args.device, rows=rows)
+    except (GateFailure, AssertionError) as e:
+        for r in rows:
+            print(r)
+        print(launch_row(gate, ops.launches_by_route()))
+        print(f"{title} FAILED: {e}", file=sys.stderr)
+        return 1
+    for r in rows:
+        print(r)
+    dt = time.time() - t0
+    print(f"# {title.lower()}: {dt:.1f}s on {label}", file=sys.stderr)
+    if dt > budget_s:
+        print(f"{title} FAILED: exceeded {budget_s:.0f}s budget", file=sys.stderr)
+        return 1
+    print(f"{title} PASSED", file=sys.stderr)
+    return 0

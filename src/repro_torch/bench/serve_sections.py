@@ -344,6 +344,8 @@ def cluster_metrics(backend: str | None = None) -> dict:
 
 
 def _run_traced_workload(backend):
+    """One 2-worker, 8-stream cluster burst; ``(outputs, report, the
+    workers' kernel launches per route)``."""
     geo = SMALL
     burst_a, burst_b = bursts(geo)
     both = list(zip(burst_a, geo.lens)) + list(zip(burst_b, geo.lens))
@@ -352,7 +354,8 @@ def _run_traced_workload(backend):
         router.start()
         outs = [f.result(300) for f in futs]
         rep = router.report()
-    return outs, rep
+        launches = router.launches_by_route()
+    return outs, rep, launches
 
 
 def _conservation_problems(hist_set) -> list[str]:
@@ -361,14 +364,19 @@ def _conservation_problems(hist_set) -> list[str]:
             for key, h in hist_set.items() if sum(h.counts) != h.count]
 
 
-def trace_workload(backend: str | None = None) -> tuple[dict, list[str]]:
+def trace_workload(backend: str | None = None,
+                   launches: dict | None = None) -> tuple[dict, list[str]]:
     """The untraced/traced duel over the cluster burst; returns
-    ``(metrics, problems)`` with deterministic counters only."""
-    outs_plain, _ = _run_traced_workload(backend)
+    ``(metrics, problems)`` with deterministic counters only.  A
+    ``launches`` dict receives the workers' kernel launches per route of
+    each run (``"untraced"``, ``"traced"``)."""
+    outs_plain, _, plain_launches = _run_traced_workload(backend)
 
     tracer = obs.Tracer(label="router")
     with obs.session(tracer):
-        outs_traced, rep = _run_traced_workload(backend)
+        outs_traced, rep, traced_launches = _run_traced_workload(backend)
+    if launches is not None:
+        launches.update(untraced=plain_launches, traced=traced_launches)
     with tempfile.TemporaryDirectory(prefix="repro-torch-trace-") as out_dir:
         path = Path(out_dir) / "trace.json"
         payload = tracer.export_chrome_trace(path)

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 from typing import Callable
 
 import numpy as np
@@ -555,10 +556,59 @@ def _matmul_cost(params, a: AVal, b: AVal):
     return Cost(flops=2 * out.size * k, bytes=a.nbytes + b.nbytes + out.nbytes)
 
 
+# On the card a GEMM's reduction order depends on its shape (cuBLAS picks
+# its kernel, tiles and split of K by it), so a row's product would depend
+# on how many rows share the call, and a padded batch of requests would not
+# be bitwise equal to each request alone.  So there a product with a 2-D
+# right operand (a weight) runs in row blocks of one height, joined by one
+# ``cat``: every row meets the same kernel whatever the batch.  Only a
+# partial last block is copied, zero-padded to the block's height.  The
+# form stays traceable by ``torch.export`` (no ``out=``, no pointer
+# reads), as the AOT cache exports units that hold it.  Batched products
+# (a right operand with batch dims), DTensors (sharded units: DTensor's
+# rules partition the one call) and the CPU keep one call.  Forms that
+# launch fewer GEMMs moved table 3's optipng, an iterated map, 5.3e-3 from
+# pure interpretation (the gate allows 2e-3): heights chosen by the
+# weight's width (up to 1024 rows), and one strided-batched product of the
+# blocks, which cuBLAS runs on another kernel than a single block's.
+MATMUL_ROWS = 128
+
+
+def matmul_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for a 2-D ``b``, computed in row blocks of
+    :data:`MATMUL_ROWS` rows of ``a`` (batch-invariant: row i's result
+    depends only on row i and ``b``)."""
+    lead, k = a.shape[:-1], a.shape[-1]
+    rows = a.reshape(-1, k).contiguous()
+    n = rows.shape[0]
+    full = n - n % MATMUL_ROWS
+    blocks = [rows[i:i + MATMUL_ROWS] @ b for i in range(0, full, MATMUL_ROWS)]
+    if full < n:
+        blocks.append(F.pad(rows[full:], (0, 0, 0, full + MATMUL_ROWS - n)) @ b)
+    if not blocks:
+        return a @ b
+    out = blocks[0] if len(blocks) == 1 else torch.cat(blocks)
+    return out[:n].reshape(*lead, b.shape[1])
+
+
+def _dtensor(x) -> bool:
+    # no tensor is a DTensor before torch.distributed.tensor is imported
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def _torch_matmul(params, a, b):
+    a, b = _promote(a, b)
+    if (a.device.type == "cuda" and a.dim() >= 2 and b.dim() == 2
+            and not _dtensor(a) and not _dtensor(b)):
+        return (matmul_rows(a, b),)
+    return (torch.matmul(a, b),)
+
+
 register(
     "matmul",
     numpy_fn=lambda params, a, b: (np.matmul(a, b),),
-    torch_fn=lambda params, a, b: (torch.matmul(*_promote(a, b)),),
+    torch_fn=_torch_matmul,
     infer_fn=_matmul_infer,
     cost_fn=_matmul_cost,
 )

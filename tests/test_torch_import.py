@@ -1,9 +1,10 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
 ``repro_torch`` must import with ``jax`` made unimportable, and no module of
-``src/repro_torch/`` (nor ``chip_smoke.py``) may name ``jax`` or ``repro``
-in an import statement — framework-free reference modules are copied into
-the port, never imported from the reference.
+``src/repro_torch/`` (nor ``chip_smoke.py``) may name ``jax``, ``repro`` or
+the reference's ``benchmarks`` package in an import statement —
+framework-free reference modules are copied into the port, never imported
+from the reference.
 """
 import ast
 import os
@@ -16,7 +17,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -69,6 +70,19 @@ def test_parallel_modules_are_checked(module):
     assert PORT / module in PORT_FILES
 
 
+# the smoke gates and the examples (ports of benchmarks/smoke*.py and examples/)
+ENTRY_MODULES = ["bench/common.py", "bench/smoke.py", "bench/smoke_serve.py",
+                 "bench/smoke_decode.py", "bench/smoke_cluster.py", "bench/smoke_trace.py",
+                 "examples/__init__.py", "examples/quickstart.py",
+                 "examples/decode_stream.py", "examples/offload_library.py",
+                 "examples/serve_mixed.py", "examples/train_lm.py"]
+
+
+@pytest.mark.parametrize("module", ENTRY_MODULES)
+def test_entry_point_modules_are_checked(module):
+    assert PORT / module in PORT_FILES
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = _imported_roots(path) & set(FORBIDDEN)
@@ -84,7 +98,7 @@ def test_import_with_jax_blocked():
     )
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "for name in ('jax', 'jaxlib', 'repro', 'benchmarks'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {modules!r}:\n"
