@@ -345,7 +345,9 @@ def cluster_metrics(backend: str | None = None) -> dict:
 
 def _run_traced_workload(backend):
     """One 2-worker, 8-stream cluster burst; ``(outputs, report, the
-    workers' kernel launches per route)``."""
+    workers' kernel launches per route, their final reports)``: the final
+    reports come from the drain at close, whose release of the retained
+    prefixes counts as evictions."""
     geo = SMALL
     burst_a, burst_b = bursts(geo)
     both = list(zip(burst_a, geo.lens)) + list(zip(burst_b, geo.lens))
@@ -355,7 +357,8 @@ def _run_traced_workload(backend):
         outs = [f.result(300) for f in futs]
         rep = router.report()
         launches = router.launches_by_route()
-    return outs, rep, launches
+    finals = [w.final_report for w in router.workers]
+    return outs, rep, launches, finals
 
 
 def _conservation_problems(hist_set) -> list[str]:
@@ -370,11 +373,11 @@ def trace_workload(backend: str | None = None,
     ``(metrics, problems)`` with deterministic counters only.  A
     ``launches`` dict receives the workers' kernel launches per route of
     each run (``"untraced"``, ``"traced"``)."""
-    outs_plain, _, plain_launches = _run_traced_workload(backend)
+    outs_plain, _, plain_launches, _ = _run_traced_workload(backend)
 
     tracer = obs.Tracer(label="router")
     with obs.session(tracer):
-        outs_traced, rep, traced_launches = _run_traced_workload(backend)
+        outs_traced, rep, traced_launches, finals = _run_traced_workload(backend)
     if launches is not None:
         launches.update(untraced=plain_launches, traced=traced_launches)
     with tempfile.TemporaryDirectory(prefix="repro-torch-trace-") as out_dir:
@@ -411,6 +414,10 @@ def trace_workload(backend: str | None = None,
         "crossing_samples": sum(
             wr.execution.latency.total_count for wr in rep.worker_reports),
         "dropped_reported_by_export": payload["otherData"]["spans_dropped"],
+        # the reference's page events, as the workers' final reports count them
+        "page_allocs": sum(r.page_allocs for r in finals),
+        "pages_cow_copied": sum(r.pages_cow_copied for r in finals),
+        "prefix_evictions": sum(r.prefix_evictions for r in finals),
     }
     return metrics, problems
 
@@ -439,12 +446,41 @@ def sections(backend: str | None = None, names=SECTIONS) -> dict:
     return {name: _BUILDERS[name](backend) for name in names}
 
 
-def mismatches(got: dict) -> list[str]:
-    """Every field of ``got``'s sections that differs from ``BENCH_serve.json``."""
+#: the reference's page instant events -> the DecodeReport fields that count them
+PAGE_EVENTS = {"page_alloc": "page_allocs", "page_cow": "pages_cow_copied",
+               "page_evict": "prefix_evictions"}
+
+
+def port_observability(ref: dict, backend: str | None = None) -> dict:
+    """The reference's ``observability`` section as the port records it on
+    ``backend``: its page instant events as the workers' final reports'
+    counters (``PAGE_EVENTS``, a kind it never recorded reads 0); a
+    ``place`` and a ``fetch`` span in every crossing, and a ``drain`` on
+    the card; an ``emit`` span after every prefill group and step.  Of the
+    reference's page events only the allocations and copies come before
+    the report that counts ``worker_spans``: its evictions here all come
+    when the workers drain at close."""
+    kinds = {k: v for k, v in ref["spans_by_kind"].items() if k not in PAGE_EVENTS}
+    pages = {field: ref["spans_by_kind"].get(k, 0) for k, field in PAGE_EVENTS.items()}
+    n = kinds["crossing"]
+    added = {"place": n, "fetch": n, "emit": ref["prefill_groups"] + ref["decode_steps"]}
+    if backend is None or str(backend).startswith("cuda"):
+        added["drain"] = n
+    kinds.update(added)
+    before_report = pages["page_allocs"] + pages["pages_cow_copied"]
+    return dict(ref, **pages, spans_by_kind=dict(sorted(kinds.items())),
+                worker_spans=ref["worker_spans"] - before_report + sum(added.values()))
+
+
+def mismatches(got: dict, backend: str | None = None) -> list[str]:
+    """Every field of ``got``'s sections (run on ``backend``) that differs
+    from ``BENCH_serve.json`` (its ``observability`` as the port records it)."""
     want = json.loads(BENCH_SERVE.read_text())
     out = []
     for name, fields in got.items():
         ref = want[name]
+        if name == "observability":
+            ref = port_observability(ref, backend)
         if set(fields) != set(ref):
             out.append(f"{name}: fields {sorted(fields)} != {sorted(ref)}")
         for k in sorted(set(fields) & set(ref)):
@@ -471,7 +507,7 @@ def main(argv=None) -> int:
         return 1 if problems else 0
     got = sections(args.device)
     print(json.dumps(got, indent=2, sort_keys=True))
-    bad = mismatches(got)
+    bad = mismatches(got, args.device)
     for line in bad:
         print(f"MISMATCH {line}", file=sys.stderr)
     return 1 if bad else 0

@@ -519,6 +519,28 @@ def _aval_label(avals) -> str:
     )
 
 
+def _traced_unit_call(tracer, fname: str, plan: ConversionPlan, unit,
+                      dev_args, token: int):
+    """``unit.call`` under a tracer: a ``unit`` span over the host enqueue
+    and, on CUDA, a ``drain`` span over the wait for the unit's end event
+    (the copy back would wait for it anyway), with the unit's device-clock
+    span in the ``unit`` span's args."""
+    on_card = plan.device.type == "cuda"
+    t_unit = time.perf_counter_ns()
+    interval = obs.DeviceInterval(tracer, plan.device) if on_card else None
+    outs = unit.call(plan.staged_globals, dev_args, np.int32(token))
+    t_enqueued = time.perf_counter_ns()
+    args = None
+    if interval is not None:
+        interval.stop()
+        interval.wait()
+        tracer.add(fname, obs.DRAIN, t_enqueued,
+                   time.perf_counter_ns() - t_enqueued)
+        args = interval.args()
+    tracer.add(fname, obs.UNIT, t_unit, t_enqueued - t_unit, args=args)
+    return outs
+
+
 class _CallContext:
     """Everything one in-flight call mutates: stats, emulator, interleave.
 
@@ -579,7 +601,13 @@ class _CallContext:
                 # baseline: reconstruct conversion data on every crossing
                 self.stats.conversion_builds += 1
                 plan = state._build_plan(unit, arg_avals)
+            t_place = time.perf_counter_ns()
             dev_args = plan.convert_in(args)
+            t_placed = time.perf_counter_ns()
+            self.stats.place_ns += t_placed - t_place
+            if tracer is not None:
+                tracer.add(fname, obs.PLACE, t_place, t_placed - t_place,
+                           args={"bytes": sum(t.nbytes for t in dev_args)})
             self.host_active += 1
             self.stats.max_interleave_depth = max(
                 self.stats.max_interleave_depth, self.host_active + self.emulator._depth
@@ -591,14 +619,19 @@ class _CallContext:
                 if tracer is None:
                     outs = unit.call(plan.staged_globals, dev_args, np.int32(token))
                 else:
-                    t_unit = time.perf_counter_ns()
-                    outs = unit.call(plan.staged_globals, dev_args, np.int32(token))
-                    tracer.add(fname, obs.UNIT, t_unit,
-                               time.perf_counter_ns() - t_unit)
+                    outs = _traced_unit_call(tracer, fname, plan, unit,
+                                             dev_args, token)
                 # gather results before closing the channel: convert_out
                 # waits for the device, so the crossing's wall time includes
                 # the unit's kernels
-                return plan.convert_out(outs)
+                if tracer is None:
+                    return plan.convert_out(outs)
+                t_fetch = time.perf_counter_ns()
+                host = plan.convert_out(outs)
+                tracer.add(fname, obs.FETCH, t_fetch,
+                           time.perf_counter_ns() - t_fetch,
+                           args={"bytes": sum(a.nbytes for a in host)})
+                return host
             finally:
                 stack.pop()
                 _close_reentry_channel(token)

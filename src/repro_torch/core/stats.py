@@ -34,6 +34,7 @@ class RunStats:
                                             # host region was already live (the
                                             # interleaved call chains of Fig. 3)
     max_interleave_depth: int = 0           # deepest guest/host alternation
+    place_ns: int = 0                       # host ns placing crossing arguments
     unit_latency: HistogramSet = dataclasses.field(
         default_factory=HistogramSet)      # crossing wall time per (unit, sig)
 
@@ -49,6 +50,7 @@ class RunStats:
         self.max_reentry_depth = 0
         self.nested_crossings = 0
         self.max_interleave_depth = 0
+        self.place_ns = 0
         self.unit_latency = HistogramSet()
 
     def copy(self) -> "RunStats":
@@ -81,6 +83,7 @@ class RunStats:
 _SUM_FIELDS = (
     "guest_ops", "guest_calls", "guest_to_host", "host_to_guest",
     "conversion_builds", "grt_hits", "compiles", "nested_crossings",
+    "place_ns",
 )
 _MAX_FIELDS = ("max_reentry_depth", "max_interleave_depth")
 
@@ -113,6 +116,7 @@ class ExecutionReport:
     nested_crossings: int = 0
     max_reentry_depth: int = 0
     max_interleave_depth: int = 0
+    place_ns: int = 0                       # host ns placing crossing arguments
     per_function_crossings: Counter = dataclasses.field(default_factory=Counter)
     latency: HistogramSet = dataclasses.field(
         default_factory=HistogramSet)      # crossing wall time per (unit, sig)

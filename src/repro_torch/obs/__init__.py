@@ -35,9 +35,11 @@ from .trace import (
     CROSSING,
     EMULATOR,
     FRAME,
-    PAGE_ALLOC,
-    PAGE_COW,
-    PAGE_EVICT,
+    BATCH,
+    DRAIN,
+    EMIT,
+    FETCH,
+    PLACE,
     PREFILL,
     REENTRY,
     RESULT,
@@ -45,16 +47,19 @@ from .trace import (
     STEP,
     SUBMIT,
     UNIT,
+    DeviceInterval,
     LogEvent,
     Span,
     Tracer,
     active,
+    context_trace_id,
     current,
     install,
     log_event,
     maybe_span,
     next_submission_id,
     session,
+    trace_context,
     traced,
     warn,
 )
@@ -62,12 +67,13 @@ from .trace import (
 __all__ = [
     "Histogram", "HistogramSet", "bucket_index",
     "N_BUCKETS", "BUCKET_UPPER_NS",
-    "Span", "LogEvent", "Tracer",
+    "Span", "LogEvent", "Tracer", "DeviceInterval",
     "install", "current", "active", "session", "maybe_span", "traced",
-    "warn", "log_event", "next_submission_id",
+    "warn", "log_event", "next_submission_id", "trace_context",
+    "context_trace_id",
     "SPAN_KINDS",
     "CROSSING", "UNIT", "EMULATOR", "REENTRY", "CALL", "COMPILE",
     "PREFILL", "STEP", "ADMIT_WAIT",
-    "PAGE_ALLOC", "PAGE_COW", "PAGE_EVICT",
+    "PLACE", "DRAIN", "FETCH", "EMIT", "BATCH",
     "AOT", "FRAME", "SUBMIT", "RESULT",
 ]

@@ -27,7 +27,53 @@ Design points:
 * **Trace ids.**  A tracer carries a root ``trace_id``; the cluster
   router hands its root id to every worker tracer and stamps a per-
   submission child id (``root/seq``) on submit frames, so a multi-process
-  run folds into one coherent timeline keyed by a single root.
+  run folds into one coherent timeline keyed by a single root.  Within a
+  process a thread may set a trace context (:func:`trace_context`) that
+  its spans default to: a ``MixedServer`` worker runs each batch under the
+  batch's id.
+* **Device clock beside the host's.**  Traced on CUDA, CUDA events
+  around a unit's launches (:class:`DeviceInterval`) put its device-clock
+  span in its ``unit`` span's args, placed on ``perf_counter_ns`` through
+  one anchor a device; the Chrome export draws it on a ``device`` track,
+  so a Perfetto file shows where each unit ran without a profiler.
+
+The reference's kinds are documented in ``docs/observability.md``.  The
+port's own, inside the crossing and the request:
+
+=============  ====================  ========================================
+kind           where                 one span means
+=============  ====================  ========================================
+``place``      ``core/api.py``       in a crossing: the cast and copy of every
+                                     argument to the unit's device; ``bytes``
+``unit``       ``core/api.py``       in a crossing: the host's enqueue of the
+                                     unit; traced on CUDA, ``device_ms`` and
+                                     ``device_start_ns`` (below)
+``drain``      ``core/api.py``       in a traced crossing on CUDA: the host's
+                                     wait for the unit's end event
+``fetch``      ``core/api.py``       in a crossing: the results' copy to host
+                                     memory; ``bytes``
+``emit``       ``serve/runtime.py``  a decode scheduler's host work after a
+                                     prefill group's or a step's call (page
+                                     appends, sampling, counters); ``live``
+``batch``      ``serve/runtime.py``  one batch on a ``MixedServer`` worker,
+                                     under an id of its own; ``requests``
+                                     (their ids), ``rows``, ``padded_rows``,
+                                     ``bucket``, ``batch_wait_ms`` (each
+                                     request's submit to the cut) and
+                                     ``pool_wait_ms`` (the cut to the start)
+=============  ====================  ========================================
+
+``device_ms`` is the device clock from the stream reaching the unit's
+start event to its end event: the unit's kernels, and on a stream that
+other threads also launch on (the legacy default stream, which a
+``MixedServer``'s workers share) their kernels in between and the
+device's idle too; where the host is the bound it tracks the enqueue.
+``device_start_ns`` is that start on ``perf_counter_ns``.  A request's
+waits ride its batch's span rather than spans of their own, so that a
+timeline labelling the device's idle by the shortest open span does not
+pick a waiting request over the work that ran.  The reference's
+``page_alloc``/``page_cow``/``page_evict`` events are counted instead
+(``DecodeReport.page_allocs``, ``pages_cow_copied``, ``prefix_evictions``).
 """
 from __future__ import annotations
 
@@ -46,7 +92,7 @@ from dataclasses import dataclass, field
 from .histogram import HistogramSet
 
 # --------------------------------------------------------------------------
-# Span taxonomy (docs/observability.md documents each kind)
+# Span taxonomy (docs/observability.md and the table above document each kind)
 
 CROSSING = "crossing"        # one guest→host crossing (convert/dispatch/out)
 UNIT = "unit"                # the offload-unit dispatch inside a crossing
@@ -57,9 +103,11 @@ COMPILE = "compile"          # a first-signature unit call (the compile hook)
 PREFILL = "prefill"          # one batched prefill group (decode admission)
 STEP = "step"                # one batched decode step crossing
 ADMIT_WAIT = "admit_wait"    # a stream's submit→admission wait
-PAGE_ALLOC = "page_alloc"    # a KV page allocated from the pool
-PAGE_COW = "page_cow"        # a copy-on-write page copy
-PAGE_EVICT = "page_evict"    # an LRU prefix eviction freeing pages
+PLACE = "place"              # a crossing's argument cast + copy to the device
+DRAIN = "drain"              # the wait for a unit's end event (traced, CUDA)
+FETCH = "fetch"              # a crossing's results copied to host memory
+EMIT = "emit"                # a scheduler phase's host work after its call
+BATCH = "batch"              # one batch on a MixedServer worker
 AOT = "aot"                  # AOT plan-cache save/load
 FRAME = "frame"              # a cluster channel frame (send side)
 SUBMIT = "submit"            # a routed submission (parent + worker sides)
@@ -67,8 +115,11 @@ RESULT = "result"            # a finished stream's result frame (worker side)
 
 SPAN_KINDS = (
     CROSSING, UNIT, EMULATOR, REENTRY, CALL, COMPILE, PREFILL, STEP,
-    ADMIT_WAIT, PAGE_ALLOC, PAGE_COW, PAGE_EVICT, AOT, FRAME, SUBMIT, RESULT,
+    ADMIT_WAIT, AOT, FRAME, SUBMIT, RESULT, PLACE, DRAIN, FETCH, EMIT, BATCH,
 )
+
+#: the Chrome export's thread id of the device track (one per process)
+DEVICE_TID = 0
 
 
 @dataclass
@@ -129,6 +180,9 @@ class Tracer:
         self._spans: deque[Span] = deque()
         self._logs: deque[LogEvent] = deque()
         self._lock = threading.Lock()
+        #: device index -> (perf_counter_ns, CUDA event recorded then)
+        self._anchors: dict[int, tuple] = {}
+        self._anchor_lock = threading.Lock()
 
     # -- recording ---------------------------------------------------------
 
@@ -144,7 +198,8 @@ class Tracer:
         span = Span(name=name, kind=kind, start_ns=int(start_ns),
                     dur_ns=int(dur_ns), pid=os.getpid(),
                     tid=threading.get_ident(),
-                    trace_id=trace_id or self.trace_id, args=args)
+                    trace_id=trace_id or context_trace_id() or self.trace_id,
+                    args=args)
         with self._lock:
             self.hist.record((name, kind), span.dur_ns)
             if len(self._spans) >= self.capacity:
@@ -159,7 +214,8 @@ class Tracer:
             return
         span = Span(name=name, kind=kind, start_ns=self.now(), dur_ns=None,
                     pid=os.getpid(), tid=threading.get_ident(),
-                    trace_id=trace_id or self.trace_id, args=args)
+                    trace_id=trace_id or context_trace_id() or self.trace_id,
+                    args=args)
         with self._lock:
             if len(self._spans) >= self.capacity:
                 self._spans.popleft()
@@ -175,6 +231,25 @@ class Tracer:
         finally:
             self.add(name, kind, t0, self.now() - t0,
                      trace_id=trace_id, args=args)
+
+    def device_anchor(self, device) -> tuple:
+        """``(perf_counter_ns, event)`` for CUDA ``device``: a CUDA event
+        recorded on its current stream at that host moment, which places
+        any later event of the device on the host clock.  Taken once, when
+        the tracer first sees the device: synchronise, read the clock,
+        record the event."""
+        import torch
+
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        with self._anchor_lock:
+            anchor = self._anchors.get(index)
+            if anchor is None:
+                torch.cuda.synchronize(index)
+                event = torch.cuda.Event(enable_timing=True)
+                anchor = (self.now(), event)
+                event.record(torch.cuda.current_stream(index))
+                self._anchors[index] = anchor
+        return anchor
 
     def log(self, level: str, message: str, *, origin: str | None = None,
             fields: dict | None = None) -> None:
@@ -241,6 +316,7 @@ class Tracer:
                 "ph": "M", "name": "process_name", "pid": pid, "tid": 0,
                 "args": {"name": self.process_labels.get(pid, f"pid{pid}")},
             })
+        device_pids = set()
         for s in spans:
             args = dict(s.args or {})
             if s.trace_id:
@@ -254,6 +330,17 @@ class Tracer:
             else:
                 ev.update(ph="X", dur=s.dur_ns / 1000.0)
             events.append(ev)
+            if "device_start_ns" in args:
+                # the unit's kernels, on the device's own track
+                device_pids.add(s.pid)
+                events.append({
+                    "name": s.name, "cat": s.kind, "ph": "X", "pid": s.pid,
+                    "tid": DEVICE_TID, "ts": args["device_start_ns"] / 1000.0,
+                    "dur": args["device_ms"] * 1000.0, "args": args,
+                })
+        for pid in sorted(device_pids):
+            events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                           "tid": DEVICE_TID, "args": {"name": "device"}})
         return {
             "traceEvents": events,
             "displayTimeUnit": "ms",
@@ -271,6 +358,43 @@ class Tracer:
         return payload
 
 
+class DeviceInterval:
+    """One unit's device-clock span, placed on the host clock (tracing on
+    CUDA only).
+
+    CUDA events are recorded on ``device``'s current stream before the
+    unit's first launch (construction) and after its last (:meth:`stop`);
+    :meth:`wait` blocks until the end event has run, and :meth:`args` then
+    reads the span between them and places its start on
+    ``perf_counter_ns`` through the tracer's anchor for the device, which
+    was recorded before the start event.  The span holds whatever else
+    ran on the stream between the events (see ``device_ms`` above)."""
+
+    __slots__ = ("anchor_ns", "anchor", "stream", "start", "end")
+
+    def __init__(self, tracer: Tracer, device):
+        import torch
+
+        self.anchor_ns, self.anchor = tracer.device_anchor(device)
+        self.stream = torch.cuda.current_stream(device)
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.end = torch.cuda.Event(enable_timing=True)
+        self.start.record(self.stream)
+
+    def stop(self) -> None:
+        self.end.record(self.stream)
+
+    def wait(self) -> None:
+        self.end.synchronize()
+
+    def args(self) -> dict:
+        return {
+            "device_ms": self.start.elapsed_time(self.end),
+            "device_start_ns": self.anchor_ns + round(
+                self.anchor.elapsed_time(self.start) * 1e6),
+        }
+
+
 # --------------------------------------------------------------------------
 # Process-global installation
 
@@ -278,6 +402,24 @@ _STATE = threading.local()
 _GLOBAL: Tracer | None = None
 _GLOBAL_LOCK = threading.Lock()
 _SUBMIT_SEQ = itertools.count()
+
+
+def context_trace_id() -> str | None:
+    """The calling thread's trace context (see :func:`trace_context`)."""
+    return getattr(_STATE, "trace_id", None)
+
+
+@contextlib.contextmanager
+def trace_context(trace_id: str | None):
+    """Default ``trace_id`` of every span this thread records in the body
+    (a span given its own id keeps it); the previous context comes back
+    after.  A ``MixedServer`` worker runs each batch under the batch's id."""
+    prev = context_trace_id()
+    _STATE.trace_id = trace_id
+    try:
+        yield
+    finally:
+        _STATE.trace_id = prev
 
 
 def install(tracer: Tracer | None) -> Tracer | None:

@@ -32,8 +32,6 @@ from typing import Mapping, Sequence
 
 import numpy as np
 
-from .. import obs
-
 
 @dataclasses.dataclass(frozen=True)
 class BucketLadder:
@@ -566,6 +564,7 @@ class PagedKVState:
         self.pages_shared = 0          # cumulative shared-page mappings
         self.cow_copies = 0            # copy-on-write page copies
         self.bytes_saved = 0           # page-store bytes avoided by sharing
+        self.prefix_evictions = 0      # LRU prefix entries dropped
 
     # -- lazy buffer setup ---------------------------------------------------
 
@@ -615,10 +614,6 @@ class PagedKVState:
                 self.page_allocs += 1
                 self.page_peak_in_use = max(self.page_peak_in_use,
                                             self.pages_in_use)
-                tr = obs.active()
-                if tr is not None:
-                    tr.event("page", obs.PAGE_ALLOC,
-                             args={"in_use": self.pool.in_use})
                 return page
             except RuntimeError:
                 if not self._evict_one():
@@ -651,9 +646,6 @@ class PagedKVState:
         self.table.replace(slot, index, fresh)
         self._release(page)
         self.cow_copies += 1
-        tr = obs.active()
-        if tr is not None:
-            tr.event("page", obs.PAGE_COW, args={"slot": slot})
         return fresh
 
     # -- the paged lifecycle -------------------------------------------------
@@ -854,9 +846,7 @@ class PagedKVState:
         _, (pages, _tokens) = self._prefix.popitem(last=False)
         for page in pages:
             self._release(page)
-        tr = obs.active()
-        if tr is not None:
-            tr.event("page", obs.PAGE_EVICT, args={"pages": len(pages)})
+        self.prefix_evictions += 1
         return True
 
     def clear_prefix_index(self) -> None:

@@ -84,6 +84,8 @@ class ServerReport:
     padded_rows: int = 0                # rows after bucket padding
     queue_wait_total: float = 0.0       # seconds spent queued, summed
     queue_wait_max: float = 0.0
+    pool_wait_total: float = 0.0        # of those, seconds from the batch's
+                                        # cut to a worker's start, summed
     crossings: int = 0                  # guest→host crossings serving requests
                                         # (warmup crossings appear only in
                                         # `execution`, not in crossings_per_request)
@@ -169,7 +171,8 @@ class ServerStats(_OwnerFoldingStats):
             requests=0, batches=0, fallback_requests=0, fallback_calls=0,
             oversize_splits=0, warm_compiles=0, warm_failures=0,
             request_rows=0, padded_rows=0,
-            queue_wait_total=0.0, queue_wait_max=0.0, crossings=0,
+            queue_wait_total=0.0, queue_wait_max=0.0, pool_wait_total=0.0,
+            crossings=0,
         )
 
     def record_batch(
@@ -183,6 +186,7 @@ class ServerStats(_OwnerFoldingStats):
         fallback_calls: int,
         calls: int = 1,
         splits: int = 0,
+        pool_wait: float = 0.0,
     ) -> None:
         """One logical batch, served by ``calls`` entry calls (> 1 when an
         oversized batch was split into top-bucket chunks).  Its requests
@@ -191,10 +195,12 @@ class ServerStats(_OwnerFoldingStats):
         chunks' crossings are kept out of ``crossings`` too (they still
         appear in ``execution``): ``crossings_per_request`` divides by
         compiled-path requests only, so crossings whose requests left the
-        denominator must leave the numerator with them."""
+        denominator must leave the numerator with them.  ``pool_wait`` is
+        the part of ``waits``' sum spent between the cut and the worker."""
         with self._lock:
             r = self._r
             r["requests"] += n_requests
+            r["pool_wait_total"] += pool_wait
             r["fallback_calls"] += fallback_calls
             r["batches"] += calls - fallback_calls
             if fallback_calls:
@@ -257,6 +263,8 @@ class DecodeReport:
     state_bytes: int = 0                # decode-state bytes marshalled across
                                         # serving calls (prefill outputs +
                                         # step inputs, at padded shapes)
+    step_place_s: float = 0.0           # host seconds the step calls' crossings
+                                        # spent placing their arguments
     admit_wait_total: float = 0.0       # seconds from submit() to prefill
     admit_wait_max: float = 0.0
     failures: int = 0                   # streams resolved with an exception
@@ -277,6 +285,9 @@ class DecodeReport:
     pages_cow_copied: int = 0           # copy-on-write page copies (0 in the
                                         # common page-aligned case)
     state_bytes_saved: int = 0          # page-store bytes sharing avoided
+    prefix_evictions: int = 0           # LRU prefix entries dropped (pool
+                                        # pressure, the index bound, and the
+                                        # release at close)
     # paged-kernel counters (all 0 unless the scheduler runs a paged_step
     # root — the block-sparse Pallas attention path)
     kernel_steps: int = 0               # steps served by the paged kernel
@@ -713,12 +724,13 @@ class DecodeStats(_OwnerFoldingStats):
         super().__init__(
             streams=0, tokens=0, step_tokens=0, steps=0, prefills=0,
             warm_calls=0, live_rows=0, slot_rows=0, admitted=0, crossings=0,
-            state_bytes=0, admit_wait_total=0.0, admit_wait_max=0.0,
+            state_bytes=0, step_place_s=0.0,
+            admit_wait_total=0.0, admit_wait_max=0.0,
             failures=0, page_size=0, page_capacity=0, pages_in_use=0,
             pages_peak=0, page_allocs=0, page_frees=0, cache_rows_valid=0,
             cache_rows_allocated=0, prefix_hits=0, prefix_tokens_reused=0,
             pages_shared=0, pages_cow_copied=0, state_bytes_saved=0,
-            kernel_steps=0, pages_visited=0, pages_skipped=0,
+            prefix_evictions=0, kernel_steps=0, pages_visited=0, pages_skipped=0,
         )
         # scheduler-phase wall-time distribution (DecodeReport.latency)
         self._hist = HistogramSet()
@@ -755,6 +767,7 @@ class DecodeStats(_OwnerFoldingStats):
             r["slot_rows"] += slots
             r["crossings"] += report.guest_to_host
             r["state_bytes"] += state_bytes
+            r["step_place_s"] += report.place_ns / 1e9
             r["cache_rows_valid"] += cache_valid
             r["cache_rows_allocated"] += cache_alloc
             if kernel_step:
@@ -768,7 +781,8 @@ class DecodeStats(_OwnerFoldingStats):
                     in_use: int, peak: int, allocs: int, frees: int,
                     prefix_hits: int = 0, prefix_tokens_reused: int = 0,
                     pages_shared: int = 0, pages_cow_copied: int = 0,
-                    state_bytes_saved: int = 0) -> None:
+                    state_bytes_saved: int = 0,
+                    prefix_evictions: int = 0) -> None:
         """Absolute pool counters (the loop owns the pool; these mirror it)."""
         with self._lock:
             r = self._r
@@ -783,6 +797,7 @@ class DecodeStats(_OwnerFoldingStats):
             r["pages_shared"] = pages_shared
             r["pages_cow_copied"] = pages_cow_copied
             r["state_bytes_saved"] = state_bytes_saved
+            r["prefix_evictions"] = prefix_evictions
 
     def record_retire(self, *, failed: bool = False) -> None:
         with self._lock:

@@ -41,6 +41,7 @@ as in the reference.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -80,6 +81,7 @@ class _Pending:
     request: Request
     future: Future
     submitted: float
+    id: str | int            # a submission trace id when traced, else a count
 
 
 _CLOSE = object()
@@ -175,6 +177,7 @@ class MixedServer:
         )
 
         self._stats = ServerStats()
+        self._ids = itertools.count()
         # the semaphore, not the queue, bounds outstanding work — the
         # dispatcher drains the queue into _pending immediately, so a queue
         # maxsize would never engage as backpressure
@@ -209,6 +212,8 @@ class MixedServer:
             )
         req = Request.of(args, self.ladder.seq_axis)
         fut: Future = Future()
+        tr = obs.active()
+        rid = next(self._ids) if tr is None else obs.next_submission_id(tr.trace_id)
         # blocking backpressure, taken OUTSIDE the submit lock so stalled
         # submitters never hold it against flush()/close()
         self._capacity.acquire()
@@ -217,7 +222,7 @@ class MixedServer:
                 self._capacity.release()
                 raise RuntimeError("MixedServer is closed")
             fut.add_done_callback(lambda _: self._capacity.release())
-            self._queue.put(_Pending(req, fut, time.perf_counter()))
+            self._queue.put(_Pending(req, fut, time.perf_counter(), rid))
         return fut
 
     def request(self, *args, timeout: float | None = None):
@@ -376,20 +381,57 @@ class MixedServer:
 
     def _submit_batch(self, items: list[_Pending]) -> None:
         batch = coalesce([i.request for i in items], self.ladder)
-        self._pool.submit(self._run_batch, batch, items)
+        self._pool.submit(self._run_batch, batch, items, time.perf_counter())
 
     # -- batch execution (worker threads) -----------------------------------
 
-    def _run_batch(self, batch: Batch, items: list[_Pending]) -> None:
+    def _run_batch(self, batch: Batch, items: list[_Pending], cut: float) -> None:
+        """Run one batch the dispatcher cut at ``cut`` (perf_counter s).
+        Traced, the batch gets a ``batch`` span under an id of its own,
+        which every span the batch's call records on this thread carries;
+        its args hold its requests' ids and waits (``batch_wait_ms``:
+        each one's submit to the cut; ``pool_wait_ms``: the cut to this
+        worker's start).  The span is recorded before the futures
+        resolve: a woken caller may read it."""
+        started = time.perf_counter()
+        tr = obs.active()
+        if tr is None:
+            _, outcome = self._serve_batch(batch, items, cut, started)
+        else:
+            batch_id = obs.next_submission_id(tr.trace_id)
+            with obs.trace_context(batch_id):
+                padded, outcome = self._serve_batch(batch, items, cut, started)
+            chunked = batch.padded_rows > self.ladder.max_batch
+            tr.add("batch", obs.BATCH, int(started * 1e9),
+                   tr.now() - int(started * 1e9), trace_id=batch_id,
+                   args={"requests": [str(i.id) for i in items],
+                         "rows": batch.rows, "padded_rows": padded,
+                         "bucket": self.ladder.max_batch if chunked
+                         else batch.padded_rows,
+                         "batch_wait_ms": [1e3 * (cut - i.submitted) for i in items],
+                         "pool_wait_ms": 1e3 * (started - cut)})
+        if isinstance(outcome, Exception):
+            # every caller gets the failure; a stranded future would hang
+            # its client forever
+            for i in items:
+                _resolve(i.future, exception=outcome)
+        else:
+            for i, result in zip(items, outcome):
+                _resolve(i.future, result=result)
+
+    def _serve_batch(self, batch: Batch, items: list[_Pending], cut: float,
+                     started: float) -> tuple[int, list | Exception]:
+        """Run and count one batch: ``(rows run, padded; the requests'
+        results, or the exception that failed them)``."""
+        padded = batch.padded_rows
         try:
-            started = time.perf_counter()
             waits = [started - i.submitted for i in items]
             if batch.padded_rows > self.ladder.max_batch:
                 outs, reports, fallbacks, calls, padded = self._run_chunked(batch)
             else:
                 outs, report, fallback = self._run_sized(batch.args)
                 reports, fallbacks = [report], int(fallback)
-                calls, padded = 1, batch.padded_rows
+                calls = 1
             self._stats.record_batch(
                 n_requests=len(items),
                 rows=batch.rows,
@@ -399,14 +441,11 @@ class MixedServer:
                 fallback_calls=fallbacks,
                 calls=calls,
                 splits=calls - 1,
+                pool_wait=(started - cut) * len(items),
             )
-            for i, result in zip(items, batch.split(outs)):
-                _resolve(i.future, result=result)
-        except Exception as e:  # noqa: BLE001 — every caller gets the failure;
-            # a stranded future would hang its client forever (_resolve skips
-            # the ones already delivered)
-            for i in items:
-                _resolve(i.future, exception=e)
+            return padded, list(batch.split(outs))
+        except Exception as e:  # noqa: BLE001 — delivered to every caller
+            return padded, e
 
     def _run_sized(self, args: tuple) -> tuple[tuple, Any, bool]:
         """One entry call at a ladder-shaped signature: route to the compiled
@@ -1083,7 +1122,8 @@ class DecodeScheduler:
                 prefix_tokens_reused=paged.prefix_tokens_reused,
                 pages_shared=paged.pages_shared,
                 pages_cow_copied=paged.cow_copies,
-                state_bytes_saved=paged.bytes_saved)
+                state_bytes_saved=paged.bytes_saved,
+                prefix_evictions=paged.prefix_evictions)
 
     @staticmethod
     def _state_nbytes(arrays) -> int:
@@ -1148,6 +1188,7 @@ class DecodeScheduler:
         # admit(pinned=True) adopts the references, the except path returns
         # whatever was never consumed.
         pins: dict[int, tuple[int, tuple[int, ...]]] = {}
+        phase, t_emit = "prefill", None
         try:
             prompts = pad_rows(np.stack([s.prompt for s in streams]),
                                self.capacity)
@@ -1176,7 +1217,8 @@ class DecodeScheduler:
             else:
                 outs, report = self.prefill.call_reported(prompts)
             if tr is not None:
-                tr.add(phase, obs.PREFILL, t0, tr.now() - t0,
+                t_emit = tr.now()
+                tr.add(phase, obs.PREFILL, t0, t_emit - t0,
                        args={"streams": len(streams)})
             logits = np.asarray(outs[0])
             state = [np.asarray(o) for o in outs[1:]]
@@ -1259,6 +1301,10 @@ class DecodeScheduler:
                 resolutions.append((stream, None, e))
             self._record_pool()
         finally:
+            # before the resolutions: a client they wake may read the tracer
+            if t_emit is not None:
+                tr.add(phase, obs.EMIT, t_emit, tr.now() - t_emit,
+                       args={"live": len(streams)})
             # even if the handler itself dies, queued outcomes must reach
             # their clients — a dropped resolution is a hung result()
             for stream, result, exc in resolutions:
@@ -1297,7 +1343,8 @@ class DecodeScheduler:
         try:
             outs, report = self.step.call_reported(*state_args, self._tokens)
             if tr is not None:
-                tr.add("step", obs.STEP, t0, tr.now() - t0,
+                t_emit = tr.now()
+                tr.add("step", obs.STEP, t0, t_emit - t0,
                        args={"live": len(live)})
         except Exception as e:  # noqa: BLE001 — a poisoned step fails its
             # streams (stranded futures would hang clients) but not the
@@ -1345,6 +1392,9 @@ class DecodeScheduler:
                 cache_valid=cache_valid, cache_alloc=cache_alloc)
             self._record_pool()
         finally:
+            if tr is not None:      # before the resolutions (see _prefill_group)
+                tr.add("step", obs.EMIT, t_emit, tr.now() - t_emit,
+                       args={"live": len(live)})
             # a later slot's append/record may raise (handled by _loop);
             # outcomes already queued must still reach their clients — a
             # dropped resolution is a hung result()
@@ -1379,7 +1429,8 @@ class DecodeScheduler:
             outs, report = self._paged_step.call_reported(
                 *pools, tables, lengths, self._tokens)
             if tr is not None:
-                tr.add("step", obs.STEP, t0, tr.now() - t0,
+                t_emit = tr.now()
+                tr.add("step", obs.STEP, t0, t_emit - t0,
                        args={"live": len(live), "pages_visited": visited})
         except Exception as e:  # noqa: BLE001 — same contract as _step_all:
             # a poisoned step fails its streams but never the loop
@@ -1419,6 +1470,9 @@ class DecodeScheduler:
                 kernel_step=True)
             self._record_pool()
         finally:
+            if tr is not None:      # before the resolutions (see _prefill_group)
+                tr.add("step", obs.EMIT, t_emit, tr.now() - t_emit,
+                       args={"live": len(live)})
             for stream, result, exc in resolutions:
                 _resolve(stream.future, result=result, exception=exc)
 

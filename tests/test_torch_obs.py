@@ -293,3 +293,187 @@ def test_profiled_costmodel_from_histograms_matches_dict():
         hs, CostModelConfig(crossing_cost_s=1e-3))
     assert model.decide(None, "f", ()).offload
     assert model.profile["f"].calls == 10
+
+
+# ---------------------------------------------------------------------------
+# inside the crossing: place / unit / fetch (a drain too on CUDA)
+# ---------------------------------------------------------------------------
+
+
+def phases_of(spans):
+    """``{crossing span: {kind: span}}`` for the place/unit/drain/fetch
+    spans on the crossing's thread, under its name, inside its interval."""
+    out = {}
+    for c in (s for s in spans if s.kind == obs.CROSSING):
+        inside = [s for s in spans if s.kind in (obs.PLACE, obs.UNIT, obs.DRAIN, obs.FETCH)
+                  and s.name == c.name and s.tid == c.tid and c.start_ns <= s.start_ns
+                  and s.start_ns + s.dur_ns <= c.start_ns + c.dur_ns]
+        kinds = {}
+        for s in inside:
+            assert s.kind not in kinds, (c.name, s.kind)
+            kinds[s.kind] = s
+        out[id(c)] = (c, kinds)
+    return out
+
+
+def test_crossing_phases_nest_in_order_with_their_bytes():
+    from repro_torch.core import ProgramBuilder
+
+    pb = ProgramBuilder("phases")
+    pb.constant("W", (np.random.default_rng(0).standard_normal((32, 32)) / 8).astype(np.float32))
+    dense = pb.function("dense", ["x"])
+    dense.use_global("W")
+    dense.build([dense.emit("tanh", dense.emit("matmul", "x", "W"))])
+    main = pb.function("main", ["x0"])
+    main.build([main.emit("host_print", main.call("dense", "x0"), threshold=1e6,
+                          fmt="overflow {}")])
+    hybrid = mixed.trace(pb.build("main")).plan("tech-gfp").compile(backend="cpu")
+    x = np.ones((4, 32), np.float32)
+    hybrid(x)                                     # compile outside the trace
+    with obs.session(label="phases") as tr:
+        (out,), rep = hybrid.call_reported(x)
+    crossings = list(phases_of(tr.snapshot()).values())
+    assert len(crossings) == rep.guest_to_host == 1
+    (c, kinds), = crossings
+    assert set(kinds) == {obs.PLACE, obs.UNIT, obs.FETCH}     # no drain on the CPU
+    place, unit, fetch = kinds[obs.PLACE], kinds[obs.UNIT], kinds[obs.FETCH]
+    assert place.start_ns + place.dur_ns <= unit.start_ns
+    assert unit.start_ns + unit.dur_ns <= fetch.start_ns
+    assert place.args == {"bytes": x.nbytes} and fetch.args == {"bytes": out.nbytes}
+    assert unit.args is None                      # no device_ms off the card
+    assert all(s.trace_id == tr.trace_id for s in (c, place, unit, fetch))
+    assert 0 < rep.place_ns <= place.dur_ns + c.dur_ns
+
+
+def paged_workload(n_streams: int = 3, max_new: int = 5, capacity: int = 4):
+    """Paged decode through the paged-kernel root (CPU units); returns
+    ``(outputs, report, scheduler)``, the scheduler closed."""
+    from repro_torch.models.programs import export_attn_decode_lm
+    from repro_torch.serve import StateSpec
+
+    planned = mixed.trace(export_attn_decode_lm(vocab=VOCAB, d_model=DM, max_context=32)
+                          ).plan("tech-gfp")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, VOCAB, (8,), dtype=np.int32) for _ in range(n_streams)]
+    spec = StateSpec(growing={0: 1, 1: 1}, max_context=32, page_size=4)
+    with DecodeScheduler(planned, backend="cpu", step="decode_step",
+                         paged_step="paged_decode_step", capacity=capacity,
+                         state=spec) as sched:
+        outs = [f.result(120) for f in [sched.submit(p, max_new) for p in prompts]]
+    return outs, sched.report(), sched
+
+
+def test_paged_step_places_the_pools_table_lengths_and_tokens():
+    """A paged step's crossings place, in their ``place`` spans' bytes: the
+    first both page pools, the block table, the lengths and the tokens; the
+    second (the head) the (capacity, d_model) float32 hidden rows.
+    ``step_place_s`` counts the steps' placement time; prefills and warm
+    calls stay out of it."""
+    with obs.session(label="place") as tr:
+        outs, rep, sched = paged_workload()
+    paged, capacity = sched._paged, sched.capacity
+    entry = (sum(paged.backing(k).nbytes for k in (0, 1)) + paged.table_array().nbytes
+             + paged.lengths_array().nbytes + capacity * np.dtype(np.int32).itemsize)
+    head = capacity * DM * np.dtype(np.float32).itemsize
+    step_places = [k[obs.PLACE].args["bytes"] for c, k in phases_of(tr.snapshot()).values()
+                   if c.name.startswith("paged_decode_step")]
+    assert rep.steps > 0 and rep.kernel_steps == rep.steps
+    assert len(step_places) == 2 * rep.steps
+    assert sum(step_places) == rep.steps * (entry + head)
+    assert 0 < rep.step_place_s < rep.execution.place_ns / 1e9
+
+
+def test_scheduler_emit_spans_follow_each_call():
+    """One ``emit`` span after each prefill group and each step, on the
+    scheduler's thread, after the phase's own span, with its live rows;
+    the tokens equal the untraced run's."""
+    plain_outs, _, _ = paged_workload()
+    with obs.session(label="emit") as tr:
+        outs, rep, sched = paged_workload()
+    spans = tr.snapshot()
+    emits = [s for s in spans if s.kind == obs.EMIT]
+    phases = [s for s in spans if s.kind in (obs.STEP, obs.PREFILL)]
+    assert len(emits) == len(phases) == rep.steps + rep.prefills
+    for e in emits:
+        phase = max((p for p in phases if p.start_ns + p.dur_ns <= e.start_ns),
+                    key=lambda p: p.start_ns)
+        assert e.name == phase.name and e.tid == phase.tid
+        assert e.args["live"] == phase.args.get("live", phase.args.get("streams"))
+    for a, b in zip(plain_outs, outs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_untraced_crossings_record_nothing_and_still_count():
+    tr = obs.Tracer(spans_enabled=False)
+    with obs.session(tr):
+        _, rep, _ = paged_workload(n_streams=2, max_new=3)
+    assert len(tr) == 0 and tr.hist.total_count == 0
+    assert rep.step_place_s > 0 and rep.execution.place_ns > 0
+
+
+def test_add_takes_the_thread_trace_context_until_it_is_cleared():
+    import threading
+
+    tr = obs.Tracer(label="ctx")
+    seen = {}
+
+    def worker():
+        with obs.trace_context("root/7"):
+            tr.add("in", obs.UNIT, 0, 1)
+            tr.add("own", obs.UNIT, 0, 1, trace_id="root/8")   # explicit id wins
+            with obs.trace_context("root/9"):
+                tr.event("nested", obs.COMPILE)
+            seen["restored"] = obs.context_trace_id()
+        seen["after"] = obs.context_trace_id()
+        tr.add("out", obs.UNIT, 0, 1)
+
+    with obs.trace_context("main/1"):
+        t = threading.Thread(target=worker)
+        t.start()
+        t.join()
+        tr.add("main", obs.UNIT, 0, 1)            # other threads keep their own
+    ids = {s.name: s.trace_id for s in tr.snapshot()}
+    assert ids == {"in": "root/7", "own": "root/8", "nested": "root/9",
+                   "out": tr.trace_id, "main": "main/1"}
+    assert seen == {"restored": "root/7", "after": None}
+    assert obs.context_trace_id() is None
+
+
+def test_chrome_export_draws_unit_device_time_on_a_device_track():
+    tr = obs.Tracer(label="dev")
+    tr.add("main_seg0", obs.UNIT, 1_000_000, 50_000,
+           args={"device_ms": 0.25, "device_start_ns": 1_020_000})
+    tr.add("main_seg0", obs.PLACE, 900_000, 100_000, args={"bytes": 64})
+    events = tr.chrome_trace()["traceEvents"]
+    dev = [e for e in events if e["ph"] == "X" and e["tid"] == obs.trace.DEVICE_TID]
+    host = [e for e in events if e["ph"] == "X" and e["tid"] != obs.trace.DEVICE_TID]
+    assert len(dev) == 1 and len(host) == 2
+    assert (dev[0]["ts"], dev[0]["dur"], dev[0]["name"]) == (1020.0, 250.0, "main_seg0")
+    assert any(e["ph"] == "M" and e["name"] == "thread_name" and e["args"]["name"] == "device"
+               and e["tid"] == obs.trace.DEVICE_TID for e in events)
+
+
+def test_prefix_evictions_mirror_the_index_bound():
+    """An LRU drop of a retained prefix entry counts in
+    ``DecodeReport.prefix_evictions``, and so does the release of the
+    entries still retained at close."""
+    from repro_torch.models.programs import export_attn_decode_lm
+    from repro_torch.serve import StateSpec
+
+    planned = mixed.trace(export_attn_decode_lm(vocab=VOCAB, d_model=DM, max_context=32)
+                          ).plan("tech-gfp")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, VOCAB, (8,), dtype=np.int32) for _ in range(3)]
+    counts = {}
+    for bound in (1, 64):
+        spec = StateSpec(growing={0: 1, 1: 1}, max_context=32, page_size=4,
+                         share_prefixes=True, prefix_cache_entries=bound)
+        with DecodeScheduler(planned, backend="cpu", step="decode_step",
+                             prefill_suffix="prefill_suffix", capacity=2,
+                             state=spec) as sched:
+            for p in prompts:                     # one at a time: distinct prefixes
+                sched.submit(p, 2).result(120)
+            serving = sched.report().prefix_evictions
+        counts[bound] = (serving, sched.report().prefix_evictions)
+    # each prompt registers 8 // 4 = 2 entries: 6 in all, `bound` kept till close
+    assert counts == {1: (5, 6), 64: (0, 6)}

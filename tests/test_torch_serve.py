@@ -522,3 +522,131 @@ def test_serve_exports_every_reference_name():
     assert set(jserve.__all__) <= set(tserve.__all__)
     for name in jserve.__all__:
         assert getattr(tserve, name).__module__.startswith("repro_torch.")
+
+
+# ---------------------------------------------------------------------------
+# request lifecycles: batch spans (with their requests' waits) and pool_wait_total
+# ---------------------------------------------------------------------------
+
+
+LIFECYCLE_REQS = [rows(1, seed=90 + i) for i in range(10)] + [rows(2, seed=110 + i)
+                                                             for i in range(3)]
+
+
+def serve_clients(planned, reqs=LIFECYCLE_REQS, workers: int = 2):
+    """Concurrent clients on a warm server; ``(outputs, report)``."""
+    with MixedServer(planned, backend="cpu", workers=workers, max_batch_delay=0.01,
+                     ladder=BucketLadder(batch_sizes=(1, 2, 4))) as server:
+        server.warm(reqs[0])
+        before = server.report()
+        results = [None] * len(reqs)
+
+        def client(i):
+            results[i] = server.request(reqs[i])
+
+        ts = [threading.Thread(target=client, args=(i,)) for i in range(len(reqs))]
+        [t.start() for t in ts]
+        [t.join() for t in ts]
+    after = server.report()
+    delta = {k: getattr(after, k) - getattr(before, k)
+             for k in ("requests", "queue_wait_total", "pool_wait_total", "batches")}
+    return results, after, delta
+
+
+@pytest.fixture(scope="module")
+def lifecycle_runs():
+    from repro_torch import obs
+
+    planned = mixed.trace(build_program()).plan("tech-gfp")
+    plain = serve_clients(planned)
+    with obs.session(label="serve") as tracer:
+        traced = serve_clients(planned)
+    return plain, traced, tracer.snapshot()
+
+
+def test_server_outputs_bit_identical_traced_or_not(lifecycle_runs):
+    (plain, _, _), (traced, _, _), spans = lifecycle_runs
+    for a, b in zip(plain, traced):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    assert spans
+
+
+def test_every_request_has_one_batch_wait_and_one_pool_wait(lifecycle_runs):
+    """Each request's two waits ride the one ``batch`` span that lists its
+    id (``batch_wait_ms``: submit to the cut; ``pool_wait_ms``: the cut to
+    the worker's start, shared by the batch) and add up to
+    ``queue_wait_total`` (submit to worker start), the second part to
+    ``pool_wait_total``.  No span of their own covers the waits."""
+    from repro_torch import obs
+
+    _, (_, rep, delta), spans = lifecycle_runs
+    batches = [s for s in spans if s.kind == obs.BATCH]
+    ids = [rid for b in batches for rid in b.args["requests"]]
+    assert len(ids) == len(set(ids)) == delta["requests"] == len(LIFECYCLE_REQS)
+    total_ms = pool_ms = 0.0
+    for b in batches:
+        waits = b.args["batch_wait_ms"]
+        assert len(waits) == len(b.args["requests"])
+        assert min(waits) >= 0 and b.args["pool_wait_ms"] >= 0
+        total_ms += sum(waits) + len(waits) * b.args["pool_wait_ms"]
+        pool_ms += len(waits) * b.args["pool_wait_ms"]
+    assert abs(total_ms / 1e3 - delta["queue_wait_total"]) < 1e-3
+    assert abs(pool_ms / 1e3 - delta["pool_wait_total"]) < 1e-3
+    assert 0 <= delta["pool_wait_total"] <= delta["queue_wait_total"]
+    assert {s.kind for s in spans} <= set(obs.SPAN_KINDS)
+
+
+def test_batch_spans_list_the_requests_they_resolved(lifecycle_runs):
+    """A ``batch`` span lists the distinct requests it served under their
+    submission ids, with their rows padded to its bucket, and every span
+    of its call carries its own id."""
+    from repro_torch import obs
+
+    _, (_, _, delta), spans = lifecycle_runs
+    batches = [s for s in spans if s.kind == obs.BATCH]
+    assert len(batches) == delta["batches"]                   # warm: no fallback
+    by_id = {b.trace_id: b for b in batches}
+    assert len(by_id) == len(batches)
+    for b in batches:
+        n = len(b.args["requests"])
+        assert n <= b.args["rows"] <= 2 * n                   # 1- and 2-row requests
+        assert b.args["rows"] <= b.args["padded_rows"] == b.args["bucket"]
+        assert b.args["bucket"] in (1, 2, 4)
+        assert all(rid.startswith(b.trace_id.split("/")[0] + "/") and rid != b.trace_id
+                   for rid in b.args["requests"])
+    workers = {b.tid for b in batches}            # warm() calls run elsewhere
+    inner = [s for s in spans if s.tid in workers and s.kind in (
+        obs.CALL, obs.CROSSING, obs.PLACE, obs.UNIT, obs.FETCH)]
+    assert inner
+    for s in inner:
+        b = by_id[s.trace_id]                                 # a batch's id
+        assert b.tid == s.tid
+        assert b.start_ns <= s.start_ns and s.start_ns + s.dur_ns <= b.start_ns + b.dur_ns
+
+
+def test_untraced_server_records_no_spans_and_counts_its_waits():
+    """Tracing off (a tracer with spans disabled installed): nothing is
+    recorded, and ``pool_wait_total`` and the crossings' ``place_ns`` still
+    advance."""
+    from repro_torch import obs
+
+    planned = mixed.trace(build_program()).plan("tech-gfp")
+    with obs.session(spans_enabled=False) as tracer:
+        _, rep, delta = serve_clients(planned, LIFECYCLE_REQS[:6], workers=1)
+    assert len(tracer) == 0 and tracer.spans_dropped == 0
+    assert delta["requests"] == 6
+    assert 0 < delta["pool_wait_total"] <= delta["queue_wait_total"]
+    assert rep.execution.place_ns > 0
+
+
+def test_worker_trace_context_is_cleared_after_each_batch():
+    from repro_torch import obs
+
+    planned = mixed.trace(build_program()).plan("tech-gfp")
+    with obs.session(label="ctx"), MixedServer(planned, backend="cpu", workers=1) as server:
+        server.warm(LIFECYCLE_REQS[0])
+        server.request(LIFECYCLE_REQS[0])
+        # the pool's one worker thread, after its batch
+        assert server._pool.submit(obs.context_trace_id).result(60) is None

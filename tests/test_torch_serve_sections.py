@@ -5,7 +5,8 @@ burst), ``decode_cluster`` (one worker, ``save_aot``, two workers booted
 from the cache) and ``observability`` (the traced cluster run) come from
 :mod:`repro_torch.bench.serve_sections`, the port's copies of the
 reference's section workloads, and equal the committed file field by
-field.  The cluster's tokens also equal the JAX package's solo decode of
+field (``observability`` as the port's span taxonomy records the
+reference's run, ``serve_sections.port_observability``).  The cluster's tokens also equal the JAX package's solo decode of
 the same prompts.
 """
 import json
@@ -65,4 +66,4 @@ def test_decode_cluster_tokens_equal_reference(cluster_run):
 
 def test_observability_equals_bench_serve():
     got = ss.sections("cpu", ["observability"])
-    assert ss.mismatches(got) == []
+    assert ss.mismatches(got, "cpu") == []

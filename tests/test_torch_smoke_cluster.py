@@ -63,7 +63,9 @@ def test_cluster_rows_are_bench_serves(cluster_rows):
 
 
 def test_trace_rows_are_bench_serves(trace_rows):
-    m = BENCH["observability"]
+    from repro_torch.bench import serve_sections
+
+    m = serve_sections.port_observability(BENCH["observability"], "cpu")
     kinds = m["spans_by_kind"]
     W, N, lens = smoke_cluster.WORKERS, smoke_cluster.N_STREAMS, smoke_cluster.LENS
     # the reference's literal expectations (benchmarks/smoke_trace.py:127-174)
