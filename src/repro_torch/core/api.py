@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from .. import obs
-from .convert import ConversionPlan, aval_of, build_plan, signature_of
+from .convert import ConversionPlan, Resident, aval_of, build_plan, signature_of
 from .costmodel import CostModel, CostModelConfig
 from .emulator import Emulator
 from .fcp import HostOnlyOpError
@@ -605,9 +605,20 @@ class _CallContext:
             dev_args = plan.convert_in(args)
             t_placed = time.perf_counter_ns()
             self.stats.place_ns += t_placed - t_place
+            placed = resident = 0
+            for a, t in zip(args, dev_args):
+                if isinstance(a, Resident):
+                    resident += a.nbytes
+                else:
+                    placed += t.nbytes
+            self.stats.placed_bytes += placed
+            self.stats.resident_bytes += resident
             if tracer is not None:
+                span_args = {"bytes": placed}
+                if resident:
+                    span_args["resident_bytes"] = resident
                 tracer.add(fname, obs.PLACE, t_place, t_placed - t_place,
-                           args={"bytes": sum(t.nbytes for t in dev_args)})
+                           args=span_args)
             self.host_active += 1
             self.stats.max_interleave_depth = max(
                 self.stats.max_interleave_depth, self.host_active + self.emulator._depth
@@ -821,7 +832,7 @@ class CompiledHybrid:
                 f"{program.entry}: expected {len(entry_params)} args "
                 f"({', '.join(entry_params)}), got {len(args)}"
             )
-        args = [np.asarray(a) for a in args]
+        args = [a if isinstance(a, Resident) else np.asarray(a) for a in args]
         sig = signature_of(args)
         state, hit = self._state_for(sig)
         self._last_state = state

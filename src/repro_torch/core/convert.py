@@ -22,6 +22,12 @@ world running the same guest program) the host side is a DTensor per value
 (:mod:`repro_torch.parallel.units`): ``convert_in`` keeps this rank's shard
 of each argument by its spec (``None``: replicated), the staged globals are
 replicated, and ``convert_out`` gives every rank the full value.
+
+A guest value may also be a :class:`Resident`: a handle on a tensor that
+already lives on the unit's device (the paper's calling channel carrying a
+reference, not the bytes, as the staged globals do).  ``convert_in`` hands
+the tensor over as it is; nothing copies it back to the guest, which can
+only pass it on to another unit.
 """
 from __future__ import annotations
 
@@ -31,11 +37,53 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from .opset import AVal, canonical_dtype
+from .opset import AVal, canonical_dtype, numpy_dtype
 from .program import Program
 
 
+class Resident:
+    """A guest value that is a tensor already on a unit's device.
+
+    The tensor is in its canonical 32-bit dtype; the handle shows the guest
+    its ``shape``, numpy ``dtype`` and ``nbytes``, so its aval (and every
+    signature it is part of) equals that of a numpy array of the same shape.
+    A crossing passes it to the unit by reference; a guest leaf op given one
+    raises, and so does any attempt to read it as a numpy array.
+    """
+
+    __slots__ = ("tensor", "dtype")
+
+    def __init__(self, tensor: torch.Tensor):
+        dtype = numpy_dtype(tensor.dtype)
+        if canonical_dtype(dtype) != dtype:
+            raise TypeError(f"a resident value is held in its canonical dtype "
+                            f"{canonical_dtype(dtype)}, not {dtype}")
+        self.tensor = tensor
+        self.dtype = dtype
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(self.tensor.shape)
+
+    @property
+    def nbytes(self) -> int:
+        return self.tensor.nbytes
+
+    @property
+    def device(self) -> torch.device:
+        return self.tensor.device
+
+    def __array__(self, *args, **kwargs):
+        raise TypeError(f"a resident {self.dtype}{list(self.shape)} on {self.device} "
+                        f"is never copied back to the guest")
+
+    def __repr__(self) -> str:
+        return f"Resident({self.dtype}{list(self.shape)} on {self.device})"
+
+
 def aval_of(x) -> AVal:
+    if isinstance(x, Resident):
+        return AVal(x.shape, str(x.dtype))
     a = np.asarray(x)
     return AVal(tuple(a.shape), str(a.dtype))
 
@@ -74,11 +122,28 @@ class ConversionPlan:
 
     # -- marshaling ---------------------------------------------------------
 
-    def convert_in(self, args: Sequence[np.ndarray]) -> tuple[torch.Tensor, ...]:
+    def convert_in(self, args: Sequence[np.ndarray | Resident]) -> tuple[torch.Tensor, ...]:
         """Guest → host: cast + place every argument on the unit's device
-        (under a mesh: this rank's shard of it, as a DTensor)."""
+        (under a mesh: this rank's shard of it, as a DTensor).  A
+        :class:`Resident` argument on the unit's device is passed as it is;
+        one on another device, one in another float dtype than the unit
+        computes in, or one under a mesh raises."""
         out = []
         for i, a in enumerate(args):
+            if isinstance(a, Resident):
+                if self.mesh is not None:
+                    raise ValueError(f"{self.fname}: a resident argument cannot cross "
+                                     f"to a unit sharded over {self.mesh}")
+                if a.device != self.device:
+                    raise ValueError(f"{self.fname}: {a!r} cannot cross to a unit on "
+                                     f"{self.device}: it is passed by reference only")
+                if (self.compute_dtype is not None
+                        and np.issubdtype(a.dtype, np.floating)
+                        and a.dtype != np.dtype(self.compute_dtype)):
+                    raise ValueError(f"{self.fname}: {a!r} is not in the unit's "
+                                     f"compute dtype {self.compute_dtype}")
+                out.append(a.tensor)
+                continue
             a = np.asarray(a)
             if (
                 self.compute_dtype is not None

@@ -7,6 +7,10 @@ slow: each op pays Python dispatch, parameter decoding, and materializes its
 result as a fresh host array, the same per-instruction tax that makes DBT
 "dozens of times slower than native".
 
+A guest value may be a :class:`~repro_torch.core.convert.Resident` (a
+tensor already on a unit's device): the emulator passes it on to calls,
+and a leaf op given one raises, so it is never silently copied back.
+
 Reentrancy: the emulator is a plain re-entrant object — offloaded host code
 may call back into :meth:`Emulator.run` from inside a unit's guest callback
 while an outer :meth:`run` is still on the Python stack (nested guest frames
@@ -20,6 +24,7 @@ from typing import Protocol, Sequence
 import numpy as np
 
 from ..obs import EMULATOR
+from .convert import Resident
 from .program import Program, Op
 from .stats import RunStats
 
@@ -53,7 +58,8 @@ class Emulator:
         self._depth += 1
         self.stats.max_reentry_depth = max(self.stats.max_reentry_depth, self._depth)
         try:
-            return self._run_function(fname, [np.asarray(a) for a in args])
+            return self._run_function(
+                fname, [a if isinstance(a, Resident) else np.asarray(a) for a in args])
         finally:
             self._depth -= 1
 
@@ -115,6 +121,11 @@ class Emulator:
             return outs
         # leaf op: guest-side numpy execution ("translated block").
         self.stats.guest_ops += 1
+        for x in ins:
+            if isinstance(x, Resident):
+                raise TypeError(
+                    f"guest op {op.kind!r} was given {x!r}: a resident value "
+                    f"only crosses to an offload unit, the guest never reads it")
         opdef = op.opdef()
         result = opdef.numpy_fn(op.params, *ins)
         # guest memory model: every result is materialized as a host array

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 
@@ -174,6 +174,22 @@ class OffloadPlan:
     coverage: Coverage
     decisions: dict[str, str]           # fname -> human-readable reason
     call_avals: dict[str, tuple[AVal, ...]] = dataclasses.field(default_factory=dict)
+
+    def units_only_read(self, params: Sequence[int]) -> bool:
+        """Whether the root's parameters at positions ``params`` reach
+        nothing but offload units: the root is a unit itself, or every use
+        of each in its body is an operand of a ``call`` to a unit and none
+        is returned.  Such arguments may cross as
+        :class:`~repro_torch.core.convert.Resident` values, which no guest
+        op reads."""
+        root = self.program.functions[self.program.entry]
+        if root.name in self.units:
+            return True
+        names = {root.args[i] for i in params}
+        if names.intersection(root.returns):
+            return False
+        return all(op.kind == "call" and op.callee in self.units
+                   for op in root.ops if names.intersection(op.inputs))
 
 
 def unit_cache_key(

@@ -35,6 +35,8 @@ class RunStats:
                                             # interleaved call chains of Fig. 3)
     max_interleave_depth: int = 0           # deepest guest/host alternation
     place_ns: int = 0                       # host ns placing crossing arguments
+    placed_bytes: int = 0                   # argument bytes convert_in copied
+    resident_bytes: int = 0                 # argument bytes passed by reference
     unit_latency: HistogramSet = dataclasses.field(
         default_factory=HistogramSet)      # crossing wall time per (unit, sig)
 
@@ -51,6 +53,8 @@ class RunStats:
         self.nested_crossings = 0
         self.max_interleave_depth = 0
         self.place_ns = 0
+        self.placed_bytes = 0
+        self.resident_bytes = 0
         self.unit_latency = HistogramSet()
 
     def copy(self) -> "RunStats":
@@ -83,7 +87,7 @@ class RunStats:
 _SUM_FIELDS = (
     "guest_ops", "guest_calls", "guest_to_host", "host_to_guest",
     "conversion_builds", "grt_hits", "compiles", "nested_crossings",
-    "place_ns",
+    "place_ns", "placed_bytes", "resident_bytes",
 )
 _MAX_FIELDS = ("max_reentry_depth", "max_interleave_depth")
 
@@ -117,6 +121,8 @@ class ExecutionReport:
     max_reentry_depth: int = 0
     max_interleave_depth: int = 0
     place_ns: int = 0                       # host ns placing crossing arguments
+    placed_bytes: int = 0                   # argument bytes convert_in copied
+    resident_bytes: int = 0                 # argument bytes passed by reference
     per_function_crossings: Counter = dataclasses.field(default_factory=Counter)
     latency: HistogramSet = dataclasses.field(
         default_factory=HistogramSet)      # crossing wall time per (unit, sig)

@@ -45,6 +45,8 @@ kind           where                 one span means
 =============  ====================  ========================================
 ``place``      ``core/api.py``       in a crossing: the cast and copy of every
                                      argument to the unit's device; ``bytes``
+                                     (copied), and ``resident_bytes`` where
+                                     arguments passed by reference
 ``unit``       ``core/api.py``       in a crossing: the host's enqueue of the
                                      unit; traced on CUDA, ``device_ms`` and
                                      ``device_start_ns`` (below)

@@ -31,6 +31,10 @@ from collections import OrderedDict
 from typing import Mapping, Sequence
 
 import numpy as np
+import torch
+
+from ..core.convert import Resident
+from ..core.opset import canonical_dtype, torch_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -492,6 +496,12 @@ class BlockTable:
         return pages
 
 
+def _host(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor on ``a``'s memory (one host copy first where ``a`` is
+    not contiguous or not writable)."""
+    return torch.from_numpy(np.require(a, requirements=("C", "W")))
+
+
 class PagedKVState:
     """Paged storage for the growing state arrays of a decode scheduler.
 
@@ -523,6 +533,17 @@ class PagedKVState:
     ever writes the tail page and shared prefixes are page-aligned, the
     common case performs **zero** copies.
 
+    **Storage.**  The backing buffers are numpy arrays on the host, or, when
+    the owner passes a ``device`` to :meth:`ensure_buffers`, torch tensors
+    on that device, which :meth:`backing` hands out as
+    :class:`~repro_torch.core.convert.Resident` values that cross to a unit
+    by reference.  On a device, an admission lands its rows with one copy
+    and one scatter per array, the rows :meth:`append_row` takes are held on
+    the host until :meth:`flush` lands them all with one copy and one
+    indexed write per array, and :meth:`gather_pages` brings back only the
+    pages it reads.  Both storages hold the same bytes after the same
+    operations.
+
     Not thread-safe; owned by the scheduler's decode loop.
     """
 
@@ -550,7 +571,10 @@ class PagedKVState:
         self.page_peak_in_use = 0
         self.table = BlockTable(capacity)
         self.lengths = [0] * capacity          # filled context per slot
-        self._backing: dict[int, np.ndarray] = {}   # state idx -> pages buffer
+        self._backing: dict[int, np.ndarray | torch.Tensor] = {}  # idx -> pages
+        self.device: torch.device | None = None   # the buffers' device; None: numpy
+        # appended rows not yet on the device: (flat position, rows by idx)
+        self._pending: list[tuple[int, Mapping[int, np.ndarray]]] = []
         self._dense_shape: dict[int, tuple] = {}    # state idx -> batched shape
         self._dtype: dict[int, np.dtype] = {}
         # prefix index: digest key -> (pages, prefix tokens), LRU-ordered.
@@ -568,10 +592,16 @@ class PagedKVState:
 
     # -- lazy buffer setup ---------------------------------------------------
 
-    def ensure_buffers(self, idx: int, batched: np.ndarray) -> None:
-        """Size the backing buffer for state ``idx`` from a prefill output."""
+    def ensure_buffers(self, idx: int, batched: np.ndarray,
+                       device: torch.device | None = None) -> None:
+        """Size the backing buffer for state ``idx`` from a prefill output,
+        zero-filled: a numpy array, or a tensor on ``device`` (every buffer
+        of a state lives in one place)."""
         if idx in self._backing:
             return
+        if self._backing and device != self.device:
+            raise ValueError(f"state {idx} on {device}, but the other growing "
+                             f"arrays live on {self.device}")
         axis = self.spec.growing[idx]
         if batched.ndim <= axis:
             raise ValueError(
@@ -586,8 +616,12 @@ class PagedKVState:
                 f"program and the spec with the same padded context"
             )
         inner = tuple(d for i, d in enumerate(batched.shape) if i not in (0, axis))
-        self._backing[idx] = np.zeros(
-            (self.pool.pages, self.spec.page_size) + inner, batched.dtype)
+        shape = (self.pool.pages, self.spec.page_size) + inner
+        self.device = device
+        self._backing[idx] = (
+            np.zeros(shape, batched.dtype) if device is None else
+            torch.zeros(shape, dtype=torch_dtype(canonical_dtype(batched.dtype)),
+                        device=device))
         self._dense_shape[idx] = tuple(batched.shape)
         self._dtype[idx] = batched.dtype
 
@@ -641,8 +675,9 @@ class PagedKVState:
         if self.pool.refcount(page) == 1:
             return page
         fresh = self._alloc()
+        self.flush()
         for buf in self._backing.values():
-            buf[fresh][:] = buf[page]
+            buf[fresh] = buf[page]              # on a device: device to device
         self.table.replace(slot, index, fresh)
         self._release(page)
         self.cow_copies += 1
@@ -691,18 +726,36 @@ class PagedKVState:
             self.bytes_saved += shared_len * self._position_nbytes()
         for _ in range(len(shared_pages), self.spec.pages_needed(length)):
             self.table.append(slot, self._alloc())
+        flat: list[int] = []                    # device: each written position
         for j in range(shared_len // ps, self.spec.pages_needed(length)):
             lo = max(j * ps, shared_len)        # first position to write
             hi = min((j + 1) * ps, length)
             if hi <= lo:
                 continue
             page = self._writable_page(slot, j)
+            if self.device is not None:
+                # the rows, then the last page's zero tail
+                end = (j + 1) * ps if hi == length else hi
+                flat.extend(range(page * ps + lo - j * ps, page * ps + end - j * ps))
+                continue
             for idx, row in rows.items():
                 src = self._ctx_first(np.asarray(row), idx)
                 buf = self._backing[idx]
                 buf[page][lo - j * ps:hi - j * ps] = src[lo:hi]
                 if hi == length:
                     buf[page][hi - j * ps:] = 0
+        if flat:
+            # written positions run from shared_len to length, then zeros;
+            # held rows land first, so a page freed and taken again keeps
+            # this write, as in order
+            self.flush()
+            at = torch.from_numpy(np.asarray(flat, np.int64)).to(self.device)
+            for idx, row in rows.items():
+                buf = self._backing[idx]
+                vals = buf.new_zeros((len(flat),) + buf.shape[2:])
+                vals[:length - shared_len].copy_(_host(
+                    self._ctx_first(np.asarray(row), idx)[shared_len:length]))
+                self._flat(idx).index_copy_(0, at, vals)
         self.lengths[slot] = length
 
     def append(self, slot: int, rows: Mapping[int, np.ndarray]) -> None:
@@ -737,9 +790,37 @@ class PagedKVState:
         if position % ps == 0 and len(self.table.pages(slot)) <= position // ps:
             self.table.append(slot, self._alloc())
         page = self._writable_page(slot, position // ps)
-        for idx, row in rows.items():
-            self._backing[idx][page][position % ps] = np.asarray(row)
+        if self.device is not None:
+            self._pending.append((page * ps + position % ps, rows))
+        else:
+            for idx, row in rows.items():
+                self._backing[idx][page][position % ps] = np.asarray(row)
         self.lengths[slot] = position + 1
+
+    def flush(self) -> None:
+        """Land the rows :meth:`append_row` holds on the host (device
+        storage): one host-to-device copy and one indexed write per growing
+        array, whatever the number of rows.  Where a page freed in between
+        was taken again, the later row wins, as in order.  Every reader of
+        the device buffers flushes first."""
+        if not self._pending:
+            return
+        pending, self._pending = self._pending, []
+        flat = np.asarray([p for p, _ in pending], np.int64)
+        keep = np.arange(len(flat))
+        if np.unique(flat).size < flat.size:
+            _, last = np.unique(flat[::-1], return_index=True)
+            keep = np.sort(len(flat) - 1 - last)
+        at = torch.from_numpy(flat[keep]).to(self.device)
+        for idx in pending[0][1]:
+            flat_buf = self._flat(idx)
+            rows = _host(np.stack([np.asarray(pending[i][1][idx]) for i in keep]))
+            flat_buf.index_copy_(0, at, rows.to(self.device, flat_buf.dtype))
+
+    def _flat(self, idx: int) -> torch.Tensor:
+        """Device buffer ``idx`` with one row per (page, offset)."""
+        buf = self._backing[idx]
+        return buf.view((-1,) + tuple(buf.shape[2:]))
 
     def retire(self, slot: int) -> None:
         """Drop the slot's references; unshared pages recycle immediately.
@@ -855,7 +936,11 @@ class PagedKVState:
             pass
 
     def gather(self, idx: int) -> np.ndarray:
-        """Materialize state ``idx`` at its fixed padded batched shape."""
+        """Materialize state ``idx`` at its fixed padded batched shape (host
+        storage only: the dense step that reads it keeps its pools there)."""
+        if self.device is not None:
+            raise RuntimeError("gather reads host pools; these live on "
+                               f"{self.device}")
         ps = self.spec.page_size
         dense = np.zeros(self._dense_shape[idx], self._dtype[idx])
         buf = self._backing[idx]
@@ -883,22 +968,36 @@ class PagedKVState:
         """
         ps = self.spec.page_size
         dense = np.zeros(self._dense_shape[idx], self._dtype[idx])
+        reads = [(row, j, page, min(ps, length - j * ps))
+                 for row, (pages, length) in enumerate(row_pages)
+                 for j, page in enumerate(pages) if length > j * ps]
+        if not reads:
+            return dense
         buf = self._backing[idx]
-        for row, (pages, length) in enumerate(row_pages):
-            dst = self._ctx_first(dense[row], idx)
-            for j, page in enumerate(pages):
-                extent = min(ps, length - j * ps)
-                if extent > 0:
-                    dst[j * ps:j * ps + extent] = buf[page][:extent]
+        if self.device is not None:
+            # only the pages read come back, each once (rows may share
+            # them), in one copy
+            self.flush()
+            ids, at = np.unique(np.asarray([r[2] for r in reads], np.int64),
+                                return_inverse=True)
+            buf = buf[torch.from_numpy(ids).to(self.device)].cpu().numpy()
+        for i, (row, j, page, extent) in enumerate(reads):
+            src = buf[at[i]] if self.device is not None else buf[page]
+            self._ctx_first(dense[row], idx)[j * ps:j * ps + extent] = src[:extent]
         return dense
 
-    def backing(self, idx: int) -> np.ndarray:
+    def backing(self, idx: int) -> np.ndarray | Resident:
         """State ``idx``'s pool backing buffer, ``(pages, page_size, inner)``.
 
-        This IS the array the paged-kernel step consumes — handed to the
-        crossing as-is, zero-copy, instead of a dense per-stream gather.
+        This IS the array the paged-kernel step consumes, instead of a dense
+        per-stream gather: the numpy array, or, on a device, the
+        :class:`~repro_torch.core.convert.Resident` handle the crossing
+        passes to the unit by reference, every appended row landed.
         """
-        return self._backing[idx]
+        if self.device is None:
+            return self._backing[idx]
+        self.flush()
+        return Resident(self._backing[idx])
 
     def table_array(self) -> np.ndarray:
         """Block tables as one dense ``(capacity, pages_per_stream)`` int32.

@@ -260,11 +260,16 @@ class DecodeReport:
     crossings: int = 0                  # guest→host crossings serving streams
                                         # (prefills + steps; warmups appear
                                         # only in `execution`)
-    state_bytes: int = 0                # decode-state bytes marshalled across
+    state_bytes: int = 0                # decode-state bytes handed across
                                         # serving calls (prefill outputs +
-                                        # step inputs, at padded shapes)
+                                        # step inputs, at padded shapes;
+                                        # resident pools by their size)
     step_place_s: float = 0.0           # host seconds the step calls' crossings
                                         # spent placing their arguments
+    step_placed_bytes: int = 0          # argument bytes the step calls'
+                                        # crossings copied to the device
+    step_resident_bytes: int = 0        # argument bytes they passed by
+                                        # reference (resident page pools)
     admit_wait_total: float = 0.0       # seconds from submit() to prefill
     admit_wait_max: float = 0.0
     failures: int = 0                   # streams resolved with an exception
@@ -724,7 +729,8 @@ class DecodeStats(_OwnerFoldingStats):
         super().__init__(
             streams=0, tokens=0, step_tokens=0, steps=0, prefills=0,
             warm_calls=0, live_rows=0, slot_rows=0, admitted=0, crossings=0,
-            state_bytes=0, step_place_s=0.0,
+            state_bytes=0, step_place_s=0.0, step_placed_bytes=0,
+            step_resident_bytes=0,
             admit_wait_total=0.0, admit_wait_max=0.0,
             failures=0, page_size=0, page_capacity=0, pages_in_use=0,
             pages_peak=0, page_allocs=0, page_frees=0, cache_rows_valid=0,
@@ -768,6 +774,8 @@ class DecodeStats(_OwnerFoldingStats):
             r["crossings"] += report.guest_to_host
             r["state_bytes"] += state_bytes
             r["step_place_s"] += report.place_ns / 1e9
+            r["step_placed_bytes"] += report.placed_bytes
+            r["step_resident_bytes"] += report.resident_bytes
             r["cache_rows_valid"] += cache_valid
             r["cache_rows_allocated"] += cache_alloc
             if kernel_step:

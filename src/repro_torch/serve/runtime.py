@@ -49,10 +49,12 @@ from concurrent.futures import Future, InvalidStateError, ThreadPoolExecutor
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from .. import obs
 from ..core.api import CompiledHybrid, PlannedProgram
-from ..core.convert import signature_of
+from ..core.convert import Resident, signature_of
+from ..core.opset import AVal, canonical_dtype, torch_dtype
 from ..core.offload import Scheme
 from .batcher import (
     Batch,
@@ -633,8 +635,14 @@ class DecodeScheduler:
     array *directly* (the gather/append re-materialization of dense K/V
     disappears entirely), the kernel inside visits only live pages
     (``pages_visited``/``pages_skipped``/``kernel_steps`` in the report),
-    and the returned per-stream k/v rows are appended into pages
-    host-side.  Tokens stay bit-identical to
+    and the returned per-stream k/v rows are appended into pages.  The
+    pools live on the step's device when its plan lets them cross by
+    reference (every use of them in the root is an operand of an offload
+    unit's call, :meth:`~repro_torch.core.offload.OffloadPlan.units_only_read`):
+    the crossing then passes them to the unit as
+    :class:`~repro_torch.core.convert.Resident` values and places only the
+    table, the lengths and the tokens.  Otherwise (an emulated root, a
+    mesh) they stay numpy and are placed every step.  Tokens stay bit-identical to
     :func:`paged_decode_reference` — same kernel, same fixed shapes, and
     the page walk is physical-page-id invariant — and match
     :func:`decode_reference` on the workloads the smoke gates pin down.
@@ -948,15 +956,17 @@ class DecodeScheduler:
             self._stats.record_warm(rep)
         if self._paged_step is not None:
             spec = self.state_spec
+            device = _pools_device(self._paged_step, self._paged, state)
             pools = []
             for k in sorted(spec.growing):
                 axis = spec.growing[k]
                 s = state[k]
                 inner = tuple(d for i, d in enumerate(s.shape)
                               if i not in (0, axis))
-                pools.append(np.zeros(
-                    (spec.pool_pages(self.capacity), spec.page_size) + inner,
-                    s.dtype))
+                shape = (spec.pool_pages(self.capacity), spec.page_size) + inner
+                pools.append(np.zeros(shape, s.dtype) if device is None else Resident(
+                    torch.zeros(shape, dtype=torch_dtype(canonical_dtype(s.dtype)),
+                                device=device)))
             tables = np.zeros((self.capacity, spec.pages_per_stream), np.int32)
             lengths = np.zeros((self.capacity,), np.int32)
             _, rep = self._paged_step.call_reported(
@@ -1127,7 +1137,8 @@ class DecodeScheduler:
 
     @staticmethod
     def _state_nbytes(arrays) -> int:
-        return int(sum(np.asarray(a).nbytes for a in arrays))
+        """Logical bytes of state handed to a call, resident pools included."""
+        return int(sum(a.nbytes for a in arrays))
 
     def _suffix_args(
         self,
@@ -1241,8 +1252,9 @@ class DecodeScheduler:
                                for k, v in enumerate(self._state)]
                 self._state_writable = True
             if self._paged is not None:
+                device = _pools_device(self._paged_step, self._paged, state)
                 for k in growing:
-                    self._paged.ensure_buffers(k, state[k])
+                    self._paged.ensure_buffers(k, state[k], device)
                 self._paged_dirty = True
             prompt_len = streams[0].prompt.shape[0]
             emitted = 0
@@ -1459,6 +1471,7 @@ class DecodeScheduler:
                                   resolutions=resolutions):
                     self._tokens[slot] = stream._generated[-1]
                 emitted += len(stream._generated) - before
+            paged.flush()           # device pools: the step's rows in one copy
             self._stats.record_step(
                 live=len(live), slots=self.capacity, tokens=emitted,
                 report=report,
@@ -1840,6 +1853,35 @@ def decode_reference(
     return np.array(generated, np.int32)
 
 
+def _pools_device(paged_step: CompiledHybrid | None, paged: PagedKVState,
+                  state) -> torch.device | None:
+    """The device a paged state's pools live on, or None for numpy pools.
+
+    The pools live on the paged step's device when its plan, at the
+    signature the steps will call it with, lets every pool cross by
+    reference: each use of a pool in the root is an operand of an offload
+    unit's call (under ``tech-gfp`` the root's first segment).  An emulated
+    root, a sharded plan, or a dense step (no paged step) keeps them on the
+    host, placed every step.  ``state`` is the prefill's state outputs, which
+    fix the pools' inner shape and dtype; the answer is the plan's, so every
+    call for one scheduler gives the same."""
+    if paged_step is None or paged_step.planned.mesh is not None:
+        return None
+    spec = paged.spec
+    growing = sorted(spec.growing)
+    avals = []
+    for k in growing:
+        s = state[k]
+        inner = tuple(d for i, d in enumerate(s.shape) if i not in (0, spec.growing[k]))
+        avals.append(AVal((paged.pool.pages, spec.page_size) + inner,
+                          str(canonical_dtype(s.dtype))))
+    capacity = paged.capacity
+    avals += [AVal((capacity, spec.pages_per_stream), "int32"),
+              AVal((capacity,), "int32"), AVal((capacity,), "int32")]
+    plan = paged_step.state_for(avals).plan
+    return paged_step.device if plan.units_only_read(range(len(growing))) else None
+
+
 def paged_decode_reference(
     prefill: CompiledHybrid,
     paged_step: CompiledHybrid,
@@ -1863,6 +1905,8 @@ def paged_decode_reference(
     fixed — the tokens are bit-identical to the same stream decoded inside
     any scheduler batch, whatever *physical* page ids either run allocated.
     Use the ``capacity`` and ``state`` spec the scheduler was built with.
+    The pools live where the scheduler's do (on the step's device when its
+    plan takes them by reference), so the oracle crosses as the steps do.
     """
     sample = sample or greedy_sample
     prompt = np.asarray(prompt)
@@ -1870,8 +1914,9 @@ def paged_decode_reference(
     paged = PagedKVState(capacity, state)
     outs = prefill(pad_rows(prompt[None, :], capacity))
     logits, st = np.asarray(outs[0]), [np.asarray(o) for o in outs[1:]]
+    device = _pools_device(paged_step, paged, st)
     for k in growing:
-        paged.ensure_buffers(k, st[k])
+        paged.ensure_buffers(k, st[k], device)
     paged.admit(0, {k: st[k][0] for k in growing}, int(prompt.shape[0]))
     generated = [int(sample(logits[0]))]
     tokens = np.zeros((capacity,), np.int32)

@@ -364,22 +364,31 @@ def paged_workload(n_streams: int = 3, max_new: int = 5, capacity: int = 4):
 
 
 def test_paged_step_places_the_pools_table_lengths_and_tokens():
-    """A paged step's crossings place, in their ``place`` spans' bytes: the
-    first both page pools, the block table, the lengths and the tokens; the
-    second (the head) the (capacity, d_model) float32 hidden rows.
-    ``step_place_s`` counts the steps' placement time; prefills and warm
-    calls stay out of it."""
+    """A paged step's crossings, in their ``place`` spans: the first passes
+    both page pools by reference (``resident_bytes``) and copies the block
+    table, the lengths and the tokens (``bytes``); the second (the head)
+    copies the (capacity, d_model) float32 hidden rows.  The report's
+    ``step_placed_bytes`` and ``step_resident_bytes`` hold the same sums,
+    and ``step_place_s`` the steps' placement time; prefills and warm calls
+    stay out of all three."""
+    from repro_torch.core.convert import Resident
+
     with obs.session(label="place") as tr:
         outs, rep, sched = paged_workload()
     paged, capacity = sched._paged, sched.capacity
-    entry = (sum(paged.backing(k).nbytes for k in (0, 1)) + paged.table_array().nbytes
-             + paged.lengths_array().nbytes + capacity * np.dtype(np.int32).itemsize)
+    assert all(isinstance(paged.backing(k), Resident) for k in (0, 1))
+    pools = sum(paged.backing(k).nbytes for k in (0, 1))
+    entry = (paged.table_array().nbytes + paged.lengths_array().nbytes
+             + capacity * np.dtype(np.int32).itemsize)
     head = capacity * DM * np.dtype(np.float32).itemsize
-    step_places = [k[obs.PLACE].args["bytes"] for c, k in phases_of(tr.snapshot()).values()
+    step_places = [k[obs.PLACE].args for c, k in phases_of(tr.snapshot()).values()
                    if c.name.startswith("paged_decode_step")]
     assert rep.steps > 0 and rep.kernel_steps == rep.steps
     assert len(step_places) == 2 * rep.steps
-    assert sum(step_places) == rep.steps * (entry + head)
+    assert sum(a["bytes"] for a in step_places) == rep.steps * (entry + head) \
+        == rep.step_placed_bytes
+    assert sum(a.get("resident_bytes", 0) for a in step_places) == rep.steps * pools \
+        == rep.step_resident_bytes
     assert 0 < rep.step_place_s < rep.execution.place_ns / 1e9
 
 

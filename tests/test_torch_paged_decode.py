@@ -360,3 +360,46 @@ def test_paged_kernel_workload_on_the_card_matches_cpu(planned):
         assert np.array_equal(a, b)
     assert (rep.pages_visited, rep.pages_skipped) == (cpu_rep.pages_visited,
                                                       cpu_rep.pages_skipped)
+
+
+@pytest.mark.gpu
+def test_pools_live_on_the_card_and_cross_by_reference():
+    """At the benchmark's pool (capacity 8, d_model 960, 1024 pages of 16):
+    the pools are CUDA tensors the step takes by reference, so a step copies
+    only the table, the lengths, the tokens and the head's rows (under 64
+    KB); every stream equals its solo oracle bitwise; every paged launch
+    runs the split body."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the pools live on the card only there")
+    from repro_torch.core.convert import Resident
+    from repro_torch.kernels.decode_attention import paged_decode_attention_kernel
+
+    capacity, d, ctx, page = 8, 960, 2048, 16
+    planned = mixed.trace(export_attn_decode_lm(vocab=VOCAB, d_model=d,
+                                                max_context=ctx)).plan("tech-gfp")
+    spec = StateSpec(growing={0: 1, 1: 1}, max_context=ctx, page_size=page)
+    prompts = _prompts(capacity + 2, seed=41, length=40)
+    lens = [3 + i % 5 for i in range(len(prompts))]
+    before = dict(paged_decode_attention_kernel.launches_by_route)
+    with DecodeScheduler(planned, step="decode_step", paged_step="paged_decode_step",
+                         capacity=capacity, state=spec, start=False) as sched:
+        sched.warm(40)
+        streams = [sched.submit(p, n) for p, n in zip(prompts, lens)]
+        sched.start()
+        outs = [s.result(timeout=240) for s in streams]
+        rep = sched.report()
+    launched = {r: n - before.get(r, 0)
+                for r, n in paged_decode_attention_kernel.launches_by_route.items()}
+    pools = [sched._paged.backing(k) for k in (0, 1)]
+    assert all(isinstance(p, Resident) and p.tensor.is_cuda for p in pools)
+    assert sum(p.nbytes for p in pools) == 2 * 1024 * page * d * 4
+    assert rep.steps > 0 and rep.kernel_steps == rep.steps
+    assert 0 < rep.step_placed_bytes / rep.steps < 64 * 1024
+    assert rep.step_resident_bytes == rep.steps * sum(p.nbytes for p in pools)
+    pstep = sched.paged_step_planned.compile()
+    for p, n, out in zip(prompts, lens, outs):
+        ref = paged_decode_reference(sched.prefill, pstep, p, n, capacity=capacity,
+                                     state=spec)
+        assert np.array_equal(ref, out)
+    assert launched.get("simt", 0) == 0 and launched["split"] >= rep.kernel_steps
+    assert rep.pages_in_use == 0 and rep.page_allocs == rep.page_frees > 0
