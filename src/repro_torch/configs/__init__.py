@@ -1,7 +1,8 @@
-from .base import ModelConfig, MoEConfig, SSMConfig, XLSTMConfig, ShapeConfig, SHAPES, shape_grid
+from .base import (HybridLayout, ModelConfig, MoEConfig, SSMConfig, XLSTMConfig, ShapeConfig,
+                   SHAPES, shape_grid)
 from .registry import ARCHS, get_config, reduced_config
 
 __all__ = [
-    "ModelConfig", "MoEConfig", "SSMConfig", "XLSTMConfig", "ShapeConfig",
+    "HybridLayout", "ModelConfig", "MoEConfig", "SSMConfig", "XLSTMConfig", "ShapeConfig",
     "SHAPES", "shape_grid", "ARCHS", "get_config", "reduced_config",
 ]

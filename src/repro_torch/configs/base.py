@@ -20,6 +20,21 @@ class SSMConfig:
     chunk: int = 256             # SSD chunked-scan block length
     # hybrid (zamba2): a shared attention block is applied every k SSM layers
     shared_attn_every: int = 6
+    head_dim: int = 64           # Mamba2 P: d_inner = expand * d_model splits into heads of P
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridLayout:
+    """A hybrid whose every layer holds one sequence mixer, Mamba-2 or
+    attention (no positional encoding), then a dense MLP, with muP scalings
+    (Granite 4.0-H, ``granitemoehybrid``); exported by
+    ``models/programs.py:export_hybrid_forward``."""
+    layer_types: tuple[str, ...]         # "mamba" | "attention", one per layer
+    embedding_multiplier: float          # x = embedding_multiplier * E[tokens]
+    residual_multiplier: float           # each mixer's and MLP's output, before its residual add
+    attention_multiplier: float          # the softmax scale
+    logits_scaling: float                # logits divided by this
+    norm_eps: float                      # every RMSNorm's epsilon
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +62,7 @@ class ModelConfig:
     moe: MoEConfig | None = None
     ssm: SSMConfig | None = None
     xlstm: XLSTMConfig | None = None
+    layout: HybridLayout | None = None   # per-layer mixers (export_hybrid_forward)
     # enc-dec (seamless): number of encoder layers (decoder gets n_layers)
     n_enc_layers: int = 0
     # vlm (phi-3-vision): number of stubbed image-patch embeddings per sample

@@ -51,7 +51,8 @@ import numpy as np
 import torch
 
 from .. import obs
-from .convert import ConversionPlan, Resident, aval_of, build_plan, signature_of
+from .convert import (ConversionPlan, Resident, StagedConstants, aval_of, build_plan,
+                      signature_of)
 from .costmodel import CostModel, CostModelConfig
 from .emulator import Emulator
 from .fcp import HostOnlyOpError
@@ -685,6 +686,7 @@ class _SignatureExecutor:
         planned: PlannedProgram,
         entry_avals: tuple[AVal, ...],
         device: torch.device,
+        staged: StagedConstants | None = None,
     ):
         self.planned = planned
         self.scheme = planned.scheme
@@ -692,6 +694,9 @@ class _SignatureExecutor:
         self.stats = RunStats()
         self._stats_lock = threading.Lock()
         self._grt = GlobalReferenceTable() if self.scheme.grt else None
+        # the GRT's plans place globals through the compiled program's shared
+        # copies; the baseline (no GRT) places them afresh on every crossing
+        self._staged = staged if self._grt is not None else None
         # every crossing places its arguments and globals on this device
         self.device = device
 
@@ -741,6 +746,7 @@ class _SignatureExecutor:
             compute_dtype=planned.compute_dtype,
             mesh=planned.mesh,
             arg_specs=specs,
+            staged=self._staged,
         )
 
 
@@ -772,6 +778,9 @@ class CompiledHybrid:
             raise ValueError(f"a plan sharded over {mesh} runs its units on the rank's "
                              f"device {mesh.device}, not {self.device}")
         self._states: dict[tuple[AVal, ...], _SignatureExecutor] = {}
+        # one device copy of each constant for every signature's GRT plans
+        # (under a mesh each plan replicates its own, as before)
+        self.staged = StagedConstants(self.device) if mesh is None else None
         self._plan_lock = threading.Lock()
         self._last_state: _SignatureExecutor | None = None
         self.replans = 0                        # signature plans built
@@ -812,7 +821,7 @@ class CompiledHybrid:
             state = self._states.get(sig)
             hit = state is not None
             if state is None:
-                state = _SignatureExecutor(self.planned, sig, self.device)
+                state = _SignatureExecutor(self.planned, sig, self.device, self.staged)
                 self._states[sig] = state
                 self.replans += 1
         return state, hit

@@ -15,7 +15,10 @@ references propagated to the host side").
 
 Building a plan is deliberately real work (aval resolution and the device
 placement of every global).  The baseline scheme rebuilds it on every
-crossing; the GRT caches it (see :mod:`repro_torch.core.grt`).
+crossing; the GRT caches it (see :mod:`repro_torch.core.grt`), and the
+GRT's plans of every unit and every entry signature of one compiled program
+share one device copy of each constant (:class:`StagedConstants`), so a
+program served at four bucket sizes holds its weights on the card once.
 
 Under a mesh (a :class:`~repro_torch.parallel.spmd.Mesh`, every rank of the
 world running the same guest program) the host side is a DTensor per value
@@ -32,6 +35,7 @@ only pass it on to another unit.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Sequence
 
 import numpy as np
@@ -184,6 +188,37 @@ def stage_globals(program: Program, names: Sequence[str], device: torch.device,
     return tuple(to_mesh(mesh, t) for t in staged)
 
 
+class StagedConstants:
+    """Program constants placed on one device once, shared by every plan
+    built with it: a compiled program's GRT plans, of every unit and every
+    entry signature.
+
+    An entry is reused only while the program still holds the very array it
+    was placed from: a constant replaced in the program (as
+    ``models/programs.py:load_reference_constants`` installs new arrays) is
+    placed anew for the plans built after that.  ``placements`` counts the
+    copies made."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._placed: dict[str, tuple[np.ndarray, torch.Tensor]] = {}
+        self._lock = threading.Lock()       # one copy of a constant, however many plans build at once
+        self.placements = 0
+
+    def get(self, program: Program, names: Sequence[str]) -> tuple[torch.Tensor, ...]:
+        out = []
+        with self._lock:
+            for n in names:
+                array = program.constants[n]
+                entry = self._placed.get(n)
+                if entry is None or entry[0] is not array:
+                    entry = (array, place(array, self.device))
+                    self._placed[n] = entry
+                    self.placements += 1
+                out.append(entry[1])
+        return tuple(out)
+
+
 def build_plan(
     program: Program,
     fname: str,
@@ -195,13 +230,15 @@ def build_plan(
     compute_dtype: str | None = None,
     mesh=None,
     arg_specs: Sequence | None = None,
+    staged: StagedConstants | None = None,
 ) -> ConversionPlan:
     """Construct the full calling-conversion recipe for one offload unit.
 
     This is the work GRT amortizes: aval validation and the device staging
     of globals both happen here.  Under ``mesh`` the arguments are placed
     by ``arg_specs`` (one spec or ``None`` per argument; omitted: all
-    replicated) and the globals replicated.
+    replicated) and the globals replicated.  With ``staged`` (and no mesh)
+    the globals are its shared device copies, else fresh ones.
     """
     # validate avals (the paper's "correct parameter delivery" requirement)
     for i, a in enumerate(arg_avals):
@@ -209,13 +246,16 @@ def build_plan(
             raise ValueError(f"{fname}: bad aval for arg {i}: {a}")
     if arg_specs is not None and len(arg_specs) != len(arg_avals):
         raise ValueError(f"{fname}: {len(arg_specs)} arg_specs for {len(arg_avals)} args")
-    staged = stage_globals(program, global_names, device, mesh)
+    if staged is not None and mesh is None:
+        globals_ = staged.get(program, global_names)
+    else:
+        globals_ = stage_globals(program, global_names, device, mesh)
     return ConversionPlan(
         fname=fname,
         arg_avals=tuple(arg_avals),
         out_avals=tuple(out_avals),
         global_names=tuple(global_names),
-        staged_globals=staged,
+        staged_globals=globals_,
         device=device,
         compute_dtype=compute_dtype,
         mesh=mesh,

@@ -29,7 +29,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..kernels import library
+from ..kernels.ssm_scan import ssd_route
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,6 +207,8 @@ def _binary(kind, np_f, torch_f):
 # ---------------------------------------------------------------------------
 
 _np_silu = lambda x: x / (1.0 + np.exp(-x))
+# torch's softplus: x itself above the threshold 20, log(1 + e^x) below it
+_np_softplus = lambda x: np.where(x > 20, x, np.log1p(np.exp(np.minimum(x, 20)))).astype(x.dtype)
 _np_gelu = lambda x: 0.5 * x * (1.0 + np.tanh(np.sqrt(2.0 / np.pi) * (x + 0.044715 * x**3)))
 
 _unary("neg", np.negative, torch.neg)
@@ -221,6 +225,7 @@ _unary("silu", _np_silu, F.silu, 8)
 # the tanh approximation, as in the reference's host semantics
 _unary("gelu", _np_gelu, lambda x: F.gelu(x, approximate="tanh"), 12)
 _unary("sigmoid", lambda x: 1.0 / (1.0 + np.exp(-x)), torch.sigmoid, 6)
+_unary("softplus", _np_softplus, F.softplus, 4)
 
 _binary("add", np.add, torch.add)
 _binary("sub", np.subtract, torch.sub)
@@ -768,6 +773,117 @@ register(
     torch_fn=_torch_rope,
     infer_fn=_same_infer,
     cost_fn=lambda params, a: Cost(6 * a.size, 2 * a.nbytes),
+)
+
+# ---------------------------------------------------------------------------
+# state-space mixer: the causal depthwise conv and the SSD scan (Mamba-2)
+# ---------------------------------------------------------------------------
+
+def _conv1d_infer(params, x: AVal, w: AVal, b: AVal):
+    # x: (B, T, C), w: (C, K), b: (C,)
+    if x.shape[-1] != w.shape[0] or b.shape != (w.shape[0],):
+        raise ValueError(f"conv1d: x {x.shape}, w {w.shape}, b {b.shape} disagree on channels")
+    return (x,)
+
+
+def _conv1d_taps(x, w, b, pad):
+    """out[t, c] = b[c] + sum_k w[c, k] x[t - K + 1 + k, c] (x zero before 0),
+    as K shifted multiply-adds: elementwise on every device, so no product
+    runs in TF32 and each row depends on itself alone."""
+    K, T = w.shape[1], x.shape[1]
+    xp = pad(x, K - 1)
+    out = xp[:, :T] * w[:, 0]
+    for k in range(1, K):
+        out = out + xp[:, k:k + T] * w[:, k]
+    return out + b
+
+
+register(
+    "conv1d",
+    numpy_fn=lambda params, x, w, b: (_conv1d_taps(
+        x, w, b, lambda a, n: np.pad(a, ((0, 0), (n, 0), (0, 0)))).astype(x.dtype),),
+    torch_fn=lambda params, x, w, b: (_conv1d_taps(
+        x, w, b, lambda a, n: F.pad(a, (0, 0, n, 0))),),
+    infer_fn=_conv1d_infer,
+    cost_fn=lambda params, x, w, b: Cost(2 * x.size * w.shape[1], 2 * x.nbytes + w.nbytes),
+)
+
+
+def _ssd_infer(params, x: AVal, dt: AVal, A: AVal, B: AVal, C: AVal):
+    # x: (B, T, H, P), dt: (B, T, H), A: (H,), B and C: (B, T, N)
+    b, t, h, _ = x.shape
+    if dt.shape != (b, t, h) or A.shape != (h,) or B.shape != C.shape or B.shape[:2] != (b, t):
+        raise ValueError(f"ssd_scan: x {x.shape}, dt {dt.shape}, A {A.shape}, "
+                         f"B {B.shape}, C {C.shape} disagree")
+    return (x,)
+
+
+def _ssd_cost(params, x, dt, A, B, C):
+    # the recurrence's work: the state's update and its read, 2NP each a
+    # token and head; every input read once, y written once
+    b, t, h, p = x.shape
+    n = B.shape[-1]
+    return Cost(4 * b * t * h * n * p, 2 * x.nbytes + dt.nbytes + B.nbytes + C.nbytes)
+
+
+def _np_ssd_scan(params, x, dt, A, B, C):
+    """The chunked SSD in float32, chunks of ``params["chunk"]`` rows (the
+    form of ``kernels/ssm_scan.py:ssd_scan_plain``; a short last chunk
+    padded with dt = 0, which is inert)."""
+    f = np.float32
+    dtype = x.dtype
+    x, dt, A, B, C = (np.asarray(a, f) for a in (x, dt, A, B, C))
+    Bsz, T, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(int(params["chunk"]), T)
+    pad = (-T) % Q
+    if pad:
+        x, dt, B, C = (np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+                       for a in (x, dt, B, C))
+    nc = x.shape[1] // Q
+
+    def r(a):
+        return a.reshape(Bsz, nc, Q, *a.shape[2:])
+    cs = np.cumsum(r(dt * A), axis=2)                        # (B,nc,Q,H)
+    xdt, Bc, Cc = r(x * dt[..., None]), r(B), r(C)
+    keep = np.tril(np.ones((Q, Q), bool))[None, None, :, :, None]
+    li = cs[:, :, :, None, :] - cs[:, :, None, :, :]         # (B,nc,Q,Q,H)
+    L = np.where(keep, np.exp(np.where(keep, li, 0)), f(0))  # exp above the diagonal never taken
+    scores = np.einsum("bcqn,bckn->bcqk", Cc, Bc)
+    y = np.einsum("bcqk,bcqkh,bckhp->bcqhp", scores, L, xdt, optimize=True)
+    S_local = np.einsum("bckn,bckh,bckhp->bchnp", Bc, np.exp(cs[:, :, -1:] - cs), xdt,
+                        optimize=True)
+    decay = np.exp(cs[:, :, -1])                             # (B,nc,H)
+    S = np.zeros((Bsz, H, N, P), f)
+    prevs = []
+    for c in range(nc):
+        prevs.append(S)
+        S = S * decay[:, c, :, None, None] + S_local[:, c]
+    y = y + np.einsum("bcqn,bchnp->bcqhp", Cc, np.stack(prevs, 1)) * np.exp(cs)[..., None]
+    return (y.reshape(Bsz, nc * Q, H, P)[:, :T].astype(dtype),)
+
+
+def _torch_ssd_scan(params, x, dt, A, B, C):
+    # One registered operator (repro_torch::ssd_scan): row 8's kernel on
+    # CUDA, which raises on a chunk its body refuses; its plain chunked
+    # version on the CPU.  An ``ssd`` span per launch records the shape,
+    # the chunk and the body.
+    b, t, h, p = x.shape
+    n = B.shape[-1]
+    chunk = min(int(params["chunk"]), t)
+    route = ssd_route(x.dtype, n, p, chunk) if x.device.type == "cuda" else "plain"
+    x, dt, B, C = (_last_axis_dense(a) for a in (x, dt, B, C))
+    with obs.maybe_span("ssd_scan", obs.SSD, b=b, t=t, h=h, n=n, p=p, chunk=chunk,
+                        route=route):
+        return (library.ssd_scan(x, dt, A.contiguous(), B, C, chunk),)
+
+
+register(
+    "ssd_scan",
+    numpy_fn=_np_ssd_scan,
+    torch_fn=_torch_ssd_scan,
+    infer_fn=_ssd_infer,
+    cost_fn=_ssd_cost,
 )
 
 register(

@@ -12,12 +12,15 @@ an offload unit that reaches a kernel can be saved with
 * ``repro_torch::flash_attention(q, k, v, causal, scale)`` — row 3, the
   flash-attention forward;
 * ``repro_torch::paged_decode_attention(q, k_pages, v_pages, tables,
-  lengths, kn, vn)`` — row 1, block-sparse paged decode attention.
+  lengths, kn, vn)`` — row 1, block-sparse paged decode attention;
+* ``repro_torch::ssd_scan(x, dt, A, B, C, chunk)`` — row 8, the SSD
+  (Mamba-2) chunked scan, y only.
 
 The CUDA implementation is the :mod:`.ops` call, which launches the kernel
 or raises; the CPU implementation is the op set's plain formula (for
 ``rmsnorm`` and ``flash_attention`` the op set's own CPU body, which masks
-a causal T != S bottom-right as the reference's op does).  The operators
+a causal T != S bottom-right as the reference's op does; for ``ssd_scan``
+the kernel's plain chunked version).  The operators
 are defined with ``torch.library.Library("repro_torch", "DEF")`` and plain
 ``define``/``impl``, the registration with the least dispatch cost per
 call.  Importing this module registers them; it builds no kernel.
@@ -37,6 +40,7 @@ _LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
             "float? scale) -> Tensor")
 _LIB.define("paged_decode_attention(Tensor q, Tensor k_pages, Tensor v_pages, "
             "Tensor tables, Tensor lengths, Tensor? kn, Tensor? vn) -> Tensor")
+_LIB.define("ssd_scan(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, int chunk) -> Tensor")
 
 
 # ---------------------------------------------------------------------------
@@ -100,12 +104,27 @@ def _paged_decode_attention_fake(q, k_pages, v_pages, tables, lengths, kn, vn):
     return torch.empty_like(q)
 
 
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+
+
+def _ssd_scan(x, dt, A, B, C, chunk):
+    # ops dispatches by device: the plain version on the CPU, the kernel on CUDA
+    return ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+
+
+def _ssd_scan_fake(x, dt, A, B, C, chunk):
+    return x.new_empty(tuple(x.shape))
+
+
 for _name, _cpu, _cuda, _fake in (
     ("rmsnorm", _rmsnorm_cpu, _rmsnorm_cuda, _rmsnorm_fake),
     ("flash_attention", _flash_attention_cpu, _flash_attention_cuda,
      _flash_attention_fake),
     ("paged_decode_attention", _paged_decode_attention, _paged_decode_attention,
      _paged_decode_attention_fake),
+    ("ssd_scan", _ssd_scan, _ssd_scan, _ssd_scan_fake),
 ):
     _LIB.impl(_name, _cpu, "CPU")
     _LIB.impl(_name, _cuda, "CUDA")
@@ -114,9 +133,10 @@ for _name, _cpu, _cuda, _fake in (
 rmsnorm = torch.ops.repro_torch.rmsnorm.default
 flash_attention = torch.ops.repro_torch.flash_attention.default
 paged_decode_attention = torch.ops.repro_torch.paged_decode_attention.default
+ssd_scan = torch.ops.repro_torch.ssd_scan.default
 
 # the kernel sources these operators launch on CUDA (``build.build`` names)
-SOURCES = ("flash_attention", "rmsnorm", "paged_decode_attention")
+SOURCES = ("flash_attention", "rmsnorm", "paged_decode_attention", "ssm_scan")
 
 
 # ---------------------------------------------------------------------------

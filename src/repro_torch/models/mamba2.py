@@ -91,7 +91,7 @@ def ssd_decode_step(S, x1, dt1, A, B1, C1):
 def _dims_mamba(cfg: ModelConfig):
     ssm = cfg.ssm
     d_inner = ssm.expand * cfg.d_model
-    P = 64
+    P = ssm.head_dim
     H = d_inner // P
     return d_inner, H, P, ssm.state_dim
 

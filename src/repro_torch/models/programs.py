@@ -1,5 +1,6 @@
-"""Model → Program IR lowering for the port: the model zoo's dense forward
-and the decode-loop LMs.
+"""Model → Program IR lowering for the port: the model zoo's dense forward,
+the hybrid Mamba-2/attention forward (Granite 4.0-H) and the decode-loop
+LMs.
 
 The exported programs are framework-free IR; the port carries its own copy
 of each exporter so it imports nothing of the JAX package.  Each exporter
@@ -7,6 +8,7 @@ draws the same numpy random stream in the same order as its counterpart in
 the reference package, so the same ``seed`` gives bitwise-equal constants,
 and :func:`export_dense_forward` names its weights as the reference does;
 :func:`load_reference_constants` carries another program's weights across.
+:func:`export_hybrid_forward` has no counterpart in the reference package.
 """
 from __future__ import annotations
 
@@ -132,6 +134,186 @@ def export_dense_forward(
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab, (batch, seq), dtype=np.int32)
     return prog, [tokens]
+
+
+def export_hybrid_forward(
+    cfg: ModelConfig,
+    params,
+    batch: int,
+    seq: int,
+    *,
+    with_host_check: bool = True,
+    tp: int = 1,
+) -> tuple[Program, list[np.ndarray]]:
+    """Export a hybrid whose every layer holds one sequence mixer, Mamba-2 or
+    attention, then a dense SwiGLU MLP (``cfg.layout``: Granite 4.0-H), as a
+    Program with the contract of :func:`export_dense_forward`: entry
+    ``main(tokens) -> (logits, row max)``, batch-agnostic, the weights as
+    constants, and with ``with_host_check`` the host-side
+    ``host_assert_finite`` between backbone and head.  Units: ``embed``,
+    per layer ``layer{i}.mamba`` or ``layer{i}.attn`` then ``layer{i}.mlp``
+    under ``block{i}``, and ``lm_head``.
+
+    ``params``: ``embed/table`` (V, D) (the head is tied to it), ``ln_f/scale``
+    and ``layers``, one mapping a layer: ``ln1/scale``, ``ln2/scale``,
+    ``mlp/{wg, wu}`` (D, F) and ``mlp/wd`` (F, D), and its mixer's:
+    ``attn/{wq, wk, wv}`` (D, heads * hd) and ``attn/wo`` (Hq * hd, D); or
+    ``mamba/{w_z, w_x}`` (D, d_inner), ``mamba/{w_B, w_C}`` (D, N),
+    ``mamba/w_dt`` (D, H) (the published ``in_proj`` split by its outputs),
+    ``mamba/conv_{x, B, C}`` (channels, K) with ``mamba/conv_{x, B, C}_bias``
+    (the conv over x, B and C split by channels: it is depthwise),
+    ``mamba/{dt_bias, A_log, D}`` (H,), ``mamba/norm`` (d_inner,) and
+    ``mamba/w_out`` (d_inner, D).
+
+    Per layer, with r the residual multiplier and every RMSNorm at
+    ``layout.norm_eps``: ``h = x + r * mixer(rmsnorm(x))``, then
+    ``x = h + r * mlp(rmsnorm(h))``.  The Mamba-2 mixer (one group) is
+    ``z``, ``x``, ``B``, ``C``, ``dt`` from the input projections; x, B, C
+    each ``silu(conv1d(.))``; ``dt = softplus(dt + dt_bias)``,
+    ``A = -exp(A_log)``; ``y = ssd_scan(x, dt, A, B, C) + D x`` in chunks of
+    ``cfg.ssm.chunk``; ``rmsnorm(y * silu(z))``; the output projection.
+    Attention is causal GQA at the softmax scale ``attention_multiplier``,
+    with no positional encoding.  The embedding is scaled by
+    ``embedding_multiplier`` and the logits divided by ``logits_scaling``.
+    ``tp`` must give a head plan the config admits (``tp=1`` on one card).
+    """
+    lay = cfg.layout
+    if cfg.family != "hybrid" or lay is None or cfg.ssm is None:
+        raise ValueError(f"export_hybrid_forward exports a hybrid with a per-layer layout, "
+                         f"got {cfg.name!r} ({cfg.family})")
+    if len(lay.layer_types) != cfg.n_layers or set(lay.layer_types) - {"mamba", "attention"}:
+        raise ValueError(f"layer_types must give mamba or attention for each of "
+                         f"{cfg.n_layers} layers, got {lay.layer_types}")
+    B = -1                                   # batch-agnostic reshapes
+    D, eps = cfg.d_model, lay.norm_eps
+    P = cfg.ssm.head_dim
+    H = cfg.ssm.expand * D // P
+    plan = plan_heads(cfg.n_heads, cfg.n_kv_heads, tp)
+    hd = cfg.head_dim_
+    pb = ProgramBuilder(f"{cfg.name}-forward")
+    for k, v in _flatten_layers(params).items():
+        pb.constant(k, v)
+    f32 = np.float32
+    pb.constant("mup/embedding", np.asarray(lay.embedding_multiplier, f32))
+    pb.constant("mup/residual", np.asarray(lay.residual_multiplier, f32))
+    pb.constant("mup/logits", np.asarray(lay.logits_scaling, f32))
+
+    f = pb.function("embed", ["tokens"])
+    f.use_global("embed/table")
+    f.use_global("mup/embedding")
+    h = f.emit("embed", "embed/table", "tokens")
+    f.build([f.emit("mul", h, "mup/embedding")])
+
+    def residual(fn, x, branch):
+        return fn.emit("add", x, fn.emit("mul", branch, "mup/residual"))
+
+    for i, kind in enumerate(lay.layer_types):
+        def g(w):
+            return _lname(i, w)
+        if kind == "mamba":
+            mixer = f"layer{i}.mamba"
+            mb = pb.function(mixer, ["x"])
+            names = ["ln1/scale"] + [f"mamba/{w}" for w in (
+                "w_z", "w_x", "w_B", "w_C", "w_dt", "conv_x", "conv_x_bias", "conv_B",
+                "conv_B_bias", "conv_C", "conv_C_bias", "dt_bias", "A_log", "D", "norm",
+                "w_out")]
+            for w in names:
+                mb.use_global(g(w))
+            mb.use_global("mup/residual")
+            n = mb.emit("rmsnorm", "x", g("ln1/scale"), eps=eps)
+
+            def conv(part):
+                y = mb.emit("matmul", n, g(f"mamba/w_{part}"))
+                y = mb.emit("conv1d", y, g(f"mamba/conv_{part}"), g(f"mamba/conv_{part}_bias"))
+                return mb.emit("silu", y)
+            xs, Bm, Cm = conv("x"), conv("B"), conv("C")
+            z = mb.emit("matmul", n, g("mamba/w_z"))
+            dt = mb.emit("matmul", n, g("mamba/w_dt"))
+            dt = mb.emit("softplus", mb.emit("add", dt, g("mamba/dt_bias")))
+            A = mb.emit("neg", mb.emit("exp", g("mamba/A_log")))
+            xh = mb.emit("reshape", xs, shape=(B, seq, H, P))
+            y = mb.emit("ssd_scan", xh, dt, A, Bm, Cm, chunk=cfg.ssm.chunk)
+            Dh = mb.emit("reshape", g("mamba/D"), shape=(H, 1))
+            y = mb.emit("add", y, mb.emit("mul", xh, Dh))
+            y = mb.emit("reshape", y, shape=(B, seq, H * P))
+            y = mb.emit("mul", y, mb.emit("silu", z))
+            y = mb.emit("rmsnorm", y, g("mamba/norm"), eps=eps)
+            y = mb.emit("matmul", y, g("mamba/w_out"))
+            mb.build([residual(mb, "x", y)])
+        else:
+            mixer = f"layer{i}.attn"
+            at = pb.function(mixer, ["x"])
+            for w in ("ln1/scale", "attn/wq", "attn/wk", "attn/wv", "attn/wo"):
+                at.use_global(g(w))
+            at.use_global("mup/residual")
+            n = at.emit("rmsnorm", "x", g("ln1/scale"), eps=eps)
+
+            def proj(wname, heads):
+                y = at.emit("matmul", n, g(wname))
+                y = at.emit("reshape", y, shape=(B, seq, heads, hd))
+                return at.emit("transpose", y, perm=(0, 2, 1, 3))
+            q = proj("attn/wq", plan.n_q_pad)
+            k = proj("attn/wk", plan.n_kv_phys)
+            v = proj("attn/wv", plan.n_kv_phys)
+            # T == S: the flash kernel's mask
+            o = at.emit("sdpa", q, k, v, causal=True, scale=lay.attention_multiplier)
+            o = at.emit("transpose", o, perm=(0, 2, 1, 3))
+            o = at.emit("reshape", o, shape=(B, seq, plan.n_q_pad * hd))
+            o = at.emit("matmul", o, g("attn/wo"))
+            at.build([residual(at, "x", o)])
+
+        ml = pb.function(f"layer{i}.mlp", ["x"])
+        for w in ("ln2/scale", "mlp/wg", "mlp/wu", "mlp/wd"):
+            ml.use_global(g(w))
+        ml.use_global("mup/residual")
+        n = ml.emit("rmsnorm", "x", g("ln2/scale"), eps=eps)
+        gate = ml.emit("silu", ml.emit("matmul", n, g("mlp/wg")))
+        up = ml.emit("matmul", n, g("mlp/wu"))
+        dn = ml.emit("matmul", ml.emit("mul", gate, up), g("mlp/wd"))
+        ml.build([residual(ml, "x", dn)])
+
+        blk = pb.function(f"block{i}", ["x"])
+        blk.build([blk.call(f"layer{i}.mlp", blk.call(mixer, "x"))])
+
+    hf = pb.function("lm_head", ["x"])
+    for w in ("ln_f/scale", "embed/table", "mup/logits"):
+        hf.use_global(w)
+    n = hf.emit("rmsnorm", "x", "ln_f/scale", eps=eps)
+    lg = hf.emit("matmul", n, hf.emit("transpose", "embed/table", perm=(1, 0)))
+    hf.build([hf.emit("div", lg, "mup/logits")])
+
+    m = pb.function("main", ["tokens"])
+    x = m.call("embed", "tokens")
+    for i in range(cfg.n_layers):
+        x = m.call(f"block{i}", x)
+    if with_host_check:
+        # the paper's printf case: host-side sanity check in the hot path
+        x = m.emit("host_assert_finite", x, tag=f"{cfg.name}.backbone")
+    lg = m.call("lm_head", x)
+    m.build([lg, m.emit("reduce_max", lg, axis=(2,))])
+
+    prog = pb.build("main")
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab, (batch, seq), dtype=np.int32)
+    return prog, [tokens]
+
+
+def _flatten_layers(params) -> dict[str, np.ndarray]:
+    """Flatten params whose ``layers`` is a sequence of per-layer mappings
+    into float32 numpy arrays named by their key paths (``layers/{i}/...``)."""
+    flat: dict[str, np.ndarray] = {}
+
+    def visit(prefix, node):
+        if isinstance(node, Mapping):
+            for key in sorted(node):
+                visit(f"{prefix}{key}/", node[key])
+        else:
+            flat[prefix[:-1]] = node.detach().to("cpu", torch.float32).numpy()
+
+    visit("", {k: v for k, v in params.items() if k != "layers"})
+    for i, layer in enumerate(params["layers"]):
+        visit(f"layers/{i}/", layer)
+    return flat
 
 
 def _lname(i: int, w: str) -> str:

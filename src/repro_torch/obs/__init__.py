@@ -44,6 +44,7 @@ from .trace import (
     REENTRY,
     RESULT,
     SPAN_KINDS,
+    SSD,
     STEP,
     SUBMIT,
     UNIT,
@@ -74,6 +75,6 @@ __all__ = [
     "SPAN_KINDS",
     "CROSSING", "UNIT", "EMULATOR", "REENTRY", "CALL", "COMPILE",
     "PREFILL", "STEP", "ADMIT_WAIT",
-    "PLACE", "DRAIN", "FETCH", "EMIT", "BATCH",
+    "PLACE", "DRAIN", "FETCH", "EMIT", "BATCH", "SSD",
     "AOT", "FRAME", "SUBMIT", "RESULT",
 ]

@@ -63,6 +63,11 @@ kind           where                 one span means
                                      ``bucket``, ``batch_wait_ms`` (each
                                      request's submit to the cut) and
                                      ``pool_wait_ms`` (the cut to the start)
+``ssd``        ``core/opset.py``     inside a unit: the host's launch of one
+                                     SSD scan (the ``ssd_scan`` op); ``b``,
+                                     ``t``, ``h``, ``n``, ``p``, ``chunk``
+                                     and ``route`` (the kernel's body, or
+                                     ``plain`` off the card)
 =============  ====================  ========================================
 
 ``device_ms`` is the device clock from the stream reaching the unit's
@@ -110,6 +115,7 @@ DRAIN = "drain"              # the wait for a unit's end event (traced, CUDA)
 FETCH = "fetch"              # a crossing's results copied to host memory
 EMIT = "emit"                # a scheduler phase's host work after its call
 BATCH = "batch"              # one batch on a MixedServer worker
+SSD = "ssd"                  # one SSD scan launch inside a unit (ssd_scan op)
 AOT = "aot"                  # AOT plan-cache save/load
 FRAME = "frame"              # a cluster channel frame (send side)
 SUBMIT = "submit"            # a routed submission (parent + worker sides)
@@ -117,7 +123,7 @@ RESULT = "result"            # a finished stream's result frame (worker side)
 
 SPAN_KINDS = (
     CROSSING, UNIT, EMULATOR, REENTRY, CALL, COMPILE, PREFILL, STEP,
-    ADMIT_WAIT, AOT, FRAME, SUBMIT, RESULT, PLACE, DRAIN, FETCH, EMIT, BATCH,
+    ADMIT_WAIT, AOT, FRAME, SUBMIT, RESULT, PLACE, DRAIN, FETCH, EMIT, BATCH, SSD,
 )
 
 #: the Chrome export's thread id of the device track (one per process)
