@@ -45,7 +45,7 @@ import dataclasses
 import itertools
 import threading
 import time
-from typing import Callable, Sequence
+from typing import Callable, Collection, Sequence
 
 import numpy as np
 import torch
@@ -550,10 +550,12 @@ class _CallContext:
     pieces they touch (plan, units, GRT) are immutable or internally locked.
     """
 
-    __slots__ = ("state", "stats", "emulator", "host_active", "tracer")
+    __slots__ = ("state", "stats", "emulator", "host_active", "tracer", "kept")
 
-    def __init__(self, state: "_SignatureExecutor"):
+    def __init__(self, state: "_SignatureExecutor", kept: dict[str, frozenset[int]]):
         self.state = state
+        # unit name -> the output positions that stay on the device
+        self.kept = kept
         self.stats = RunStats()
         # resolved ONCE per call: with tracing off every hot-path producer
         # below sees `tracer is None` and records nothing
@@ -635,14 +637,23 @@ class _CallContext:
                                              dev_args, token)
                 # gather results before closing the channel: convert_out
                 # waits for the device, so the crossing's wall time includes
-                # the unit's kernels
-                if tracer is None:
-                    return plan.convert_out(outs)
-                t_fetch = time.perf_counter_ns()
-                host = plan.convert_out(outs)
-                tracer.add(fname, obs.FETCH, t_fetch,
-                           time.perf_counter_ns() - t_fetch,
-                           args={"bytes": sum(a.nbytes for a in host)})
+                # the unit's kernels (outputs the plan keeps stay there)
+                t_fetch = time.perf_counter_ns() if tracer is not None else 0
+                host = plan.convert_out(outs, self.kept.get(fname, ()), dev_args)
+                fetched = kept = 0
+                for a in host:
+                    if isinstance(a, Resident):
+                        kept += a.nbytes
+                    else:
+                        fetched += a.nbytes
+                self.stats.fetched_bytes += fetched
+                self.stats.kept_bytes += kept
+                if tracer is not None:
+                    span_args = {"bytes": fetched}
+                    if kept:
+                        span_args["kept_bytes"] = kept
+                    tracer.add(fname, obs.FETCH, t_fetch,
+                               time.perf_counter_ns() - t_fetch, args=span_args)
                 return host
             finally:
                 stack.pop()
@@ -710,10 +721,22 @@ class _SignatureExecutor:
             backend=str(self.device),
             mesh=planned.mesh,
         )
+        self._kept: dict[frozenset[int], dict[str, frozenset[int]]] = {}
 
-    def call(self, args: Sequence[np.ndarray]) -> tuple[tuple, RunStats, float]:
+    def kept_for(self, returns: frozenset[int]) -> dict[str, frozenset[int]]:
+        """The plan's kept outputs (:meth:`OffloadPlan.kept_outputs`) when
+        the caller asks for the entry outputs ``returns`` on the device,
+        decided once per request; a sharded plan keeps nothing."""
+        kept = self._kept.get(returns)
+        if kept is None:
+            kept = {} if self.planned.mesh is not None else self.plan.kept_outputs(returns)
+            self._kept[returns] = kept
+        return kept
+
+    def call(self, args: Sequence[np.ndarray],
+             returns: frozenset[int] = frozenset()) -> tuple[tuple, RunStats, float]:
         """Run one entry call in a fresh context; fold stats into lifetime."""
-        ctx = _CallContext(self)
+        ctx = _CallContext(self, self.kept_for(returns))
         t0 = time.perf_counter()
         try:
             out = ctx.run(args)
@@ -826,28 +849,42 @@ class CompiledHybrid:
                 self.replans += 1
         return state, hit
 
-    def call_reported(self, *args) -> tuple[tuple[np.ndarray, ...], ExecutionReport]:
+    def call_reported(
+        self, *args, device_returns: Collection[int] = (),
+    ) -> tuple[tuple[np.ndarray | Resident, ...], ExecutionReport]:
         """Run one entry call and return ``(outputs, report)``.
 
         Unlike ``last_report`` — a "most recent call on any thread"
         convenience — the returned report is attributed to exactly this
         call, so concurrent callers (e.g. :mod:`repro_torch.serve` workers) get
         race-free accounting.
+
+        ``device_returns`` names entry-output positions the caller would
+        take on the units' device: each comes back as a
+        :class:`~repro_torch.core.convert.Resident` where the plan lets it
+        stay there (it is a unit's output that no guest op reads,
+        :meth:`~repro_torch.core.offload.OffloadPlan.kept_outputs`), and as
+        a numpy array otherwise.
         """
         program = self.planned.analysis.program
-        entry_params = program.functions[program.entry].args
+        entry = program.functions[program.entry]
+        entry_params = entry.args
         if len(args) != len(entry_params):
             raise TypeError(
                 f"{program.entry}: expected {len(entry_params)} args "
                 f"({', '.join(entry_params)}), got {len(args)}"
             )
+        returns = frozenset(int(i) for i in device_returns)
+        if not returns <= set(range(len(entry.returns))):
+            raise ValueError(f"{program.entry}: device_returns {sorted(returns)} outside "
+                             f"its {len(entry.returns)} outputs")
         args = [a if isinstance(a, Resident) else np.asarray(a) for a in args]
         sig = signature_of(args)
         state, hit = self._state_for(sig)
         self._last_state = state
         tracer = obs.active()
         t0 = time.perf_counter_ns() if tracer is not None else 0
-        out, call_stats, wall = state.call(args)
+        out, call_stats, wall = state.call(args, returns)
         if tracer is not None:
             tracer.add(program.entry, obs.CALL, t0,
                        time.perf_counter_ns() - t0,

@@ -30,13 +30,15 @@ A guest value may also be a :class:`Resident`: a handle on a tensor that
 already lives on the unit's device (the paper's calling channel carrying a
 reference, not the bytes, as the staged globals do).  ``convert_in`` hands
 the tensor over as it is; nothing copies it back to the guest, which can
-only pass it on to another unit.
+only pass it on to another unit.  ``convert_out`` makes one of each unit
+output the plan keeps on the device (no guest op reads it), instead of
+copying it back.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, Sequence
+from typing import Any, Collection, Sequence
 
 import numpy as np
 import torch
@@ -141,9 +143,7 @@ class ConversionPlan:
                 if a.device != self.device:
                     raise ValueError(f"{self.fname}: {a!r} cannot cross to a unit on "
                                      f"{self.device}: it is passed by reference only")
-                if (self.compute_dtype is not None
-                        and np.issubdtype(a.dtype, np.floating)
-                        and a.dtype != np.dtype(self.compute_dtype)):
+                if not self._crosses_in(a.dtype):
                     raise ValueError(f"{self.fname}: {a!r} is not in the unit's "
                                      f"compute dtype {self.compute_dtype}")
                 out.append(a.tensor)
@@ -163,17 +163,45 @@ class ConversionPlan:
             out.append(t)
         return tuple(out)
 
-    def convert_out(self, outs: Sequence[torch.Tensor]) -> tuple[np.ndarray, ...]:
+    def convert_out(self, outs: Sequence[torch.Tensor], kept: Collection[int] = (),
+                    dev_args: Sequence[torch.Tensor] = ()) -> tuple[np.ndarray | Resident, ...]:
         """Host → guest: gather to host memory (blocking: the copy waits for
         the device stream).  Always a fresh array, never a view of a guest
         input that the unit passed through (on the CPU a tensor and its
         numpy array share memory).  Under a mesh every rank gets the full
-        value."""
+        value.
+
+        The outputs at positions ``kept`` (the plan's
+        :meth:`~repro_torch.core.offload.OffloadPlan.kept_outputs`; never
+        under a mesh) stay on the device as :class:`Resident` values,
+        contiguous, and cloned where they share storage with one of the
+        unit's arguments ``dev_args`` or its staged globals, so no holder
+        of one ever holds a view of an argument.  An output that could not
+        cross back in (outside the canonical 32-bit dtypes, or a float in
+        another dtype than the units compute in) is fetched all the same."""
         if self.mesh is not None:
             from ..parallel.units import to_host
 
-            outs = [to_host(o) for o in outs]
-        return tuple(o.to("cpu", copy=True).numpy() for o in outs)
+            return tuple(to_host(o).to("cpu", copy=True).numpy() for o in outs)
+        if not kept:
+            return tuple(o.to("cpu", copy=True).numpy() for o in outs)
+        storages = {t.untyped_storage().data_ptr() for t in (*dev_args, *self.staged_globals)}
+        host: list[np.ndarray | Resident] = []
+        for j, o in enumerate(outs):
+            if j not in kept or not self._crosses_in(numpy_dtype(o.dtype)):
+                host.append(o.to("cpu", copy=True).numpy())
+            elif o.untyped_storage().data_ptr() in storages:
+                host.append(Resident(o.clone(memory_format=torch.contiguous_format)))
+            else:
+                host.append(Resident(o.contiguous()))
+        return tuple(host)
+
+    def _crosses_in(self, dtype: np.dtype) -> bool:
+        """Whether a resident of ``dtype`` passes :meth:`convert_in`."""
+        if canonical_dtype(dtype) != dtype:
+            return False
+        return (self.compute_dtype is None or not np.issubdtype(dtype, np.floating)
+                or dtype == np.dtype(self.compute_dtype))
 
 
 def stage_globals(program: Program, names: Sequence[str], device: torch.device,

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Callable, Sequence
+from typing import Callable, Collection, Sequence
 
 import torch
 
@@ -190,6 +190,49 @@ class OffloadPlan:
             return False
         return all(op.kind == "call" and op.callee in self.units
                    for op in root.ops if names.intersection(op.inputs))
+
+    def kept_outputs(self, returns: Collection[int] = ()) -> dict[str, frozenset[int]]:
+        """Which unit outputs may stay on the unit's device, by unit name.
+
+        The output twin of :meth:`units_only_read`: an output of a unit
+        called from the root is kept when every use of it in the root is an
+        operand of a ``call`` to a unit, or the root's return at one of the
+        entry-output positions ``returns`` (those the caller asked to
+        receive on the device).  A root that is a unit itself keeps exactly
+        ``returns``.  Only units the root alone calls, and only through
+        ``call`` ops, are considered; a root that some function calls back
+        takes no request.  A kept output crosses back as a
+        :class:`~repro_torch.core.convert.Resident`, which no guest op reads.
+        """
+        program = self.program
+        root = program.functions[program.entry]
+        # callees reached otherwise than by the root's own `call` ops
+        outside = {op.callee for name in program.reachable()
+                   for op in program.functions[name].ops
+                   if op.is_call and (name != root.name or op.kind != "call")}
+        if root.name in outside or any(op.callee == root.name for op in root.ops):
+            returns = ()
+        if root.name in self.units:
+            return {root.name: frozenset(returns)} if returns else {}
+        returned: dict[str, set[int]] = {}
+        for i, name in enumerate(root.returns):
+            returned.setdefault(name, set()).add(i)
+        uses: dict[str, list] = {}
+        for op in root.ops:
+            for name in op.inputs:
+                uses.setdefault(name, []).append(op)
+        asked = set(returns)
+        kept: dict[str, frozenset[int]] = {}
+        for op in root.ops:
+            if op.kind != "call" or op.callee not in self.units or op.callee in outside:
+                continue
+            here = frozenset(
+                j for j, name in enumerate(op.outputs)
+                if returned.get(name, set()) <= asked
+                and all(u.kind == "call" and u.callee in self.units
+                        for u in uses.get(name, ())))
+            kept[op.callee] = kept.get(op.callee, here) & here
+        return {f: js for f, js in kept.items() if js}
 
 
 def unit_cache_key(

@@ -37,6 +37,8 @@ class RunStats:
     place_ns: int = 0                       # host ns placing crossing arguments
     placed_bytes: int = 0                   # argument bytes convert_in copied
     resident_bytes: int = 0                 # argument bytes passed by reference
+    fetched_bytes: int = 0                  # output bytes convert_out copied back
+    kept_bytes: int = 0                     # output bytes left on the device
     unit_latency: HistogramSet = dataclasses.field(
         default_factory=HistogramSet)      # crossing wall time per (unit, sig)
 
@@ -55,6 +57,8 @@ class RunStats:
         self.place_ns = 0
         self.placed_bytes = 0
         self.resident_bytes = 0
+        self.fetched_bytes = 0
+        self.kept_bytes = 0
         self.unit_latency = HistogramSet()
 
     def copy(self) -> "RunStats":
@@ -87,7 +91,7 @@ class RunStats:
 _SUM_FIELDS = (
     "guest_ops", "guest_calls", "guest_to_host", "host_to_guest",
     "conversion_builds", "grt_hits", "compiles", "nested_crossings",
-    "place_ns", "placed_bytes", "resident_bytes",
+    "place_ns", "placed_bytes", "resident_bytes", "fetched_bytes", "kept_bytes",
 )
 _MAX_FIELDS = ("max_reentry_depth", "max_interleave_depth")
 
@@ -123,6 +127,8 @@ class ExecutionReport:
     place_ns: int = 0                       # host ns placing crossing arguments
     placed_bytes: int = 0                   # argument bytes convert_in copied
     resident_bytes: int = 0                 # argument bytes passed by reference
+    fetched_bytes: int = 0                  # output bytes convert_out copied back
+    kept_bytes: int = 0                     # output bytes left on the device
     per_function_crossings: Counter = dataclasses.field(default_factory=Counter)
     latency: HistogramSet = dataclasses.field(
         default_factory=HistogramSet)      # crossing wall time per (unit, sig)

@@ -53,7 +53,9 @@ kind           where                 one span means
 ``drain``      ``core/api.py``       in a traced crossing on CUDA: the host's
                                      wait for the unit's end event
 ``fetch``      ``core/api.py``       in a crossing: the results' copy to host
-                                     memory; ``bytes``
+                                     memory; ``bytes`` (copied), and
+                                     ``kept_bytes`` where outputs stayed on
+                                     the device
 ``emit``       ``serve/runtime.py``  a decode scheduler's host work after a
                                      prefill group's or a step's call (page
                                      appends, sampling, counters); ``live``

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..core.convert import Resident
-from ..core.opset import canonical_dtype, torch_dtype
+from ..core.opset import AVal, canonical_dtype, torch_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -538,11 +538,12 @@ class PagedKVState:
     on that device, which :meth:`backing` hands out as
     :class:`~repro_torch.core.convert.Resident` values that cross to a unit
     by reference.  On a device, an admission lands its rows with one copy
-    and one scatter per array, the rows :meth:`append_row` takes are held on
+    and one scatter per array (rows the prefill kept on the device never
+    touch the host), the rows :meth:`append_row` takes are held on
     the host until :meth:`flush` lands them all with one copy and one
     indexed write per array, and :meth:`gather_pages` brings back only the
-    pages it reads.  Both storages hold the same bytes after the same
-    operations.
+    pages it reads, or builds its dense array on the device.  Both storages
+    hold the same bytes after the same operations.
 
     Not thread-safe; owned by the scheduler's decode loop.
     """
@@ -592,9 +593,10 @@ class PagedKVState:
 
     # -- lazy buffer setup ---------------------------------------------------
 
-    def ensure_buffers(self, idx: int, batched: np.ndarray,
+    def ensure_buffers(self, idx: int, batched: np.ndarray | Resident,
                        device: torch.device | None = None) -> None:
-        """Size the backing buffer for state ``idx`` from a prefill output,
+        """Size the backing buffer for state ``idx`` from a prefill output
+        (a numpy array, or a kept one on the device: its shape and dtype),
         zero-filled: a numpy array, or a tensor on ``device`` (every buffer
         of a state lives in one place)."""
         if idx in self._backing:
@@ -603,10 +605,10 @@ class PagedKVState:
             raise ValueError(f"state {idx} on {device}, but the other growing "
                              f"arrays live on {self.device}")
         axis = self.spec.growing[idx]
-        if batched.ndim <= axis:
+        if len(batched.shape) <= axis:
             raise ValueError(
                 f"growing state {idx} declared context axis {axis} but the "
-                f"program returned rank-{batched.ndim} {batched.shape}"
+                f"program returned rank-{len(batched.shape)} {batched.shape}"
             )
         if batched.shape[axis] != self.spec.max_context:
             raise ValueError(
@@ -623,11 +625,18 @@ class PagedKVState:
             torch.zeros(shape, dtype=torch_dtype(canonical_dtype(batched.dtype)),
                         device=device))
         self._dense_shape[idx] = tuple(batched.shape)
-        self._dtype[idx] = batched.dtype
+        self._dtype[idx] = np.dtype(batched.dtype)
 
-    def _ctx_first(self, row: np.ndarray, idx: int) -> np.ndarray:
+    def dense_aval(self, idx: int) -> AVal:
+        """The aval of state ``idx`` at its fixed padded batched shape (what
+        :meth:`gather` and :meth:`gather_pages` build)."""
+        return AVal(self._dense_shape[idx], str(self._dtype[idx]))
+
+    def _ctx_first(self, row: np.ndarray | torch.Tensor, idx: int) -> np.ndarray | torch.Tensor:
         """View one stream's state row with the context axis leading."""
-        return np.moveaxis(row, self.spec.growing[idx] - 1, 0)
+        if isinstance(row, torch.Tensor):
+            return row.movedim(self.spec.growing[idx] - 1, 0)
+        return np.moveaxis(np.asarray(row), self.spec.growing[idx] - 1, 0)
 
     def _position_nbytes(self) -> int:
         """Backing bytes one context position occupies across growing arrays."""
@@ -699,7 +708,9 @@ class PagedKVState:
         the rest, copy the uncached positions.
 
         Callers run :meth:`ensure_buffers` on the batched prefill outputs
-        first (the backing buffers are sized from them).  ``shared_pages``
+        first (the backing buffers are sized from them).  ``rows`` are
+        numpy rows, or, for device storage, rows already on the device (a
+        kept prefill output's), copied there without a trip to the host.  ``shared_pages``
         (from :meth:`match_and_pin`) cover positions ``[0, shared_len)`` and
         are mapped read-only; ``pinned=True`` transfers the pin's pool
         references into the block table instead of retaining again.  A
@@ -739,7 +750,7 @@ class PagedKVState:
                 flat.extend(range(page * ps + lo - j * ps, page * ps + end - j * ps))
                 continue
             for idx, row in rows.items():
-                src = self._ctx_first(np.asarray(row), idx)
+                src = self._ctx_first(row, idx)
                 buf = self._backing[idx]
                 buf[page][lo - j * ps:hi - j * ps] = src[lo:hi]
                 if hi == length:
@@ -753,8 +764,9 @@ class PagedKVState:
             for idx, row in rows.items():
                 buf = self._backing[idx]
                 vals = buf.new_zeros((len(flat),) + buf.shape[2:])
-                vals[:length - shared_len].copy_(_host(
-                    self._ctx_first(np.asarray(row), idx)[shared_len:length]))
+                src = self._ctx_first(row, idx)[shared_len:length]
+                vals[:length - shared_len].copy_(
+                    src if isinstance(src, torch.Tensor) else _host(src))
                 self._flat(idx).index_copy_(0, at, vals)
         self.lengths[slot] = length
 
@@ -770,7 +782,7 @@ class PagedKVState:
             raise RuntimeError(
                 f"slot {slot} overflowed max_context={self.spec.max_context}")
         self.append_row(slot, {
-            idx: self._ctx_first(np.asarray(row), idx)[position]
+            idx: self._ctx_first(row, idx)[position]
             for idx, row in rows.items()})
 
     def append_row(self, slot: int, rows: Mapping[int, np.ndarray]) -> None:
@@ -957,7 +969,9 @@ class PagedKVState:
         self,
         idx: int,
         row_pages: Sequence[tuple[Sequence[int], int]],
-    ) -> np.ndarray:
+        *,
+        resident: bool = False,
+    ) -> np.ndarray | Resident:
         """Materialize state ``idx`` from explicit per-row page lists.
 
         ``row_pages`` gives ``(pages, length)`` per batch row (shorter than
@@ -965,8 +979,29 @@ class PagedKVState:
         companion of :meth:`gather`: the suffix-capable prefill consumes the
         *matched prefix* pages of streams that are not in any slot yet, so
         the rows are addressed by pending-batch position, not by slot.
+        ``resident`` (device storage only): build it on the device instead,
+        a zero tensor with the positions read scattered in by one indexed
+        write, and hand it out as a :class:`Resident`.
         """
         ps = self.spec.page_size
+        if resident:
+            if self.device is None:
+                raise RuntimeError("a resident gather needs device pools")
+            self.flush()
+            buf = self._backing[idx]
+            dense = buf.new_zeros(self._dense_shape[idx])
+            rows, pos, src = [], [], []         # (batch row, position) <- pool row
+            for row, (pages, length) in enumerate(row_pages):
+                p = np.arange(length, dtype=np.int64)
+                rows.append(np.full(length, row, np.int64))
+                pos.append(p)
+                src.append(np.asarray(pages, np.int64)[p // ps] * ps + p % ps)
+            if sum(map(len, pos)):
+                rows, pos, src = (torch.from_numpy(np.concatenate(a)).to(self.device)
+                                  for a in (rows, pos, src))
+                ctx = dense.movedim(self.spec.growing[idx], 1)
+                ctx[rows, pos] = self._flat(idx).index_select(0, src)
+            return Resident(dense)
         dense = np.zeros(self._dense_shape[idx], self._dtype[idx])
         reads = [(row, j, page, min(ps, length - j * ps))
                  for row, (pages, length) in enumerate(row_pages)

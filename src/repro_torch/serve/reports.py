@@ -270,6 +270,10 @@ class DecodeReport:
                                         # crossings copied to the device
     step_resident_bytes: int = 0        # argument bytes they passed by
                                         # reference (resident page pools)
+    fetched_bytes: int = 0              # unit output bytes the serving calls
+                                        # (prefills + steps) copied back
+    kept_bytes: int = 0                 # unit output bytes they left on the
+                                        # device (K/V admitted there)
     admit_wait_total: float = 0.0       # seconds from submit() to prefill
     admit_wait_max: float = 0.0
     failures: int = 0                   # streams resolved with an exception
@@ -730,7 +734,7 @@ class DecodeStats(_OwnerFoldingStats):
             streams=0, tokens=0, step_tokens=0, steps=0, prefills=0,
             warm_calls=0, live_rows=0, slot_rows=0, admitted=0, crossings=0,
             state_bytes=0, step_place_s=0.0, step_placed_bytes=0,
-            step_resident_bytes=0,
+            step_resident_bytes=0, fetched_bytes=0, kept_bytes=0,
             admit_wait_total=0.0, admit_wait_max=0.0,
             failures=0, page_size=0, page_capacity=0, pages_in_use=0,
             pages_peak=0, page_allocs=0, page_frees=0, cache_rows_valid=0,
@@ -753,6 +757,8 @@ class DecodeStats(_OwnerFoldingStats):
             r["tokens"] += tokens
             r["crossings"] += report.guest_to_host
             r["state_bytes"] += state_bytes
+            r["fetched_bytes"] += report.fetched_bytes
+            r["kept_bytes"] += report.kept_bytes
             r["admit_wait_total"] += sum(waits)
             r["admit_wait_max"] = max(r["admit_wait_max"], *waits, 0.0)
             self._hist.record((phase, ""), int(report.wall_seconds * 1e9))
@@ -776,6 +782,8 @@ class DecodeStats(_OwnerFoldingStats):
             r["step_place_s"] += report.place_ns / 1e9
             r["step_placed_bytes"] += report.placed_bytes
             r["step_resident_bytes"] += report.resident_bytes
+            r["fetched_bytes"] += report.fetched_bytes
+            r["kept_bytes"] += report.kept_bytes
             r["cache_rows_valid"] += cache_valid
             r["cache_rows_allocated"] += cache_alloc
             if kernel_step:

@@ -53,7 +53,7 @@ import torch
 
 from .. import obs
 from ..core.api import CompiledHybrid, PlannedProgram
-from ..core.convert import Resident, signature_of
+from ..core.convert import Resident, aval_of, signature_of
 from ..core.opset import AVal, canonical_dtype, torch_dtype
 from ..core.offload import Scheme
 from .batcher import (
@@ -1142,9 +1142,10 @@ class DecodeScheduler:
 
     def _suffix_args(
         self,
+        prompts: np.ndarray,
         n_rows: int,
         pins: dict[int, tuple[int, tuple[int, ...]]],
-    ) -> list[np.ndarray]:
+    ) -> list[np.ndarray | Resident]:
         """State inputs for the suffix-capable prefill call.
 
         Growing arrays carry each pending row's cached prefix, gathered from
@@ -1152,15 +1153,18 @@ class DecodeScheduler:
         all-zero); every non-growing state array carries the per-row cached
         length — the suffix entry's contract is therefore ``(growing K/V
         arrays..., length vector, tokens)``, which the scheduler validates
-        against the stored state shapes here.
+        against the stored state shapes here.  The growing arrays are built
+        on the pools' device and cross by reference where the suffix root's
+        plan takes them so (every use reaches an offload unit), as the
+        paged step takes the pools; otherwise they are gathered on the host.
         """
         growing = self.state_spec.growing
+        paged = self._paged
         row_pages = [(pins[i][1], pins[i][0]) if i in pins else ((), 0)
                      for i in range(n_rows)]
-        args: list[np.ndarray] = []
+        lengths: dict[int, np.ndarray] = {}
         for k in range(self._n_state):
             if k in growing:
-                args.append(self._paged.gather_pages(k, row_pages))
                 continue
             ref = self._state[k]
             if ref is None or ref.ndim != 1:
@@ -1172,8 +1176,23 @@ class DecodeScheduler:
             vec = np.zeros((self.capacity,), ref.dtype)
             for i, (shared_len, _) in pins.items():
                 vec[i] = shared_len
-            args.append(vec)
-        return args
+            lengths[k] = vec
+        resident = False
+        if paged.device is not None and paged.device == self._suffix.device:
+            sig = [paged.dense_aval(k) if k in growing else aval_of(lengths[k])
+                   for k in range(self._n_state)] + [aval_of(prompts)]
+            resident = self._suffix.state_for(sig).plan.units_only_read(sorted(growing))
+        return [paged.gather_pages(k, row_pages, resident=resident) if k in growing
+                else lengths[k] for k in range(self._n_state)]
+
+    def _device_returns(self) -> frozenset[int]:
+        """The prefill outputs to take on the device: the growing state
+        (K/V), once their pools live on the prefill's device, so admission
+        copies them into the pools there.  Host pools take them as today."""
+        paged = self._paged
+        if paged is None or paged.device is None or paged.device != self.prefill.device:
+            return frozenset()
+        return frozenset(1 + k for k in self.state_spec.growing)
 
     def _obs(self) -> "obs.Tracer | None":
         return self._tracer if self._tracer is not None else obs.active()
@@ -1222,17 +1241,19 @@ class DecodeScheduler:
                 # rest recompute from len 0 — bit-identical to the plain
                 # prefill row-for-row, because both roots route through the
                 # same encode/head offload units
-                suffix_state = self._suffix_args(len(streams), pins)
+                suffix_state = self._suffix_args(prompts, len(streams), pins)
                 outs, report = self._suffix.call_reported(
-                    *suffix_state, prompts)
+                    *suffix_state, prompts, device_returns=self._device_returns())
             else:
-                outs, report = self.prefill.call_reported(prompts)
+                outs, report = self.prefill.call_reported(
+                    prompts, device_returns=self._device_returns())
             if tr is not None:
                 t_emit = tr.now()
                 tr.add(phase, obs.PREFILL, t0, t_emit - t0,
                        args={"streams": len(streams)})
             logits = np.asarray(outs[0])
-            state = [np.asarray(o) for o in outs[1:]]
+            # growing arrays the call kept on the device stay Resident
+            state = [o if isinstance(o, Resident) else np.asarray(o) for o in outs[1:]]
             growing = self.state_spec.growing
             if self._state is None:
                 # first admission fixes the persistent (capacity, ...)
@@ -1275,7 +1296,7 @@ class DecodeScheduler:
                         # (same batched call), so mapping them is exact
                         shared_len, pages = self._paged.match_and_pin(
                             stream.prompt, keys=keys_by_row.get(i))
-                    self._paged.admit(slot, {k: state[k][i] for k in growing},
+                    self._paged.admit(slot, {k: _row(state[k], i) for k in growing},
                                       prompt_len, shared_len=shared_len,
                                       shared_pages=pages, pinned=True)
                     if sharing:
@@ -1851,6 +1872,11 @@ def decode_reference(
         logits, state = np.asarray(outs[0]), [np.asarray(o) for o in outs[1:]]
         generated.append(int(sample(logits[0])))
     return np.array(generated, np.int32)
+
+
+def _row(state: np.ndarray | Resident, i: int) -> np.ndarray | torch.Tensor:
+    """Row ``i`` of a batched state output: numpy, or a kept one's device row."""
+    return state.tensor[i] if isinstance(state, Resident) else state[i]
 
 
 def _pools_device(paged_step: CompiledHybrid | None, paged: PagedKVState,

@@ -129,15 +129,21 @@ def _same(host, dev, rows=()):
     for k in (0, 1):
         assert np.array_equal(host._backing[k], dev._backing[k].numpy()), k
         assert np.array_equal(host.gather_pages(k, rows), dev.gather_pages(k, rows)), k
+        resident = dev.gather_pages(k, rows, resident=True)
+        assert isinstance(resident, Resident)
+        assert np.array_equal(host.gather_pages(k, rows), resident.tensor.numpy()), k
     assert host.table._tables == dev.table._tables and host.lengths == dev.lengths
 
 
+@pytest.mark.parametrize("device_rows", [False, True], ids=["host_rows", "device_rows"])
 @pytest.mark.parametrize("seed", range(6))
-def test_device_pools_hold_the_host_pools_bytes(seed):
+def test_device_pools_hold_the_host_pools_bytes(seed, device_rows):
     """Random admissions (some sharing a donor's pages up to a mid-page
     length, so the boundary page is copied on write), appends held until a
     flush and retirements in between: both storages hold the same bytes,
-    page for page, and gather the same rows."""
+    page for page, and gather the same rows, on the host and on the device.
+    ``device_rows``: the device storage admits rows already on the device,
+    as a prefill's kept K/V."""
     rng = np.random.default_rng(seed)
     host, dev = _twins()
     live: dict[int, int] = {}
@@ -158,8 +164,9 @@ def test_device_pools_hold_the_host_pools_bytes(seed):
                     for p in pages:
                         t.pool.retain(p)
                 kw = dict(shared_len=shared, shared_pages=pages, pinned=True)
-            for t in (host, dev):
-                t.admit(slot, row, length, **kw)
+            host.admit(slot, row, length, **kw)
+            dev.admit(slot, {k: torch.from_numpy(v) for k, v in row.items()}
+                      if device_rows else row, length, **kw)
             live[slot] = length
         elif op == "append" and live:
             # one step: every live slot appends, some retire right after
@@ -217,3 +224,137 @@ def test_device_pools_refuse_a_dense_gather_and_a_second_home():
     mixed_home.ensure_buffers(0, np.zeros((2, MAX_CTX, 3), np.float32), CPU)
     with pytest.raises(ValueError, match="live on cpu"):
         mixed_home.ensure_buffers(1, np.zeros((2, MAX_CTX, 3), np.float32))
+
+
+# -- kept prefill outputs: admission fills the pools on the device ------------
+
+
+def _prefix_prompts(n, seed, length=10, shared=2 * PAGE):
+    """``n`` prompts, the first ``shared`` tokens common to all."""
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, VOCAB, (shared,), dtype=np.int32)
+    return [np.concatenate([head, rng.integers(0, VOCAB, (length - shared,), dtype=np.int32)])
+            for _ in range(n)]
+
+
+def _kept_run(prompts, lens, *, share, host_path=False, capacity=3, fail_suffix=False,
+              device="cpu", d_model=DM, ctx=MAX_CTX):
+    """Serve ``prompts`` in waves through the paged-kernel scheduler.
+    ``host_path``: the scheduler asks for no prefill output on the device,
+    so admission copies the K/V back and places them again, and the suffix
+    prefill's cached K/V are gathered on the host, as before kept outputs.  ``fail_suffix``: the first suffix prefill raises."""
+    planned = mixed.trace(export_attn_decode_lm(vocab=VOCAB, d_model=d_model,
+                                                max_context=ctx)).plan("tech-gfp")
+    spec = StateSpec(growing={0: 1, 1: 1}, max_context=ctx, page_size=PAGE,
+                     share_prefixes=share)
+    sched = DecodeScheduler(planned, step="decode_step", paged_step="paged_decode_step",
+                            prefill_suffix="prefill_suffix" if share else None,
+                            capacity=capacity, state=spec, backend=device, start=False)
+    gathers = []
+    gather = sched._paged.gather_pages
+
+    def spy(*a, resident=False):
+        gathers.append(resident)
+        return gather(*a, resident=resident and not host_path)
+    sched._paged.gather_pages = spy
+    if host_path:
+        sched._device_returns = frozenset
+    outs = []
+    with sched:
+        sched.warm(prompts[0].shape[0])
+        if fail_suffix:
+            call = sched._suffix.call_reported
+            failed = []
+
+            def once(*a, **kw):
+                if not failed:
+                    failed.append(1)
+                    raise RuntimeError("suffix prefill failed")
+                return call(*a, **kw)
+            sched._suffix.call_reported = once
+        sched.start()
+        for i in range(0, len(prompts), capacity):
+            wave = [sched.submit(p, n) for p, n in zip(prompts[i:i + capacity],
+                                                       lens[i:i + capacity])]
+            for s in wave:
+                try:
+                    outs.append(s.result(timeout=240).tolist())
+                except RuntimeError as e:
+                    outs.append(str(e))
+    return outs, sched.report(), sched, gathers
+
+
+@pytest.mark.parametrize("share", [False, True], ids=["prefill", "suffix"])
+def test_kept_prefill_rows_fill_the_pools_as_the_host_path(share):
+    """Prefills that leave K/V on the device (after the first, which sizes
+    the pools from host rows) fill the pools with the host path's bytes;
+    tokens equal the host path's and the solo oracle's; with sharing the
+    suffix prefill takes its cached prefix K/V on the device by reference.
+    Kept bytes are the K/V of every kept prefill (and, in the suffix root,
+    the recomputed K/V handed to the second segment as well)."""
+    prompts = _prefix_prompts(9, seed=13) if share else _prompts(9, seed=13, length=10)
+    lens = [1 + i % 6 for i in range(9)]
+    kept, rep, sched, gathers = _kept_run(prompts, lens, share=share)
+    host, host_rep, host_sched, host_gathers = _kept_run(prompts, lens, share=share,
+                                                         host_path=True)
+    assert kept == host
+    pstep = sched.paged_step_planned.compile(backend="cpu")
+    for p, n, out in zip(prompts, lens, kept):
+        assert np.array_equal(paged_decode_reference(sched.prefill, pstep, p, n,
+                                                     capacity=3, state=_spec()), out)
+    for k in (0, 1):
+        assert torch.equal(sched._paged._backing[k], host_sched._paged._backing[k])
+    kv = 2 * 3 * MAX_CTX * DM * 4                   # one prefill's K and V
+    # the host path keeps only the suffix root's recomputed K/V
+    assert host_rep.kept_bytes % kv == 0 and (host_rep.kept_bytes > 0) == share
+    assert rep.crossings == host_rep.crossings and rep.prefills == host_rep.prefills > 1
+    assert rep.kept_bytes - host_rep.kept_bytes == (rep.prefills - 1) * kv
+    assert host_rep.fetched_bytes - rep.fetched_bytes == (rep.prefills - 1) * kv
+    if share:
+        assert rep.prefix_hits > 0 and rep.prefix_hits == host_rep.prefix_hits
+        assert set(gathers) == set(host_gathers) == {True}
+    assert rep.pages_in_use == 0 and rep.page_allocs == rep.page_frees > 0
+
+
+def test_a_failing_suffix_group_returns_its_pins():
+    """The first suffix prefill raises: its streams fail, the pinned prefix
+    pages go back to the pool, and every later stream still equals its solo
+    oracle; nothing leaks at close."""
+    prompts = _prefix_prompts(9, seed=17)
+    lens = [2 + i % 4 for i in range(9)]
+    outs, rep, sched, gathers = _kept_run(prompts, lens, share=True, fail_suffix=True)
+    failed = [i for i, o in enumerate(outs) if isinstance(o, str)]
+    assert failed and rep.failures == len(failed)
+    assert all(outs[i] == "suffix prefill failed" for i in failed)
+    assert set(gathers) == {True}
+    pstep = sched.paged_step_planned.compile(backend="cpu")
+    for p, n, out in zip(prompts, lens, outs):
+        if not isinstance(out, str):
+            assert np.array_equal(paged_decode_reference(sched.prefill, pstep, p, n,
+                                                         capacity=3, state=_spec()), out)
+    assert rep.kept_bytes > 0
+    assert rep.pages_in_use == 0 and sched._paged.pool.refs_outstanding == 0
+
+
+@pytest.mark.gpu
+def test_kept_prefill_rows_on_the_card_equal_the_host_path():
+    """On the card (d_model 960, context 2048, pages of 16): prefills and
+    suffix prefills that keep K/V there fill the CUDA pools with the host
+    path's bytes and decode its tokens; a kept prefill fetches only the
+    hidden rows, the logits and the lengths."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the pools live on the card only there")
+    prompts = _prefix_prompts(9, seed=23, length=40, shared=2 * PAGE)
+    lens = [1 + i % 6 for i in range(9)]
+    kw = dict(share=True, device="cuda", d_model=960, ctx=2048)
+    kept, rep, sched, gathers = _kept_run(prompts, lens, **kw)
+    host, host_rep, host_sched, _ = _kept_run(prompts, lens, host_path=True, **kw)
+    assert kept == host and rep.failures == 0 and set(gathers) == {True}
+    assert sched._paged.device.type == "cuda"
+    for k in (0, 1):
+        assert torch.equal(sched._paged._backing[k], host_sched._paged._backing[k])
+    kv = 2 * 3 * 2048 * 960 * 4
+    assert rep.prefills == host_rep.prefills > 1 and rep.prefix_hits > 0
+    assert rep.kept_bytes - host_rep.kept_bytes == (rep.prefills - 1) * kv
+    assert host_rep.fetched_bytes - rep.fetched_bytes == (rep.prefills - 1) * kv
+    assert rep.pages_in_use == 0 and rep.page_allocs == rep.page_frees > 0
